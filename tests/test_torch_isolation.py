@@ -1,0 +1,125 @@
+"""The port stands alone: tpu_reductions_torch/ and chip_smoke.py import
+neither jax nor any tpu_reductions module, and without a card and without
+an explicit CPU request the entry points and kernel wrappers raise rather
+than run on the CPU."""
+
+import ast
+import io
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tpu_reductions_torch import device as device_mod
+from tpu_reductions_torch.bench import driver
+from tpu_reductions_torch.config import ReduceConfig
+from tpu_reductions_torch.ops import kernel_reduce as kr
+from tpu_reductions_torch.ops.registry import get_op
+from tpu_reductions_torch.utils.logging import BenchLogger
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "tpu_reductions_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    root = module.split(".")[0]
+    return root in ("jax", "jaxlib") or root == "tpu_reductions"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("__import__", "import_module") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            names = [node.args[0].value]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, runpy, sys\n"
+        "import tpu_reductions_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    if m.name != 'tpu_reductions_torch.__main__':\n"
+        "        importlib.import_module(m.name)\n"
+        "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'tpu_reductions')]\n"
+        "print(len([k for k in sys.modules "
+        "if k.startswith('tpu_reductions_torch.')]))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 14   # every module was imported
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a CUDA device")
+
+
+def test_entry_points_raise_without_card(no_card):
+    with pytest.raises(RuntimeError, match="--platform=cpu"):
+        device_mod.resolve("gpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kr.kernel_reduce(torch.arange(100, dtype=torch.int32), "SUM")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        driver.run_benchmark(ReduceConfig(n=4096, log_file=None),
+                             logger=BenchLogger(console=io.StringIO()))
+    stage_fn, _ = kr.make_staged_reduce("SUM", 100, "int32",
+                                        device=torch.device("cuda"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        stage_fn(torch.arange(100, dtype=torch.int32))
+
+
+def test_cli_raises_without_card(no_card):
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_reductions_torch", "--method=SUM",
+         "--n=4096", "--logfile="], cwd=REPO, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "PASSED" not in proc.stdout
+
+
+def test_chip_smoke_fails_without_card(no_card):
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("call", ["k6", "k7"])
+def test_wrappers_take_plain_version_only_on_cpu(call):
+    """A tensor on any device but the CPU goes to the kernel; one the
+    kernel cannot take raises instead of falling back."""
+    op = get_op("SUM")
+    meta = torch.empty((64, 128), dtype=torch.int32, device="meta")
+    cpu = torch.ones((64, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if call == "k6":
+            kr.single_pass_call(meta, op)
+        else:
+            kr.two_pass_call(meta, op, 8, 4, 2)
+    before = (kr.single_pass_call.launches, kr.two_pass_call.launches)
+    got = (kr.single_pass_call(cpu, op) if call == "k6"
+           else kr.two_pass_call(cpu, op, 8, 4, 2))
+    assert int(got.sum()) == 64 * 128
+    # the plain version is no launch
+    assert (kr.single_pass_call.launches, kr.two_pass_call.launches) == before

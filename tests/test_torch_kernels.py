@@ -1,0 +1,198 @@
+"""The port's k6/k7 (tpu_reductions_torch/ops/kernel_reduce.py) held against
+the JAX package's Pallas kernels, run in interpret mode on the CPU.
+
+Both packages stage the same numpy-seeded payload; the staged arrays must
+be bit-equal, and then the port's plain versions (what its wrappers run
+on CPU tensors) must match `single_pass_call` / `two_pass_call`
+element by element: bit-exact for int32 (wrapping adds) and MIN/MAX
+(selections), and for float SUM within rtol 1e-6 (float32), 1e-12
+(float64) and 1e-2 (bfloat16 data, float32 accumulator), because the two
+add in different orders.
+
+The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py.
+"""
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tpu_reductions.ops import pallas_reduce as pr
+from tpu_reductions.ops.registry import get_op as jax_get_op
+from tpu_reductions_torch.ops import kernel_reduce as kr
+from tpu_reductions_torch.ops.registry import get_op
+
+DTYPES = ("int32", "float32", "float64", "bfloat16")
+METHODS = ("SUM", "MIN", "MAX")
+SUM_RTOL = {"float32": 1e-6, "float64": 1e-12, "bfloat16": 1e-2}
+
+
+def payload(n, dtype, method, seed=0):
+    """numpy-seeded data: full-range int32 (SUM wraps), non-negative reals
+    for SUM (so a relative tolerance means something), signed reals for
+    MIN/MAX (so MAX's identity must lose to negatives)."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        return rng.integers(-2**31, 2**31, size=n, dtype=np.int64
+                            ).astype(np.int32)
+    x = rng.random(n) if method == "SUM" else rng.standard_normal(n)
+    return x.astype(ml_dtypes.bfloat16 if dtype == "bfloat16" else dtype)
+
+
+def to_torch(a) -> torch.Tensor:
+    """numpy/JAX array -> CPU tensor with the same bits."""
+    a = np.asarray(a)
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def bits(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def stage_both(x, method, threads, max_blocks):
+    """Stage x in both packages; assert the staged arrays are bit-equal."""
+    tm, p, t = pr.choose_tiling(x.size, threads, max_blocks, x.dtype)
+    assert (tm, p, t) == kr.choose_tiling(x.size, threads, max_blocks,
+                                          to_torch(x).dtype)
+    x2d_jax = pr.stage_padded(x, tm, p, t, jax_get_op(method))
+    x2d = kr.stage_padded(to_torch(x), tm, p, t, get_op(method))
+    np.testing.assert_array_equal(bits(x2d), bits(to_torch(x2d_jax)))
+    return x2d_jax, x2d, (tm, p, t)
+
+
+def assert_acc_match(got: torch.Tensor, want, method, dtype):
+    want_t = to_torch(want)
+    assert got.shape == want_t.shape
+    assert got.dtype == want_t.dtype
+    if dtype == "int32" or method != "SUM":
+        np.testing.assert_array_equal(bits(got), bits(want_t))
+    else:
+        np.testing.assert_allclose(got.double().numpy(),
+                                   want_t.double().numpy(),
+                                   rtol=SUM_RTOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("kernel", [6, 7])
+def test_plain_matches_pallas(kernel, method, dtype):
+    # 33 rows: 5 tiles over 4 blocks (bf16: 3 tiles over 3 blocks)
+    x = payload(4096 + 7, dtype, method)
+    x2d_jax, x2d, (tm, p, t) = stage_both(x, method, threads=8, max_blocks=4)
+    if kernel == 6:
+        got = kr.single_pass_plain(x2d, get_op(method))
+        want = pr.single_pass_call(x2d_jax, jax_get_op(method), tm,
+                                   interpret=True)
+    else:
+        got = kr.two_pass_plain(x2d, get_op(method), tm, p, t)
+        want = pr.two_pass_call(x2d_jax, jax_get_op(method), tm, p, t,
+                                interpret=True)
+    assert_acc_match(got, want, method, dtype)
+
+
+@pytest.mark.parametrize("max_blocks", [1, 4, 64])
+@pytest.mark.parametrize("threads", [8, 16, 256])
+@pytest.mark.parametrize("n", [1000, 4096 + 7, 65536])
+def test_geometry_grid_matches_pallas(n, threads, max_blocks):
+    """Single-tile, multi-tile, multi-block geometries: the wrappers (which
+    take the plain version on the CPU) against both JAX kernels."""
+    x = payload(n, "int32", "SUM", seed=n)
+    x2d_jax, x2d, (tm, p, t) = stage_both(x, "SUM", threads, max_blocks)
+    op, jop = get_op("SUM"), jax_get_op("SUM")
+    assert_acc_match(kr.single_pass_call(x2d, op),
+                     pr.single_pass_call(x2d_jax, jop, tm, interpret=True),
+                     "SUM", "int32")
+    assert_acc_match(kr.two_pass_call(x2d, op, tm, p, t),
+                     pr.two_pass_call(x2d_jax, jop, tm, p, t,
+                                      interpret=True),
+                     "SUM", "int32")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_choose_tiling_agrees(dtype):
+    np_dtype = ml_dtypes.bfloat16 if dtype == "bfloat16" else dtype
+    for n in (1, 127, 128, 129, 1000, 4096 + 7, 65536, 1 << 24, (1 << 24) + 37):
+        for threads in (1, 8, 16, 24, 256, 384, 4096):
+            for max_blocks in (1, 4, 64, 1000):
+                assert kr.choose_tiling(n, threads, max_blocks, dtype) == \
+                    pr.choose_tiling(n, threads, max_blocks, np_dtype)
+    assert kr.sublanes_for(dtype) == pr.sublanes_for(np_dtype)
+
+
+def _record_passes(monkeypatch, module, call_name):
+    """Wrap module.two_pass_call to record (input shape, output shape)."""
+    passes = []
+    real = getattr(module, call_name)
+
+    def recording(x2d, *args, **kwargs):
+        out = real(x2d, *args, **kwargs)
+        passes.append((tuple(x2d.shape), tuple(out.shape)))
+        return out
+
+    monkeypatch.setattr(module, call_name, recording)
+    return passes
+
+
+@pytest.mark.parametrize("case", [
+    # (n, dtype, method, threads, max_blocks, cpu_thresh)
+    (65536, "int32", "SUM", 8, 64, 1),       # tm == sublane, p == tiles:
+    (65536, "int32", "MAX", 8, 1000, 1),     # the halving clamp's case
+    (4096 + 7, "float32", "MIN", 16, 4, 1),
+    (65536, "int32", "MIN", 16, 64, 40),     # stops at the threshold
+    (65536, "bfloat16", "MIN", 16, 64, 1),   # bf16 partials: sub 16
+    (65536, "bfloat16", "SUM", 16, 64, 1),   # f32 partials of bf16 data
+])
+def test_multipass_finish_matches_pallas(monkeypatch, case):
+    n, dtype, method, threads, max_blocks, cpu_thresh = case
+    x = payload(n, dtype, method)
+    x2d_jax, x2d, (tm, p, t) = stage_both(x, method, threads, max_blocks)
+    op, jop = get_op(method), jax_get_op(method)
+    jax_passes = _record_passes(monkeypatch, pr, "two_pass_call")
+    torch_passes = _record_passes(monkeypatch, kr, "two_pass_call")
+    want = pr._multipass_finish(
+        pr.two_pass_call(x2d_jax, jop, tm, p, t, interpret=True), jop,
+        threads, max_blocks, cpu_thresh, interpret=True)
+    got = kr._multipass_finish(kr.two_pass_call(x2d, op, tm, p, t), op,
+                               threads, max_blocks, cpu_thresh)
+    assert torch_passes == jax_passes
+    assert len(torch_passes) >= 2
+    assert_acc_match(got, want, method, dtype)
+
+
+def _expect(x, method):
+    if method == "SUM":
+        return x.sum(dtype=np.int64).astype(np.int32)
+    return x.min() if method == "MIN" else x.max()
+
+
+@pytest.mark.parametrize("kernel", [6, 7])
+@pytest.mark.parametrize("n", [1, 7, 128, 129, 1024, 4097, 8192, 100_000])
+@pytest.mark.parametrize("method", ["MIN", "MAX"])
+def test_nonpow2_minmax_regression(n, method, kernel):
+    """The reference's min/max kernels read out of bounds for non-pow2 n;
+    identity padding makes every size exact (tests/test_pallas_reduce.py's
+    regression, on the port's one-shot entry point)."""
+    rng = np.random.default_rng(n)
+    x = rng.integers(-2**30, 2**30, size=n).astype(np.int32)
+    got = kr.kernel_reduce(torch.from_numpy(x), method, threads=16,
+                           max_blocks=4, kernel=kernel, device="cpu")
+    assert got.item() == _expect(x, method)
+
+
+@pytest.mark.parametrize("method, kwargs", [
+    ("SUM", dict(kernel=7, cpu_thresh=4)),
+    ("MIN", dict(kernel=7, cpu_final=True)),
+    ("MAX", dict(kernel=6, cpu_final=True))])
+def test_one_shot_matches_pallas_reduce(method, kwargs):
+    x = payload(50_000, "int32", method, seed=1)
+    want = pr.pallas_reduce(jnp.asarray(x), method, threads=16, max_blocks=8,
+                            interpret=True, **kwargs)
+    got = kr.kernel_reduce(torch.from_numpy(x), method, threads=16,
+                           max_blocks=8, device="cpu", **kwargs)
+    assert np.asarray(got).astype(np.int64) == np.asarray(want).astype(np.int64)

@@ -1,0 +1,303 @@
+"""The self-verifying single-GPU reduction benchmark driver.
+
+The counterpart of tpu_reductions/bench/driver.py:
+
+  host payload -> stage to the device (padded (rows, 128), untimed)
+  -> warm-up -> timed, synced iterations (or chained slope timing)
+  -> GB/s from the per-iteration time -> verify against the host oracle
+  -> PASSED / FAILED / WAIVED, which is also the exit code.
+
+float64 runs natively on the card through the chosen kernel. The JAX
+package routes f64 on a TPU through its double-double kernel and WAIVEs
+what that route cannot label honestly (its driver.py:127-153, 459-496);
+those gates have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import io
+import math
+import sys
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tpu_reductions_torch import device as device_mod
+from tpu_reductions_torch.config import (LIVE_KERNELS, ReduceConfig,
+                                         parse_single_chip)
+from tpu_reductions_torch.ops.chain import make_chained_reduce
+from tpu_reductions_torch.ops.kernel_reduce import (choose_tiling,
+                                                    make_staged_core,
+                                                    make_staged_reduce,
+                                                    stage_padded)
+from tpu_reductions_torch.ops.oracle import host_reduce, host_value, verify
+from tpu_reductions_torch.ops.registry import get_op, tolerance
+from tpu_reductions_torch.ops.torch_reduce import make_torch_reduce
+from tpu_reductions_torch.utils.logging import BenchLogger, throughput_line
+from tpu_reductions_torch.utils.qa import QAStatus, qa_finish, qa_start
+from tpu_reductions_torch.utils.rng import host_data
+from tpu_reductions_torch.utils.timing import time_chained, time_fn
+
+NAME = "tpu_reductions_torch"
+
+
+@dataclasses.dataclass
+class BenchResult:
+    """One benchmark outcome: the data behind the throughput row plus the
+    QA status. The same fields as the JAX package's BenchResult."""
+
+    method: str
+    dtype: str
+    n: int
+    backend: str
+    kernel: int
+    gbps: float
+    avg_s: float
+    iterations: int
+    status: QAStatus
+    device_result: float
+    oracle_result: float
+    abs_diff: float
+    waived_reason: Optional[str] = None
+    timing: Optional[str] = None       # the discipline actually used
+    slope_samples_s: Optional[list] = None   # chained mode's slopes
+
+    @property
+    def passed(self) -> bool:
+        return self.status == QAStatus.PASSED
+
+    def to_dict(self) -> dict:
+        """JSON-ready row; status as its marker name, non-finite floats
+        as null."""
+        d = dataclasses.asdict(self)
+        d["status"] = self.status.name
+        for k, v in d.items():
+            if isinstance(v, float) and not math.isfinite(v):
+                d[k] = None
+            elif isinstance(v, list):
+                d[k] = [x if isinstance(x, (int, float))
+                        and math.isfinite(x) else None for x in v]
+        return d
+
+
+def _unrun(cfg: ReduceConfig, status: QAStatus, reason: str,
+           backend: Optional[str] = None, **fields) -> BenchResult:
+    """A row for a configuration that produced no measurement."""
+    nan = float("nan")
+    row = dict(gbps=0.0, avg_s=0.0, iterations=0, device_result=nan,
+               oracle_result=nan, abs_diff=nan, timing=cfg.timing)
+    row.update(fields)
+    return BenchResult(cfg.method, cfg.dtype, cfg.n, backend or cfg.backend,
+                       cfg.kernel, status=status, waived_reason=reason, **row)
+
+
+def _resolve_backend(cfg: ReduceConfig) -> str:
+    # auto: the hand-written kernels; torch remains the comparator
+    return "cuda" if cfg.backend == "auto" else cfg.backend
+
+
+def _make_device_fn(cfg: ReduceConfig, backend: str, device: torch.device):
+    """(stage_fn, reduce_fn) for the chosen backend."""
+    if backend == "torch":
+        op = get_op(cfg.method)
+        tm, p, t = choose_tiling(cfg.n, dtype=cfg.dtype)
+
+        def stage_fn(x):
+            return stage_padded(x, tm, p, t, op, device)
+
+        return stage_fn, make_torch_reduce(cfg.method)
+    return make_staged_reduce(
+        cfg.method, cfg.n, cfg.dtype, threads=cfg.threads,
+        max_blocks=cfg.max_blocks, kernel=cfg.kernel,
+        cpu_final=cfg.cpu_final, cpu_thresh=cfg.cpu_thresh, device=device)
+
+
+def _chain_supported(cfg: ReduceConfig) -> bool:
+    """--cpufinal does host work inside the timed region by definition,
+    so it cannot be chained on the device."""
+    return not cfg.cpu_final
+
+
+def resolved_timing(cfg: ReduceConfig) -> str:
+    """The discipline a run of cfg actually uses: chained falls back to
+    fetch when the reduce is not chainable."""
+    if cfg.timing == "chained" and not _chain_supported(cfg):
+        return "fetch"
+    return cfg.timing
+
+
+def _make_chained_fn(cfg: ReduceConfig, backend: str, device: torch.device):
+    """`chained(x2d, k)` for slope timing, or None when cfg cannot chain."""
+    if not _chain_supported(cfg):
+        return None
+    if backend == "torch":
+        op = get_op(cfg.method)
+        return make_chained_reduce(op.reduce, op)
+    op, _stage, core = make_staged_core(
+        cfg.method, cfg.n, cfg.dtype, threads=cfg.threads,
+        max_blocks=cfg.max_blocks, kernel=cfg.kernel,
+        cpu_thresh=cfg.cpu_thresh, device=device)
+    return make_chained_reduce(core, op)
+
+
+def _make_logger(cfg: ReduceConfig) -> BenchLogger:
+    """--qatest: markers and log files only, no console narrative."""
+    return BenchLogger(cfg.log_file, cfg.master_log,
+                       console=io.StringIO() if cfg.qatest else None)
+
+
+def run_benchmark(cfg: ReduceConfig, logger: Optional[BenchLogger] = None,
+                  defer: bool = False):
+    """Run one self-verifying configuration on cfg.platform (the card
+    unless it is "cpu"; with no card this raises). defer=True returns a
+    _PendingResult whose device value is not fetched yet; its
+    .finalize() gives the BenchResult."""
+    if logger is None:
+        logger = _make_logger(cfg)
+    device_mod.resolve(cfg.platform)
+    if cfg.device is not None:
+        found = device_mod.count(cfg.platform)
+        if not 0 <= cfg.device < found:
+            return _unrun(cfg, QAStatus.WAIVED,
+                          f"device {cfg.device} not present ({found} found)")
+    device = device_mod.resolve(cfg.platform, cfg.device)
+    return _run_benchmark_inner(cfg, logger, device, defer)
+
+
+@dataclasses.dataclass
+class _PendingResult:
+    """A timed run whose device result has not been brought to the host
+    yet; the host oracle's value is computed eagerly (it never touches the
+    device)."""
+
+    cfg: ReduceConfig
+    backend: str
+    gbps: float
+    avg_s: float
+    result: object         # 0-d device tensor, or a host scalar (--cpufinal)
+    host_val_raw: object
+    logger: BenchLogger
+    timing: Optional[str] = None
+    samples: Optional[list] = None
+
+    def finalize(self) -> BenchResult:
+        cfg = self.cfg
+        status = QAStatus.PASSED
+        dev_raw = (host_value(self.result)
+                   if isinstance(self.result, torch.Tensor) else self.result)
+        dev_val = float(np.asarray(dev_raw, dtype=np.float64))
+        host_val = float("nan")
+        diff = float("nan")
+        if cfg.verify:
+            passed, diff = verify(dev_raw, self.host_val_raw, cfg.method,
+                                  cfg.dtype, cfg.n)
+            host_val = float(np.asarray(self.host_val_raw, dtype=np.float64))
+            status = QAStatus.PASSED if passed else QAStatus.FAILED
+            tol = tolerance(cfg.method, cfg.dtype, cfg.n)
+            self.logger.log(f"GPU result = {dev_val!r}")
+            self.logger.log(f"CPU result = {host_val!r} (tolerance {tol:g})")
+        return BenchResult(cfg.method, cfg.dtype, cfg.n, self.backend,
+                           cfg.kernel, self.gbps, self.avg_s,
+                           cfg.iterations, status, dev_val, host_val, diff,
+                           timing=self.timing or cfg.timing,
+                           slope_samples_s=self.samples)
+
+
+def run_benchmark_batch(cfgs, logger: Optional[BenchLogger] = None,
+                        on_result=None) -> list:
+    """Run several configurations in one process: every timed loop first,
+    then every verification. A configuration that raises becomes a FAILED
+    row and the rest still run. on_result(cfg, result), when given, is
+    called right after each configuration is verified."""
+    cfgs = list(cfgs)
+    pendings = []
+    for cfg in cfgs:
+        try:
+            pendings.append(run_benchmark(cfg, logger=logger, defer=True))
+        except Exception as e:  # contained to this configuration's row
+            pendings.append(crash_result(cfg, e, logger))
+    results = []
+    for cfg, p in zip(cfgs, pendings):
+        try:
+            res = p.finalize() if isinstance(p, _PendingResult) else p
+        except Exception as e:  # contained to this configuration's row
+            res = crash_result(cfg, e, logger)
+        if on_result is not None:
+            on_result(cfg, res)
+        results.append(res)
+    return results
+
+
+def crash_result(cfg: ReduceConfig, exc: Exception,
+                 logger: Optional[BenchLogger] = None) -> BenchResult:
+    """A FAILED row for a configuration whose run raised; the error is
+    logged and kept in the row's reason field."""
+    if logger is not None:
+        logger.log(f"config kernel={cfg.kernel} threads={cfg.threads} "
+                   f"raised {type(exc).__name__}: {exc}")
+    return _unrun(cfg, QAStatus.FAILED, f"{type(exc).__name__}: {exc}"[:200])
+
+
+def _run_benchmark_inner(cfg: ReduceConfig, logger: BenchLogger,
+                         device: torch.device, defer: bool = False):
+    if cfg.kernel not in LIVE_KERNELS:
+        # the reference emptied kernels 0-5: not an error, not provided
+        return _unrun(cfg, QAStatus.WAIVED,
+                      f"kernel {cfg.kernel} not live (live: {LIVE_KERNELS})")
+
+    backend = _resolve_backend(cfg)
+    x_host = host_data(cfg.n, cfg.dtype, rank=0, seed=cfg.seed)
+
+    stage_fn, reduce_fn = _make_device_fn(cfg, backend, device)
+    x_dev = stage_fn(x_host)             # host-to-device copy + pad, untimed
+    device_mod.synchronize(device)
+
+    timing_mode = cfg.timing
+    chained = (_make_chained_fn(cfg, backend, device)
+               if timing_mode == "chained" else None)
+    if timing_mode == "chained" and chained is None:
+        logger.log("NOTE: timing=chained needs an all-device reduce "
+                   "(--cpufinal finishes on host by definition); "
+                   "falling back to timing=fetch")
+        timing_mode = "fetch"
+    if chained is not None:
+        sw = time_chained(chained, x_dev, k_lo=1, k_hi=1 + cfg.iterations,
+                          reps=cfg.chain_reps)
+        avg_s = sw.average_s if cfg.stat == "mean" else sw.median_s
+        if avg_s <= 0:
+            # noise swamped the slope: report no bandwidth from it
+            return _unrun(cfg, QAStatus.WAIVED,
+                          "chained timing slope non-positive (host noise)",
+                          backend=backend, avg_s=avg_s,
+                          iterations=cfg.iterations, timing="chained",
+                          slope_samples_s=list(sw.samples))
+        result = reduce_fn(x_dev)        # the verification value, untimed
+    else:
+        result, sw = time_fn(reduce_fn, x_dev,
+                             sync=lambda: device_mod.synchronize(device),
+                             iterations=cfg.iterations,
+                             warmup=max(cfg.warmup, 1), mode=timing_mode)
+        avg_s = sw.average_s if cfg.stat == "mean" else sw.median_s
+    gbps = (cfg.nbytes / avg_s) / 1e9 if avg_s > 0 else float("inf")
+
+    logger.log_master(throughput_line(gbps, avg_s, cfg.n,
+                                      devices=1, workgroup=cfg.threads))
+
+    host = host_reduce(x_host, cfg.method) if cfg.verify else None
+    pending = _PendingResult(cfg, backend, gbps, avg_s, result, host, logger,
+                             timing=("chained" if chained is not None
+                                     else timing_mode),
+                             samples=(list(sw.samples)
+                                      if chained is not None else None))
+    return pending if defer else pending.finalize()
+
+
+def main(argv=None) -> int:
+    """CLI entry: RUNNING marker, parse, run, terminal marker; returns the
+    QA exit code."""
+    qa_start(NAME, list(argv) if argv else sys.argv[1:])
+    cfg = parse_single_chip(argv)
+    res = run_benchmark(cfg, logger=_make_logger(cfg))
+    return qa_finish(NAME, res.status)

@@ -1,0 +1,185 @@
+"""Flags and configuration of the single-chip benchmark.
+
+The counterpart of tpu_reductions/config.py (`DTYPE_ALIASES`, `METHODS`,
+the kernel ids, `ReduceConfig`, `parse_single_chip`). Flags keep the JAX
+package's spelling and defaults:
+
+  --method={SUM|MIN|MAX}       required
+  --type={int|float|double}    or int32/float32/float64/bfloat16
+  --n, --seed, --threads, --maxblocks, --cpufinal, --cputhresh
+  --kernel                     6 (single pass) and 7 (partials) run;
+                               0-5 WAIVE; 8, 9 and 10 are not ported yet
+                               and are refused (ROADMAP.md)
+  --backend={auto|cuda|torch}  cuda: the hand-written kernels (auto picks
+                               them); torch: the comparator
+  --platform={gpu|cpu}         the card by default
+  --iterations --warmup --device --logfile --masterlog --qatest
+  --no-verify --timing --chainreps --stat
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional
+
+DTYPE_ALIASES = {
+    "int": "int32",
+    "float": "float32",
+    "double": "float64",
+    "int32": "int32",
+    "float32": "float32",
+    "float64": "float64",
+    "bfloat16": "bfloat16",
+}
+
+METHODS = ("SUM", "MIN", "MAX")
+BACKENDS = ("auto", "cuda", "torch")
+PLATFORMS = ("gpu", "cpu")
+TIMINGS = ("periter", "bulk", "fetch", "chained")
+
+# Kernel ids of the JAX package (its config.py:224-236). 0-5 WAIVE, as
+# the reference emptied them; 6 and 7 are ported; 8-10 wait in ROADMAP.md.
+LIVE_KERNELS = (6, 7)
+NOT_PORTED_KERNELS = (8, 9, 10)
+KERNEL_SINGLE_PASS = 6
+KERNEL_TWO_PASS = 7
+
+
+def not_ported_message(kernel: int) -> str:
+    return (f"kernel {kernel} is not ported to the GPU yet; ROADMAP.md "
+            "(Queue B) lists it as still to be ported")
+
+
+@dataclasses.dataclass
+class ReduceConfig:
+    """Single-chip reduction benchmark configuration (the driver's input)."""
+
+    method: str = "SUM"
+    dtype: str = "int32"
+    n: int = 1 << 24
+    threads: int = 256               # tile rows
+    kernel: int = KERNEL_SINGLE_PASS
+    max_blocks: int = 64             # partial-block clamp
+    cpu_final: bool = False
+    cpu_thresh: int = 1
+    backend: str = "auto"
+    platform: str = "gpu"
+    iterations: int = 100
+    warmup: int = 1
+    seed: int = 0
+    device: Optional[int] = None     # --device index
+    log_file: Optional[str] = "reduction.txt"
+    master_log: Optional[str] = None
+    qatest: bool = False
+    verify: bool = True
+    timing: str = "periter"
+    chain_reps: int = 5
+    stat: str = "mean"
+
+    def __post_init__(self) -> None:
+        self.method = self.method.upper()
+        if self.method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, got {self.method!r}")
+        if self.dtype not in DTYPE_ALIASES:
+            raise ValueError(f"unknown dtype {self.dtype!r}")
+        self.dtype = DTYPE_ALIASES[self.dtype]
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
+        if self.platform not in PLATFORMS:
+            raise ValueError(f"platform must be one of {PLATFORMS}, got {self.platform!r}")
+        if self.kernel in NOT_PORTED_KERNELS:
+            raise ValueError(not_ported_message(self.kernel))
+        if self.n <= 0:
+            raise ValueError("n must be positive")
+        if self.threads <= 0 or self.max_blocks <= 0:
+            raise ValueError("threads/max_blocks must be positive")
+        if self.timing not in TIMINGS:
+            raise ValueError(f"timing must be periter|bulk|fetch|chained, "
+                             f"got {self.timing!r}")
+        if self.chain_reps <= 0:
+            raise ValueError("chain_reps must be positive")
+        if self.stat not in ("mean", "median"):
+            raise ValueError(f"stat must be mean|median, got {self.stat!r}")
+
+    @property
+    def nbytes(self) -> int:
+        itemsize = {"int32": 4, "float32": 4, "float64": 8, "bfloat16": 2}
+        return self.n * itemsize[self.dtype]
+
+
+def build_single_chip_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="tpu_reductions_torch",
+        description="Self-verifying single-GPU reduction benchmark "
+                    "(PyTorch + CUDA port of tpu_reductions)")
+    p.add_argument("--method", type=str, default=None,
+                   help="Reduction to benchmark: SUM|MIN|MAX (required)")
+    p.add_argument("--type", dest="dtype", type=str, default="int",
+                   help="int|float|double (or int32/float32/float64/bfloat16)")
+    p.add_argument("--n", type=int, default=1 << 24,
+                   help="Number of elements to reduce (default 2^24)")
+    p.add_argument("--seed", type=int, default=0, help="Data seed")
+    p.add_argument("--qatest", action="store_true",
+                   help="QA batch mode: markers and log files only")
+    p.add_argument("--no-verify", dest="verify", action="store_false",
+                   help="Skip host-oracle verification")
+    p.add_argument("--platform", type=str, default="gpu", choices=PLATFORMS,
+                   help="gpu (default) or cpu, where the kernels' plain "
+                        "PyTorch versions run")
+    p.add_argument("--threads", type=int, default=256,
+                   help="Tile rows (threads-per-block analog)")
+    p.add_argument("--kernel", type=int, default=KERNEL_SINGLE_PASS,
+                   help="6=single-pass accumulator, 7=two-pass partials; "
+                        "0-5 WAIVED; 8-10 not ported yet")
+    p.add_argument("--maxblocks", dest="max_blocks", type=int, default=64,
+                   help="Partial-block clamp (maxblocks analog)")
+    p.add_argument("--cpufinal", dest="cpu_final", action="store_true",
+                   help="Finish the partial reduction on the host")
+    p.add_argument("--cputhresh", dest="cpu_thresh", type=int, default=1,
+                   help="Host-finish threshold on partial rows")
+    p.add_argument("--backend", type=str, default="auto",
+                   choices=list(BACKENDS))
+    p.add_argument("--iterations", type=int, default=100,
+                   help="Timed iterations (default 100)")
+    p.add_argument("--warmup", type=int, default=1)
+    p.add_argument("--device", type=int, default=None,
+                   help="CUDA device index")
+    p.add_argument("--logfile", dest="log_file", type=str,
+                   default="reduction.txt")
+    p.add_argument("--masterlog", dest="master_log", type=str, default=None)
+    p.add_argument("--timing", type=str, default="periter", choices=TIMINGS,
+                   help="periter=sync around every call; bulk=one synced "
+                        "span; fetch=host round trip each call; chained="
+                        "K data-dependent calls, slope-timed "
+                        "(ops/chain.py)")
+    p.add_argument("--chainreps", dest="chain_reps", type=int, default=5,
+                   help="Slope repetitions for --timing=chained")
+    p.add_argument("--stat", type=str, default="mean",
+                   choices=("mean", "median"),
+                   help="Per-iteration statistic feeding GB/s")
+    return p
+
+
+def parse_single_chip(argv=None) -> ReduceConfig:
+    """Parse CLI args into a ReduceConfig; a missing --method or a value
+    ReduceConfig refuses exits through argparse with the reason."""
+    p = build_single_chip_parser()
+    ns = p.parse_args(argv)
+    if ns.method is None:
+        p.error("--method={SUM|MIN|MAX} is required")
+    if ns.dtype not in DTYPE_ALIASES:
+        p.error(f"unknown --type {ns.dtype!r}; expected one of "
+                f"{sorted(set(DTYPE_ALIASES))}")
+    try:
+        return ReduceConfig(
+            method=ns.method, dtype=ns.dtype, n=ns.n, threads=ns.threads,
+            kernel=ns.kernel, max_blocks=ns.max_blocks,
+            cpu_final=ns.cpu_final, cpu_thresh=ns.cpu_thresh,
+            backend=ns.backend, platform=ns.platform,
+            iterations=ns.iterations, warmup=ns.warmup, seed=ns.seed,
+            device=ns.device, log_file=ns.log_file,
+            master_log=ns.master_log, qatest=ns.qatest, verify=ns.verify,
+            timing=ns.timing, chain_reps=ns.chain_reps, stat=ns.stat)
+    except ValueError as e:
+        p.error(str(e))

@@ -1,0 +1,51 @@
+"""Log fan-out (console, per-app file, master file) and the canonical
+throughput row, byte-identical to the JAX package's
+(tpu_reductions/utils/logging.py; template from its lint/grammar.py)."""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+from typing import Optional, TextIO
+
+THROUGHPUT_TEMPLATE = (
+    "{name}, Throughput = {gbps:.4f} GB/s, Time = {secs:.5f} s, "
+    "Size = {n} Elements, NumDevsUsed = {devices}, "
+    "Workgroup = {workgroup}")
+
+
+def throughput_line(gbps: float, secs: float, n: int, *,
+                    name: str = "Reduction", devices: int = 1,
+                    workgroup: int = 256) -> str:
+    """`Reduction, Throughput = %.4f GB/s, Time = %.5f s, Size = %u
+    Elements, NumDevsUsed = %d, Workgroup = %u`"""
+    return THROUGHPUT_TEMPLATE.format(name=name, gbps=gbps, secs=secs, n=n,
+                                      devices=devices, workgroup=workgroup)
+
+
+class BenchLogger:
+    """`log()` goes to the console and the app file; `log_master()` also
+    appends to the master file (the throughput row's destination)."""
+
+    def __init__(self, app_file: Optional[str] = None,
+                 master_file: Optional[str] = None,
+                 console: Optional[TextIO] = None) -> None:
+        self.console = console or sys.stdout
+        self._app_path = Path(app_file) if app_file else None
+        self._master_path = Path(master_file) if master_file else None
+        if self._app_path:
+            self._app_path.write_text("")   # truncated on open
+
+    def _append(self, path: Optional[Path], msg: str) -> None:
+        if path is not None:
+            with path.open("a") as f:
+                f.write(msg + "\n")
+
+    def log(self, msg: str) -> None:
+        print(msg, file=self.console)
+        self.console.flush()
+        self._append(self._app_path, msg)
+
+    def log_master(self, msg: str) -> None:
+        self.log(msg)
+        self._append(self._master_path, msg)

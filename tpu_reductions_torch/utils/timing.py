@@ -1,0 +1,123 @@
+"""Timing: a stopwatch, the reference's synced timed loop, and slope timing
+of a chained reduction.
+
+The counterpart of tpu_reductions/utils/timing.py. `time.perf_counter`
+around `torch.cuda.synchronize()` at the timer edges (where the JAX
+package uses `block_until_ready`): PyTorch returns before the card
+finishes, so a timer without the sync measures the enqueue.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+
+@dataclass
+class Stopwatch:
+    """Accumulating stopwatch: total over sessions, mean per session
+    (cutGetAverageTimerValue), median of the booked samples."""
+
+    total_s: float = 0.0
+    sessions: int = 0
+    samples: list = field(default_factory=list)
+    _t0: Optional[float] = field(default=None, repr=False)
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        if self._t0 is None:
+            raise RuntimeError("stopwatch stopped without start")
+        dt = time.perf_counter() - self._t0
+        self._t0 = None
+        self.total_s += dt
+        self.sessions += 1
+        self.samples.append(dt)
+        return dt
+
+    @property
+    def average_s(self) -> float:
+        return self.total_s / self.sessions if self.sessions else 0.0
+
+    @property
+    def median_s(self) -> float:
+        """Median of the per-session samples; the mean when sessions were
+        not booked one by one (bulk mode)."""
+        if not self.samples:
+            return self.average_s
+        return statistics.median(self.samples)
+
+
+def _materialize(result) -> None:
+    """Bring a result to the host (a device tensor, or a host scalar)."""
+    if hasattr(result, "cpu"):
+        result.cpu()
+
+
+def time_fn(fn: Callable, *args, sync: Callable[[], None],
+            iterations: int = 100, warmup: int = 1,
+            mode: str = "periter"):
+    """Time `fn(*args)` after `warmup` untimed calls, with `sync()` at the
+    timer edges. Modes (all report seconds per iteration):
+      periter  sync around every call: the reference's loop structure;
+      bulk     one span around all calls, one final sync;
+      fetch    per call, and the result brought to the host each time.
+    Returns (last_result, stopwatch)."""
+    if mode not in ("periter", "bulk", "fetch"):
+        raise ValueError(f"unknown timing mode {mode!r}")
+    sw = Stopwatch()
+    result = None
+    for _ in range(warmup):
+        result = fn(*args)
+        sync()
+
+    if mode == "bulk":
+        sw.start()
+        for _ in range(iterations):
+            result = fn(*args)
+        sync()
+        sw.stop()
+        # one span booked as `iterations` sessions; it is no per-call
+        # sample, so median_s falls back to the mean
+        sw.sessions += iterations - 1
+        sw.samples.pop()
+        return result, sw
+
+    for _ in range(iterations):
+        sw.start()
+        result = fn(*args)
+        sync()
+        if mode == "fetch":
+            _materialize(result)
+        sw.stop()
+    return result, sw
+
+
+def time_chained(chained_fn: Callable, x, k_lo: int, k_hi: int,
+                 reps: int = 5) -> Stopwatch:
+    """Slope timing of `chained_fn(x, k)` (ops/chain.py): time it to host
+    materialization at two trip counts and book
+    (t(k_hi) - t(k_lo)) / (k_hi - k_lo) as one sample per rep. Every
+    constant cost (launch queueing, the final copy, the clone) appears in
+    both and cancels."""
+    if not k_lo < k_hi:
+        raise ValueError(f"need k_lo < k_hi, got {k_lo} >= {k_hi}")
+    sw = Stopwatch()
+    span = k_hi - k_lo
+
+    def run(k: int) -> float:
+        t0 = time.perf_counter()
+        _materialize(chained_fn(x, k))
+        return time.perf_counter() - t0
+
+    run(k_lo)   # warm-up
+    run(k_hi)
+    for _ in range(reps):
+        slope = (run(k_hi) - run(k_lo)) / span
+        sw.total_s += slope
+        sw.sessions += 1
+        sw.samples.append(slope)
+    return sw
