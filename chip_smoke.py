@@ -5,16 +5,28 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-1. Builds the hand-written kernels (tpu_reductions_torch/csrc/*.cu) with
-   nvcc and prints the build time and the register report.
-2. Holds k6 and k7 against their plain PyTorch versions on the card, for
-   SUM/MIN/MAX x int32/float32/float64/bfloat16 at n = 2^24 and at a
-   ragged n = 2^24 + 37, and times each kernel, its plain version and one
-   PyTorch reduction of the same staged tensor with CUDA events.
+1. Builds the hand-written kernels (tpu_reductions_torch/csrc/*.cu, one
+   nvcc per source, all started together) and prints the build time and
+   the register report.
+2. Holds every kernel against its plain PyTorch version on the card:
+   k6 and k7 for SUM/MIN/MAX x int32/float32/float64/bfloat16 at
+   n = 2^24 and at a ragged n = 2^24 + 37; k8 and k10 on the same pairs
+   at --threads 256 and 2048, k10 at depths 1, 2, 4 and 8, which must give
+   bit-identical accumulators (and k8's bits); k9 for SUM x float32/
+   float64/bfloat16, and its column sums of uniform [0, 1) data against
+   float64 ones (its precision mode). Times each kernel, its plain version and one PyTorch
+   reduction of the same staged tensor with CUDA events, at int32 SUM
+   n = 2^24 (k9: float32 SUM).
 3. Drives the port's main path, its CLI `main()`, for the benchmark rows
-   below, each to a verified PASSED row, and checks through the wrappers'
-   launch counters that the rows went through the kernels.
-4. Prints the card's name and power limit, a `kernels` JSON line, and as
+   below, each to a verified PASSED row (or the WAIVED it must give), and
+   checks through the wrappers' launch counters that each row went
+   through its kernel.
+4. Drives the kernel race, `tpu_reductions_torch.bench.autotune`, twice
+   at full width: every kernel on float32 SUM at n = 2^24, and k10's
+   depth race on int32 SUM at n = 2^26. Each must exit 0 with a kernel row
+   as its best and no FAILED kernel candidate; the counters show which
+   kernels each race launched.
+5. Prints the card's name and power limit, a `kernels` JSON line, and as
    the last line `{"ok": true, "device": {...}}`.
 
 Any disagreement, failed row or missing launch raises, and the script
@@ -30,7 +42,9 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -43,21 +57,57 @@ METHODS = ("SUM", "MIN", "MAX")
 # data sheet gives; a reduction does one combine per element on them)
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
-SOURCE = "tpu_reductions_torch/csrc/reduce.cu"
+KERNELS = ("k6", "k7", "k8", "k9", "k10")
+SOURCES = {"k6": "tpu_reductions_torch/csrc/reduce.cu",
+           "k7": "tpu_reductions_torch/csrc/reduce.cu",
+           "k8": "tpu_reductions_torch/csrc/accumulate.cu",
+           "k9": "tpu_reductions_torch/csrc/mxu.cu",
+           "k10": "tpu_reductions_torch/csrc/accumulate.cu"}
 REPLACES = {"k6": "tpu_reductions/ops/pallas_reduce.py:390",
-            "k7": "tpu_reductions/ops/pallas_reduce.py:404"}
+            "k7": "tpu_reductions/ops/pallas_reduce.py:404",
+            "k8": "tpu_reductions/ops/pallas_reduce.py:227",
+            "k9": "tpu_reductions/ops/pallas_reduce.py:240",
+            "k10": "tpu_reductions/ops/pallas_reduce.py:338"}
+PERIOD_THREADS = (256, 2048)      # k8/k10: the default and largest tile
+DEPTHS = (1, 2, 4, 8)
+MXU_DTYPES = ("float32", "float64", "bfloat16")
+# k9's column sums against float64 on uniform data: the rtol the card
+# tests hold float SUM to (bf16 data, float32 accumulator: 1e-2)
+MXU_RTOL = {"float32": 1e-6, "float64": 1e-12, "bfloat16": 1e-2}
 
-# The main path: the benchmark CLI rows, and the kernel each must launch.
+# The main path: the benchmark CLI rows, the kernel each must launch (None:
+# none), and the exit code it must give (0 PASSED, 2 WAIVED).
 MAIN_ROWS = (
-    [([f"--method={m}", f"--type={t}", "--kernel=6"], "k6")
+    [([f"--method={m}", f"--type={t}", "--kernel=6"], "k6", 0)
      for m in METHODS for t in ("int", "float", "double")]
-    + [([f"--method={m}", "--type=int", "--kernel=7"], "k7") for m in METHODS]
-    + [(["--method=SUM", "--type=int", "--kernel=7", "--cpufinal"], "k7"),
-       (["--method=SUM", "--type=int", "--timing=bulk"], "k6"),
-       (["--method=SUM", "--type=int", "--timing=chained"], "k6"),
+    + [([f"--method={m}", "--type=int", "--kernel=7"], "k7", 0)
+       for m in METHODS]
+    + [(["--method=SUM", "--type=int", "--kernel=7", "--cpufinal"], "k7", 0),
+       (["--method=SUM", "--type=int", "--timing=bulk"], "k6", 0),
+       (["--method=SUM", "--type=int", "--timing=chained"], "k6", 0),
        (["--method=SUM", "--type=float", f"--n={1 << 28}",
-         "--timing=chained"], "k6"),
-       (["--method=SUM", "--type=int", "--backend=torch"], None)])
+         "--timing=chained"], "k6", 0),
+       (["--method=SUM", "--type=int", "--backend=torch"], None, 0)]
+    + [([f"--method={m}", "--type=int", "--kernel=8"], "k8", 0)
+       for m in METHODS]
+    + [(["--method=SUM", "--type=double", "--kernel=8"], "k8", 0)]
+    + [(["--method=SUM", f"--type={t}", "--kernel=9"], "k9", 0)
+       for t in ("float", "double", "bfloat16")]
+    + [(["--method=MIN", "--type=float", "--kernel=9"], None, 2),
+       (["--method=SUM", "--type=int", "--kernel=9"], None, 2)]
+    + [(["--method=SUM", "--type=int", "--kernel=10",
+         f"--streambuffers={d}"], "k10", 0) for d in DEPTHS]
+    + [(["--method=MAX", "--type=float", "--kernel=10"], "k10", 0),
+       (["--method=SUM", "--type=float", "--kernel=10", f"--n={1 << 28}",
+         "--timing=chained"], "k10", 0)])
+
+# The kernel race at full width: (argv, the kernels it must launch).
+RACES = (
+    (["--method=SUM", "--type=float", f"--n={N}", "--grid=default",
+      "--comparator"], KERNELS),
+    (["--method=SUM", "--type=int", f"--n={1 << 26}", "--grid=hbm",
+      "--comparator"], ("k6", "k7", "k8", "k10")),
+)
 
 
 def device_ms(fn, calls: int = 20, trials: int = 5) -> float:
@@ -126,11 +176,32 @@ def check_pair(kr, registry, name, got, want, method, dtype, n, depth):
     return max_err
 
 
-def kernels_vs_plain(kr, registry, host_data, dev):
-    """Phase 2. Returns {kernel: stats} at the main path's shape (int32
-    SUM, n = 2^24) plus the per-pair table."""
-    table = []
-    worst = {"k6": 0.0, "k7": 0.0}
+def wrappers(kr) -> dict:
+    """Each kernel's launch wrapper, which carries its launch count."""
+    return {"k6": kr.single_pass_call, "k7": kr.two_pass_call,
+            "k8": kr.elementwise_call, "k9": kr.mxu_call,
+            "k10": kr.stream_call}
+
+
+def timing_row(name, method, dtype, n, x2d, out, call, plain, reduce,
+               library) -> dict:
+    """Device times of a kernel call, its plain version, the whole device
+    reduce of the main path (finish included) and one PyTorch reduction
+    of the same staged tensor, beside the kernel's bound."""
+    row = {"kernel": name, "method": method, "dtype": dtype, "n": n,
+           "rows": x2d.shape[0], "ms": device_ms(call),
+           "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+           "reduce_ms": device_ms(reduce), **bound(x2d, out)}
+    print(f"  {name} {method:3s} {dtype:8s} n={n} "
+          f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f}"
+          f" library_ms={row['library_ms']:.5f} "
+          f"reduce_ms={row['reduce_ms']:.5f} "
+          f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
+    return row
+
+
+def k6_k7_vs_plain(kr, registry, host_data, dev, worst, table):
+    """k6 and k7 on all 12 pairs at both sizes."""
     for dtype in DTYPES:
         for n in SIZES:
             x = host_data(n, dtype)
@@ -151,63 +222,178 @@ def kernels_vs_plain(kr, registry, host_data, dev):
                     method, dtype, n, t * tm // sub))
                 if n != N:
                     continue
-                for name, out, call, plain, reduce in (
-                        ("k6", k6, lambda: kr.single_pass_call(x2d, op),
-                         lambda: kr.single_pass_plain(x2d, op),
-                         lambda: kr.finish(kr.single_pass_call(x2d, op), op)),
-                        ("k7", k7, lambda: kr.two_pass_call(x2d, op, tm, p, t),
-                         lambda: kr.two_pass_plain(x2d, op, tm, p, t),
-                         lambda: kr.finish(kr._multipass_finish(
-                             kr.two_pass_call(x2d, op, tm, p, t), op, 256,
-                             64, 1), op))):
-                    # reduce_ms: the whole device reduce of the main path
-                    # (k7: every pass of the chain), finish included
-                    row = {"kernel": name, "method": method, "dtype": dtype,
-                           "n": n, "rows": x2d.shape[0],
-                           "ms": device_ms(call),
-                           "plain_ms": device_ms(plain),
-                           "library_ms": device_ms(lambda: op.reduce(x2d)),
-                           "reduce_ms": device_ms(reduce),
-                           **bound(x2d, out)}
-                    table.append(row)
-                    print(f"  {name} {method:3s} {dtype:8s} n={n} "
-                          f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f}"
-                          f" library_ms={row['library_ms']:.5f} "
-                          f"reduce_ms={row['reduce_ms']:.5f} "
-                          f"bound_ms={row['bound_ms']:.5f} "
-                          f"({row['bound_by']})", flush=True)
-    main_shape = {r["kernel"]: r for r in table
-                  if r["method"] == "SUM" and r["dtype"] == "int32"}
-    return main_shape, worst, table
+                table.append(timing_row(
+                    "k6", method, dtype, n, x2d, k6,
+                    lambda: kr.single_pass_call(x2d, op),
+                    lambda: kr.single_pass_plain(x2d, op),
+                    lambda: kr.finish(kr.single_pass_call(x2d, op), op),
+                    lambda: op.reduce(x2d)))
+                # k7's reduce: every pass of the chain, finish included
+                table.append(timing_row(
+                    "k7", method, dtype, n, x2d, k7,
+                    lambda: kr.two_pass_call(x2d, op, tm, p, t),
+                    lambda: kr.two_pass_plain(x2d, op, tm, p, t),
+                    lambda: kr.finish(kr._multipass_finish(
+                        kr.two_pass_call(x2d, op, tm, p, t), op, 256, 64, 1),
+                        op),
+                    lambda: op.reduce(x2d)))
 
 
-def drive_main_path(driver, kr):
-    """Phase 3: every MAIN_ROWS row through the CLI to PASSED. Returns the
-    launches of each kernel over the whole main path."""
-    kr.single_pass_call.launches = 0
-    kr.two_pass_call.launches = 0
-    for argv, kernel in MAIN_ROWS:
-        argv = argv + ["--logfile="]
-        before = (kr.single_pass_call.launches, kr.two_pass_call.launches)
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = driver.main(argv)
-        text = out.getvalue()
+def k8_k10_vs_plain(kr, registry, host_data, dev, worst, table):
+    """k8 and k10 on all 12 pairs at both sizes, at the default and the
+    largest tile; k10 at every depth of DEPTHS must give the same bits,
+    and k8's (the two share their order of adds)."""
+    for dtype in DTYPES:
+        for n in SIZES:
+            x = host_data(n, dtype)
+            for method in METHODS:
+                op = registry.get_op(method)
+                for threads in PERIOD_THREADS:
+                    tm, p, t = kr.choose_tiling(n, threads, 64, dtype)
+                    x2d = kr.stage_padded(x, tm, p, t, op, dev)
+                    k8 = kr.elementwise_call(x2d, op, tm)
+                    k10 = {d: kr.stream_call(x2d, op, tm, d) for d in DEPTHS}
+                    torch.cuda.synchronize()
+                    for d, acc in k10.items():
+                        if not torch.equal(acc, k8):
+                            raise AssertionError(
+                                f"k10 depth {d} {method} {dtype} n={n} "
+                                f"tm={tm}: not bit-identical to depth 1 "
+                                f"and k8")
+                    err = check_pair(kr, registry, "k8", k8,
+                                     kr.elementwise_plain(x2d, op, tm),
+                                     method, dtype, n, x2d.shape[0] // tm)
+                    worst["k8"] = max(worst["k8"], err)
+                    worst["k10"] = max(worst["k10"], err)
+                    if n != N or threads != 256:
+                        continue
+                    table.append(timing_row(
+                        "k8", method, dtype, n, x2d, k8,
+                        lambda: kr.elementwise_call(x2d, op, tm),
+                        lambda: kr.elementwise_plain(x2d, op, tm),
+                        lambda: kr.finish(kr.elementwise_call(x2d, op, tm),
+                                          op),
+                        lambda: op.reduce(x2d)))
+                    if method == "SUM" and dtype == "int32":
+                        for d in DEPTHS:
+                            print(f"  k10 depth {d}: ms="
+                                  f"{device_ms(lambda: kr.stream_call(x2d, op, tm, d)):.5f}",
+                                  flush=True)
+                    table.append(timing_row(
+                        "k10", method, dtype, n, x2d, k10[4],
+                        lambda: kr.stream_call(x2d, op, tm, 4),
+                        lambda: kr.stream_plain(x2d, op, tm),
+                        lambda: kr.finish(kr.stream_call(x2d, op, tm, 4),
+                                          op),
+                        lambda: op.reduce(x2d)))
+
+
+def k9_vs_plain(kr, registry, host_data, dev, worst, table):
+    """k9 on SUM x float32/float64/bfloat16 at both sizes: rows 1-7
+    exactly zero, row 0 held as check_pair holds float SUM. Then its
+    precision on uniform data, against float64 column sums."""
+    op = registry.get_op("SUM")
+    for dtype in MXU_DTYPES:
+        for n in SIZES:
+            x = host_data(n, dtype)
+            tm, p, t = kr.choose_tiling(n, 256, 64, dtype)
+            x2d = kr.stage_padded(x, tm, p, t, op, dev)
+            k9 = kr.mxu_call(x2d, op)
+            torch.cuda.synchronize()
+            if bool(k9[1:].any()):
+                raise AssertionError(f"k9 {dtype} n={n}: rows 1-7 not zero")
+            worst["k9"] = max(worst["k9"], check_pair(
+                kr, registry, "k9", k9, kr.mxu_plain(x2d), "SUM", dtype, n,
+                x2d.shape[0]))
+            if n == N:
+                table.append(timing_row(
+                    "k9", "SUM", dtype, n, x2d, k9,
+                    lambda: kr.mxu_call(x2d, op),
+                    lambda: kr.mxu_plain(x2d),
+                    lambda: kr.finish(kr.mxu_call(x2d, op), op),
+                    lambda: op.reduce(x2d)))
+        # the benchmark's payload is small multiples of one constant, whose
+        # column sums come out exact; uniform [0, 1) values spread their
+        # exponents, where tensor-core additions could lose bits
+        x = torch.rand(N, generator=torch.Generator().manual_seed(0),
+                       dtype=torch.float64).to(getattr(torch, dtype))
+        x2d = kr.stage_padded(x, *kr.choose_tiling(N, 256, 64, dtype), op, dev)
+        exact = x2d.double().sum(0)
+        errs = {name: float(((row.double() - exact).abs() / exact).max())
+                for name, row in (("k9", kr.mxu_call(x2d, op)[0]),
+                                  ("plain", kr.mxu_plain(x2d)[0]))}
+        print(f"  k9 {dtype} uniform [0, 1) n={N}: largest relative error "
+              f"of a column sum against float64: k9 {errs['k9']:.3e}, "
+              f"plain {errs['plain']:.3e}", flush=True)
+        if errs["k9"] > MXU_RTOL[dtype]:
+            raise AssertionError(f"k9 {dtype}: column sums off by "
+                                 f"{errs['k9']:.3e} > rtol {MXU_RTOL[dtype]}")
+
+
+def run_cli(entry, argv) -> tuple[int, str, float]:
+    """Run a CLI `main(argv)` in this process: (exit code, its standard
+    output, seconds)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = entry(argv)
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def drive_main_path(driver, kr) -> dict:
+    """Phase 3: every MAIN_ROWS row through the CLI to its status, each
+    launching its own kernel and no other. Returns each kernel's
+    launches over the whole main path."""
+    counted = wrappers(kr)
+    for w in counted.values():
+        w.launches = 0
+    for argv, kernel, want_rc in MAIN_ROWS:
+        before = {k: w.launches for k, w in counted.items()}
+        rc, text, seconds = run_cli(driver.main, argv + ["--logfile="])
         print(text, end="")
-        print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
-        after = (kr.single_pass_call.launches, kr.two_pass_call.launches)
-        if rc != 0 or "Reduction, Throughput = " not in text \
-                or "&&&& tpu_reductions_torch PASSED" not in text:
-            raise AssertionError(f"main path row {argv} did not pass "
-                                 f"(exit {rc})")
-        rose = {"k6": after[0] > before[0], "k7": after[1] > before[1]}
-        if kernel is not None and not rose[kernel]:
-            raise AssertionError(f"row {argv} never launched {kernel}")
-        if kernel is None and any(rose.values()):
-            raise AssertionError(f"comparator row {argv} launched a kernel")
-    return {"k6": kr.single_pass_call.launches,
-            "k7": kr.two_pass_call.launches}
+        print(f"  ({seconds:.1f} s)", flush=True)
+        status = "PASSED" if want_rc == 0 else "WAIVED"
+        if rc != want_rc \
+                or f"&&&& tpu_reductions_torch {status}" not in text \
+                or (want_rc == 0 and "Reduction, Throughput = " not in text):
+            raise AssertionError(f"main path row {argv} did not give "
+                                 f"{status} (exit {rc})")
+        rose = [k for k, w in counted.items() if w.launches > before[k]]
+        if rose != ([kernel] if kernel else []):
+            raise AssertionError(f"row {argv} launched {rose}, expected "
+                                 f"{kernel}")
+    return {k: w.launches for k, w in counted.items()}
+
+
+def drive_races(autotune, kr) -> list:
+    """Phase 4: each RACES race through the autotune CLI, with the
+    counters set to 0 just before it. Returns each race's launches."""
+    counted = wrappers(kr)
+    per_race = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (argv, must) in enumerate(RACES):
+            out = Path(tmp) / f"race{i}.json"
+            for w in counted.values():
+                w.launches = 0
+            rc, text, seconds = run_cli(autotune.main,
+                                        argv + [f"--out={out}"])
+            launches = {k: w.launches for k, w in counted.items()}
+            print(text, end="")
+            print(f"  ({seconds:.1f} s) launches {launches}", flush=True)
+            data = json.loads(out.read_text())
+            failed = [r for r in data["ranked"]
+                      if r["backend"] == "cuda" and r["status"] == "FAILED"]
+            best = data["best"] or {}
+            if rc != 0 or not data["complete"] or best.get("backend") != "cuda":
+                raise AssertionError(f"race {argv}: exit {rc}, best {best}")
+            if failed:
+                raise AssertionError(f"race {argv}: FAILED kernel "
+                                     f"candidates {failed}")
+            missing = [k for k in must if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"race {argv} never launched {missing}")
+            per_race.append(launches)
+    return per_race
 
 
 def main() -> int:
@@ -215,43 +401,63 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from tpu_reductions_torch import device
-    from tpu_reductions_torch.bench import driver
+    from tpu_reductions_torch.bench import autotune, driver
     from tpu_reductions_torch.ops import _cuda
     from tpu_reductions_torch.ops import kernel_reduce as kr
     from tpu_reductions_torch.ops import registry
     from tpu_reductions_torch.utils.rng import host_data
 
+    t_all = time.perf_counter()
     dev = device.resolve("gpu")
     print(f"{device.name(dev)}: torch {torch.__version__} cuda "
           f"{torch.version.cuda} python {sys.version.split()[0]}", flush=True)
     seconds, log = _cuda.build()
     print(f"[build] {seconds:.1f} s\n{log}", flush=True)
 
-    print("[kernels vs plain]", flush=True)
-    main_shape, worst, _table = kernels_vs_plain(kr, registry, host_data, dev)
+    worst = dict.fromkeys(KERNELS, 0.0)
+    table = []
+    for phase in (k6_k7_vs_plain, k8_k10_vs_plain, k9_vs_plain):
+        print(f"[kernels vs plain: {phase.__name__}]", flush=True)
+        t0 = time.perf_counter()
+        phase(kr, registry, host_data, dev, worst, table)
+        print(f"[kernels vs plain: {phase.__name__}] "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the main path's shape: int32 SUM, n = 2^24 (k9: float32 SUM)
+    main_shape = {r["kernel"]: r for r in table
+                  if r["method"] == "SUM" and r["dtype"]
+                  == ("float32" if r["kernel"] == "k9" else "int32")}
 
     print("[main path]", flush=True)
     t0 = time.perf_counter()
-    launches = drive_main_path(driver, kr)
-    print(f"[main path] {time.perf_counter() - t0:.1f} s, launches {launches}",
-          flush=True)
-    for name, count in launches.items():
-        if count == 0:
+    paths = {"main_path": drive_main_path(driver, kr)}
+    print(f"[main path] {time.perf_counter() - t0:.1f} s, launches "
+          f"{paths['main_path']}", flush=True)
+    print("[races]", flush=True)
+    t0 = time.perf_counter()
+    for i, launches in enumerate(drive_races(autotune, kr)):
+        paths[f"race_{i + 1}"] = launches
+    print(f"[races] {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in KERNELS:
+        if paths["main_path"][name] == 0:
             raise AssertionError(f"the main path never launched {name}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip()
+    print(f"[all phases] {time.perf_counter() - t_all:.1f} s")
     print(smi)
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": launches[name],
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name],
+                "launches": sum(p[name] for p in paths.values()),
+                "launches_by_path": {path: p[name]
+                                     for path, p in paths.items()},
                 "max_abs_err": worst[name], "ms": main_shape[name]["ms"],
                 "plain_ms": main_shape[name]["plain_ms"],
                 "bound_ms": main_shape[name]["bound_ms"],
                 "bound_by": main_shape[name]["bound_by"],
                 "library_ms": main_shape[name]["library_ms"]}
-               for name in ("k6", "k7")]
+               for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

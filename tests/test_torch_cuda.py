@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels (k6-k10) on the card, against their plain
+versions.
 
 Every test here needs an NVIDIA GPU with nvcc and skips elsewhere. The
 file imports neither jax nor tpu_reductions, so it also runs on a machine
@@ -9,7 +10,8 @@ out:
 
 int32 and MIN/MAX must be bit-equal; float SUM adds in another order and
 is held to rtol 1e-6 (float32), 1e-12 (float64), 1e-2 (bfloat16 data,
-float32 accumulator).
+float32 accumulator). k10 must give the same bits at every depth, and the
+same bits as k8.
 """
 
 import numpy as np
@@ -107,3 +109,117 @@ def test_one_shot_reduce_on_card(cuda_device, kernel):
     want = int(x.numpy().sum(dtype=np.int64).astype(np.int32))
     got = kr.kernel_reduce(x, "SUM", kernel=kernel, device=cuda_device)
     assert got.device.type == "cuda" and int(got) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, threads", [
+    (300_001, 64), (65536 + 5, 8), (1 << 20, 2048)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("method", METHODS)
+def test_period_kernels_match_plain(cuda_device, method, dtype, n, threads):
+    """k8 and k10 against the plain (TM, 128) accumulator, one launch
+    each; k10 gives k8's bits (they share the split, hence the order)."""
+    op = get_op(method)
+    x = payload(n, dtype, method)
+    tm, p, t = kr.choose_tiling(n, threads, 64, x.dtype)
+    x2d = kr.stage_padded(x, tm, p, t, op, cuda_device)
+    want = kr.elementwise_plain(x2d.cpu(), op, tm)
+    before = (kr.elementwise_call.launches, kr.stream_call.launches)
+    k8 = kr.elementwise_call(x2d, op, tm)
+    k10 = kr.stream_call(x2d, op, tm)
+    assert (kr.elementwise_call.launches, kr.stream_call.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert_acc_match(k8, want, method, dtype)
+    assert torch.equal(k10, k8)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_stream_depth_is_bit_identical(cuda_device, dtype):
+    """The depth moves copies, never the order of the adds: float SUM
+    too gives the same bits at depths 1, 2, 4, 8 and the deepest ring."""
+    op = get_op("SUM")
+    x = payload(1_000_003, dtype, "SUM", seed=3)
+    tm, p, t = kr.choose_tiling(x.numel(), 512, 64, x.dtype)
+    x2d = kr.stage_padded(x, tm, p, t, op, cuda_device)
+    first = kr.stream_call(x2d, op, tm, 1)
+    for depth in (2, 4, 8, kr.stream_max_depth(x2d.dtype)):
+        assert torch.equal(kr.stream_call(x2d, op, tm, depth), first), depth
+    assert_acc_match(first, kr.stream_plain(x2d.cpu(), op, tm), "SUM", dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1000, 300_001, 1 << 22])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+def test_mxu_matches_plain(cuda_device, dtype, n):
+    """k9: rows 1-7 exactly zero, row 0 the column sums within rtol."""
+    op = get_op("SUM")
+    x = payload(n, dtype, "SUM", seed=n)
+    tm, p, t = kr.choose_tiling(n, 256, 64, x.dtype)
+    x2d = kr.stage_padded(x, tm, p, t, op, cuda_device)
+    before = kr.mxu_call.launches
+    got = kr.mxu_call(x2d, op).cpu()
+    assert kr.mxu_call.launches == before + 1
+    want = kr.mxu_plain(x2d.cpu())
+    assert got.shape == want.shape == (8, 128) and got.dtype == want.dtype
+    assert torch.equal(got[1:], torch.zeros_like(got[1:]))
+    np.testing.assert_allclose(got[0].double().numpy(),
+                               want[0].double().numpy(),
+                               rtol=SUM_RTOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+def test_mxu_column_layout_is_exact(cuda_device, dtype):
+    """Small integers sum exactly in any order: row 0 must equal the
+    column sums bit for bit, which pins the fragment layouts (every
+    column lands where it belongs)."""
+    rows = torch.arange(64).reshape(-1, 1)
+    cols = torch.arange(128).reshape(1, -1)
+    x2d = ((cols % 16) + 16 * (rows % 4)).to(getattr(torch, dtype))
+    got = kr.mxu_call(x2d.to(cuda_device).contiguous(),
+                      get_op("SUM")).cpu()
+    assert torch.equal(got, kr.mxu_plain(x2d))
+
+
+@pytest.mark.gpu
+def test_mxu_float32_keeps_all_24_bits(cuda_device):
+    """1 + 2^-22 is not a TF32 value: plain TF32 would sum one slab of it
+    to exactly 8; the three-piece split gives 8 + 2^-19 exactly."""
+    x2d = torch.full((8, 128), 1 + 2.0**-22, dtype=torch.float32)
+    got = kr.mxu_call(x2d.to(cuda_device), get_op("SUM")).cpu()
+    assert torch.equal(got[0], torch.full((128,), 8 + 2.0**-19))
+
+
+@pytest.mark.gpu
+def test_new_kernels_refuse_what_they_cannot_take(cuda_device):
+    x2d = torch.zeros((64, 128), dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="float dtype"):
+        kr.mxu_call(x2d.to(torch.int32), get_op("SUM"))
+    with pytest.raises(ValueError, match="SUM only"):
+        kr.mxu_call(x2d, get_op("MIN"))
+    with pytest.raises(ValueError, match="rows % tm"):
+        kr.stream_call(x2d[:56], get_op("SUM"), 16)
+    with pytest.raises(ValueError, match="rows % tm"):
+        kr.elementwise_call(x2d[:56], get_op("SUM"), 16)
+    deepest = kr.stream_max_depth(torch.float32)
+    with pytest.raises(ValueError, match=f"at most {deepest} stages"):
+        kr.stream_call(x2d, get_op("SUM"), 8, deepest + 1)
+    with pytest.raises(ValueError, match="16-byte"):
+        kr.mxu_call(x2d.view(-1)[1:1 + 56 * 128].view(56, 128),
+                    get_op("SUM"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", [8, 9, 10])
+def test_one_shot_reduce_new_kernels(cuda_device, kernel):
+    """A float32 sum of 10^6 values in [0, 1) is about 5e5, where one f32
+    ulp is 0.03: held to rtol 1e-6 (the benchmark's 1e-8 n is written for
+    its own payload of tiny values)."""
+    x = payload(1_000_003, "float32", "SUM", seed=6)
+    want = float(x.double().sum())
+    got = kr.kernel_reduce(x, "SUM", kernel=kernel, stream_buffers=3,
+                           device=cuda_device)
+    assert got.device.type == "cuda"
+    assert abs(float(got) - want) <= SUM_RTOL["float32"] * want

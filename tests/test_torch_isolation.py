@@ -105,21 +105,30 @@ def test_chip_smoke_fails_without_card(no_card):
     assert '"ok": true' not in proc.stdout
 
 
-@pytest.mark.parametrize("call", ["k6", "k7"])
+WRAPPERS = {  # name: (wrapper, call(x2d, op))
+    "k6": (kr.single_pass_call, lambda x2d, op: kr.single_pass_call(x2d, op)),
+    "k7": (kr.two_pass_call, lambda x2d, op: kr.two_pass_call(x2d, op, 8, 4,
+                                                             2)),
+    "k8": (kr.elementwise_call,
+           lambda x2d, op: kr.elementwise_call(x2d, op, 8)),
+    "k9": (kr.mxu_call, lambda x2d, op: kr.mxu_call(x2d, op)),
+    "k10": (kr.stream_call, lambda x2d, op: kr.stream_call(x2d, op, 8, 2)),
+}
+
+
+@pytest.mark.parametrize("call", ["k6", "k7", "k8", "k9", "k10"])
 def test_wrappers_take_plain_version_only_on_cpu(call):
     """A tensor on any device but the CPU goes to the kernel; one the
     kernel cannot take raises instead of falling back."""
     op = get_op("SUM")
-    meta = torch.empty((64, 128), dtype=torch.int32, device="meta")
-    cpu = torch.ones((64, 128), dtype=torch.int32)
+    dtype = torch.float32 if call == "k9" else torch.int32
+    meta = torch.empty((64, 128), dtype=dtype, device="meta")
+    cpu = torch.ones((64, 128), dtype=dtype)
+    _, run = WRAPPERS[call]
     with pytest.raises(ValueError, match="CUDA tensors"):
-        if call == "k6":
-            kr.single_pass_call(meta, op)
-        else:
-            kr.two_pass_call(meta, op, 8, 4, 2)
-    before = (kr.single_pass_call.launches, kr.two_pass_call.launches)
-    got = (kr.single_pass_call(cpu, op) if call == "k6"
-           else kr.two_pass_call(cpu, op, 8, 4, 2))
+        run(meta, op)
+    before = [w.launches for w, _ in WRAPPERS.values()]
+    got = run(cpu, op)
     assert int(got.sum()) == 64 * 128
     # the plain version is no launch
-    assert (kr.single_pass_call.launches, kr.two_pass_call.launches) == before
+    assert [w.launches for w, _ in WRAPPERS.values()] == before

@@ -1,13 +1,13 @@
-"""The port's k6/k7 (tpu_reductions_torch/ops/kernel_reduce.py) held against
-the JAX package's Pallas kernels, run in interpret mode on the CPU.
+"""The port's k6-k10 (tpu_reductions_torch/ops/kernel_reduce.py) held
+against the JAX package's Pallas kernels, run in interpret mode on the CPU.
 
 Both packages stage the same numpy-seeded payload; the staged arrays must
 be bit-equal, and then the port's plain versions (what its wrappers run
-on CPU tensors) must match `single_pass_call` / `two_pass_call`
-element by element: bit-exact for int32 (wrapping adds) and MIN/MAX
-(selections), and for float SUM within rtol 1e-6 (float32), 1e-12
-(float64) and 1e-2 (bfloat16 data, float32 accumulator), because the two
-add in different orders.
+on CPU tensors) must match `single_pass_call`, `two_pass_call`,
+`elementwise_call`, `stream_call` and `mxu_call` element by element:
+bit-exact for int32 (wrapping adds) and MIN/MAX (selections), and for
+float SUM within rtol 1e-6 (float32), 1e-12 (float64) and 1e-2 (bfloat16
+data, float32 accumulator), because the two add in different orders.
 
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py.
 """
@@ -196,3 +196,120 @@ def test_one_shot_matches_pallas_reduce(method, kwargs):
     got = kr.kernel_reduce(torch.from_numpy(x), method, threads=16,
                            max_blocks=8, device="cpu", **kwargs)
     assert np.asarray(got).astype(np.int64) == np.asarray(want).astype(np.int64)
+
+
+def _period_pair(kernel, x2d_jax, x2d, tm, method, depth=4):
+    """(port, Pallas) accumulators of k8 or k10 on one staged input."""
+    op, jop = get_op(method), jax_get_op(method)
+    if kernel == 8:
+        return (kr.elementwise_call(x2d, op, tm),
+                pr.elementwise_call(x2d_jax, jop, tm, interpret=True))
+    return (kr.stream_call(x2d, op, tm, depth),
+            pr.stream_call(x2d_jax, jop, tm, interpret=True,
+                           n_buffers=depth))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("kernel", [8, 10])
+def test_period_kernels_match_pallas(kernel, method, dtype):
+    x = payload(4096 + 7, dtype, method)
+    x2d_jax, x2d, (tm, _p, _t) = stage_both(x, method, threads=64,
+                                            max_blocks=4)
+    got, want = _period_pair(kernel, x2d_jax, x2d, tm, method)
+    assert got.shape == (tm, 128)
+    assert_acc_match(got, want, method, dtype)
+
+
+@pytest.mark.parametrize("n", [4096 + 7, 65536 + 5])
+@pytest.mark.parametrize("threads", [8, 64, 256])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("kernel", [8, 10])
+def test_period_geometry_grid_matches_pallas(kernel, dtype, threads, n):
+    """Tile heights from one sublane group up, on ragged payloads."""
+    x = payload(n, dtype, "SUM", seed=n)
+    x2d_jax, x2d, (tm, _p, _t) = stage_both(x, "SUM", threads, max_blocks=64)
+    got, want = _period_pair(kernel, x2d_jax, x2d, tm, "SUM")
+    assert_acc_match(got, want, "SUM", dtype)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+@pytest.mark.parametrize("method, dtype", [
+    ("SUM", "int32"), ("SUM", "float32"), ("MAX", "bfloat16"),
+    ("MIN", "float64")])
+def test_stream_depths_match_pallas(method, dtype, depth):
+    """k10 at every depth of the JAX package's depth test: the depth never
+    changes the accumulator, on either side."""
+    x = payload(65536 + 5, dtype, method, seed=depth)
+    x2d_jax, x2d, (tm, _p, _t) = stage_both(x, method, threads=64,
+                                            max_blocks=64)
+    got, want = _period_pair(10, x2d_jax, x2d, tm, method, depth)
+    assert_acc_match(got, want, method, dtype)
+    assert torch.equal(got, kr.stream_call(x2d, get_op(method), tm, 1))
+
+
+@pytest.mark.parametrize("n", [4096 + 7, 65536 + 5])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+def test_mxu_matches_pallas(dtype, n):
+    """k9: rows 1-7 exactly zero in both; row 0 within the rtol."""
+    x = payload(n, dtype, "SUM", seed=n)
+    x2d_jax, x2d, (tm, _p, _t) = stage_both(x, "SUM", threads=256,
+                                            max_blocks=64)
+    got = kr.mxu_call(x2d, get_op("SUM"))
+    want = to_torch(pr.mxu_call(x2d_jax, jax_get_op("SUM"), tm,
+                                interpret=True))
+    assert got.shape == want.shape == (8, 128)
+    assert got.dtype == want.dtype
+    assert not got[1:].any() and not want[1:].any()
+    np.testing.assert_allclose(got[0].double().numpy(),
+                               want[0].double().numpy(),
+                               rtol=SUM_RTOL[dtype])
+
+
+@pytest.mark.parametrize("method, dtype, match", [
+    ("MIN", "float32", "SUM only"), ("MAX", "bfloat16", "SUM only"),
+    ("SUM", "int32", "float dtype")])
+def test_mxu_refuses_in_both_packages(method, dtype, match):
+    x = payload(4096, dtype, method)
+    x2d_jax, x2d, (tm, _p, _t) = stage_both(x, method, threads=64,
+                                            max_blocks=4)
+    with pytest.raises(ValueError, match=match):
+        kr.mxu_call(x2d, get_op(method))
+    with pytest.raises(ValueError):
+        pr.mxu_call(x2d_jax, jax_get_op(method), tm, interpret=True)
+
+
+def test_stream_refuses_ragged_rows_in_both_packages():
+    x2d = torch.zeros((24, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="rows % tm"):
+        kr.stream_call(x2d, get_op("SUM"), 16)
+    with pytest.raises(ValueError, match="rows % tm"):
+        pr.stream_call(jnp.zeros((24, 128), jnp.int32), jax_get_op("SUM"),
+                       16, interpret=True)
+    with pytest.raises(ValueError, match="positive"):
+        kr.stream_call(x2d, get_op("SUM"), 8, 0)
+
+
+@pytest.mark.parametrize("kernel", [8, 9, 10])
+def test_one_shot_matches_pallas_reduce(kernel):
+    method, dtype = ("SUM", "float32") if kernel == 9 else ("MAX", "int32")
+    x = payload(50_000, dtype, method, seed=kernel)
+    want = pr.pallas_reduce(jnp.asarray(x), method, threads=16, max_blocks=8,
+                            kernel=kernel, stream_buffers=3, interpret=True)
+    got = kr.kernel_reduce(torch.from_numpy(x), method, threads=16,
+                           max_blocks=8, kernel=kernel, stream_buffers=3,
+                           device="cpu")
+    tol = 1e-8 * x.size if dtype == "float32" else 0.0
+    assert abs(float(got) - float(np.asarray(want))) <= tol
+
+
+def test_stream_max_depth_fits_shared_memory():
+    """The deepest ring k10 accepts fits one block's shared memory beside
+    its barriers; one stage more would not."""
+    for dtype in (torch.int32, torch.float32, torch.float64, torch.bfloat16):
+        chunk = kr.sublanes_for(dtype) * 128 * dtype.itemsize
+        deepest = kr.stream_max_depth(dtype)
+        assert deepest >= 8
+        room = kr.SMEM_PER_BLOCK - 8 * kr.STREAM_MAX_STAGES
+        assert deepest * chunk <= room
+        assert deepest == kr.STREAM_MAX_STAGES or (deepest + 1) * chunk > room

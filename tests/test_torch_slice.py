@@ -125,15 +125,17 @@ CASES = [  # (method, dtype, kernel, cpu_final)
     ("SUM", "float32", 6, False), ("MAX", "float64", 6, False),
     ("SUM", "bfloat16", 6, False), ("SUM", "int32", 7, False),
     ("MAX", "int32", 7, False), ("SUM", "float64", 7, False),
-    ("MIN", "int32", 7, True)]
+    ("MIN", "int32", 7, True), ("SUM", "int32", 8, False),
+    ("MAX", "bfloat16", 8, False), ("SUM", "float32", 9, False),
+    ("SUM", "bfloat16", 9, False)]
 
 
-@pytest.mark.parametrize("method, dtype, kernel, cpu_final", CASES)
-def test_run_benchmark_matches_jax(numpy_oracle, method, dtype, kernel,
-                                   cpu_final):
+def _assert_run_matches_jax(method, dtype, kernel, cpu_final=False,
+                            stream_buffers=4):
     fields = dict(method=method, dtype=dtype, n=65536 + 5, threads=16,
                   max_blocks=8, kernel=kernel, cpu_final=cpu_final,
-                  iterations=2, log_file=None)
+                  stream_buffers=stream_buffers, iterations=2,
+                  log_file=None)
     port = driver.run_benchmark(
         ReduceConfig(platform="cpu", **fields),
         logger=port_logging.BenchLogger(console=io.StringIO()))
@@ -143,7 +145,7 @@ def test_run_benchmark_matches_jax(numpy_oracle, method, dtype, kernel,
     want = float(np.asarray(pallas_reduce(
         jnp.asarray(jax_host_data(fields["n"], dtype)), method,
         threads=16, max_blocks=8, kernel=kernel, cpu_final=cpu_final,
-        interpret=True), dtype=np.float64))
+        stream_buffers=stream_buffers, interpret=True), dtype=np.float64))
     tol = registry.tolerance(method, dtype, fields["n"])
     assert abs(port.device_result - want) <= tol
     if tol == 0.0:
@@ -152,6 +154,21 @@ def test_run_benchmark_matches_jax(numpy_oracle, method, dtype, kernel,
     assert port.status == jax_res.status == QAStatus.PASSED
     assert (port.n, port.kernel, port.iterations) == \
         (jax_res.n, jax_res.kernel, jax_res.iterations)
+
+
+@pytest.mark.parametrize("method, dtype, kernel, cpu_final", CASES)
+def test_run_benchmark_matches_jax(numpy_oracle, method, dtype, kernel,
+                                   cpu_final):
+    _assert_run_matches_jax(method, dtype, kernel, cpu_final)
+
+
+@pytest.mark.parametrize("stream_buffers", [2, 8])
+@pytest.mark.parametrize("method, dtype", [("SUM", "int32"),
+                                           ("MIN", "float32")])
+def test_stream_run_matches_jax(numpy_oracle, method, dtype,
+                                stream_buffers):
+    """k10 through both drivers, at a shallow and a deep pipeline."""
+    _assert_run_matches_jax(method, dtype, 10, stream_buffers=stream_buffers)
 
 
 def _run_cli(*args, tmp_path):
@@ -183,37 +200,57 @@ def test_cli_waives_emptied_kernel(tmp_path):
 
 
 @pytest.mark.parametrize("kernel", [8, 9, 10])
-def test_unported_kernel_is_refused(kernel):
-    """No fallback to k6: the config, the parser and the entry point all
-    refuse and name ROADMAP.md."""
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        ReduceConfig(kernel=kernel, platform="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kr.kernel_reduce(torch.arange(10, dtype=torch.int32), "SUM",
-                         kernel=kernel, device="cpu")
-    err = io.StringIO()
-    with pytest.raises(SystemExit) as exc, contextlib.redirect_stderr(err):
-        parse_single_chip(["--method=SUM", f"--kernel={kernel}",
-                           "--platform=cpu"])
-    assert exc.value.code != 0
-    assert "ROADMAP.md" in err.getvalue()
+def test_unported_kernel_is_refused(kernel, tmp_path):
+    """Kernels 8-10, once refused as unported, now run: the parser takes
+    --kernel=8|9|10 (and k10's --streambuffers), the one-shot entry point
+    reduces with it, and the CLI PASSES."""
+    cfg = parse_single_chip(["--method=SUM", f"--kernel={kernel}",
+                             "--type=float", "--streambuffers=2",
+                             "--platform=cpu"])
+    assert (cfg.kernel, cfg.stream_buffers) == (kernel, 2)
+    x = torch.arange(1000, dtype=torch.float32)
+    assert kr.kernel_reduce(x, "SUM", kernel=kernel, threads=16,
+                            device="cpu").item() == 499500.0
+    proc, _ = _run_cli("--method=SUM", "--type=float", "--n=4096",
+                       "--platform=cpu", f"--kernel={kernel}",
+                       tmp_path=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "&&&& tpu_reductions_torch PASSED"
 
 
 def test_cli_refuses_unported_kernel(tmp_path):
-    proc, _ = _run_cli("--method=SUM", "--type=int", "--n=4096",
-                       "--platform=cpu", "--kernel=9", tmp_path=tmp_path)
-    assert proc.returncode != 0
-    assert "ROADMAP.md" in proc.stderr
-    assert "PASSED" not in proc.stdout and "WAIVED" not in proc.stdout
+    """What the CLI still refuses: k9 is SUM over float dtypes only, as in
+    the JAX driver, and kernel 11 is not live; both WAIVE with exit 2.
+    --streambuffers=0 is refused by the parser."""
+    for args in (["--kernel=9", "--method=MIN", "--type=float"],
+                 ["--kernel=9", "--method=SUM", "--type=int"],
+                 ["--kernel=11", "--method=SUM", "--type=int"]):
+        proc, _ = _run_cli(*args, "--n=4096", "--platform=cpu",
+                           tmp_path=tmp_path)
+        assert proc.returncode == 2, (args, proc.stderr)
+        assert proc.stdout.splitlines()[-1] == \
+            "&&&& tpu_reductions_torch WAIVED"
+    res = driver.run_benchmark(
+        ReduceConfig(method="MIN", dtype="float32", n=4096, kernel=9,
+                     platform="cpu", log_file=None),
+        logger=port_logging.BenchLogger(console=io.StringIO()))
+    assert res.waived_reason == "kernel 9 (MXU) is SUM over float dtypes only"
+    err = io.StringIO()
+    with pytest.raises(SystemExit) as exc, contextlib.redirect_stderr(err):
+        parse_single_chip(["--method=SUM", "--streambuffers=0",
+                           "--platform=cpu"])
+    assert exc.value.code != 0 and "stream_buffers must be positive" in \
+        err.getvalue()
 
 
-@pytest.mark.parametrize("kernel", [6, 7])
+@pytest.mark.parametrize("kernel", [6, 7, 8, 9, 10])
 def test_chain_leaves_staged_tensor_unperturbed(kernel):
     n = 4096 + 7
-    op, stage_fn, core = kr.make_staged_core("SUM", n, "int32", threads=8,
+    dtype = "float32" if kernel == 9 else "int32"   # k9 is float SUM only
+    op, stage_fn, core = kr.make_staged_core("SUM", n, dtype, threads=8,
                                              max_blocks=4, kernel=kernel,
                                              device=torch.device("cpu"))
-    x2d = stage_fn(host_data(n, "int32"))
+    x2d = stage_fn(host_data(n, dtype))
     before = x2d.clone()
     chained = chain.make_chained_reduce(core, op)
     once = core(x2d)

@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from tpu_reductions_torch import device as device_mod
-from tpu_reductions_torch.config import (LIVE_KERNELS, ReduceConfig,
-                                         parse_single_chip)
+from tpu_reductions_torch.config import (KERNEL_MXU, LIVE_KERNELS,
+                                         ReduceConfig, parse_single_chip)
 from tpu_reductions_torch.ops.chain import make_chained_reduce
 from tpu_reductions_torch.ops.kernel_reduce import (choose_tiling,
                                                     make_staged_core,
@@ -41,6 +41,9 @@ from tpu_reductions_torch.utils.rng import host_data
 from tpu_reductions_torch.utils.timing import time_chained, time_fn
 
 NAME = "tpu_reductions_torch"
+# k9 runs these dtypes (SUM only). f64 is among them: the card has native
+# f64, which is the JAX driver's off-TPU branch (its driver.py:444-446).
+MXU_DTYPES = ("float32", "bfloat16", "float64")
 
 
 @dataclasses.dataclass
@@ -111,7 +114,8 @@ def _make_device_fn(cfg: ReduceConfig, backend: str, device: torch.device):
     return make_staged_reduce(
         cfg.method, cfg.n, cfg.dtype, threads=cfg.threads,
         max_blocks=cfg.max_blocks, kernel=cfg.kernel,
-        cpu_final=cfg.cpu_final, cpu_thresh=cfg.cpu_thresh, device=device)
+        cpu_final=cfg.cpu_final, cpu_thresh=cfg.cpu_thresh,
+        stream_buffers=cfg.stream_buffers, device=device)
 
 
 def _chain_supported(cfg: ReduceConfig) -> bool:
@@ -138,7 +142,8 @@ def _make_chained_fn(cfg: ReduceConfig, backend: str, device: torch.device):
     op, _stage, core = make_staged_core(
         cfg.method, cfg.n, cfg.dtype, threads=cfg.threads,
         max_blocks=cfg.max_blocks, kernel=cfg.kernel,
-        cpu_thresh=cfg.cpu_thresh, device=device)
+        cpu_thresh=cfg.cpu_thresh, stream_buffers=cfg.stream_buffers,
+        device=device)
     return make_chained_reduce(core, op)
 
 
@@ -246,6 +251,13 @@ def _run_benchmark_inner(cfg: ReduceConfig, logger: BenchLogger,
         # the reference emptied kernels 0-5: not an error, not provided
         return _unrun(cfg, QAStatus.WAIVED,
                       f"kernel {cfg.kernel} not live (live: {LIVE_KERNELS})")
+    if (cfg.kernel == KERNEL_MXU and cfg.backend != "torch"
+            and (cfg.method != "SUM" or cfg.dtype not in MXU_DTYPES)):
+        # MIN/MAX have no product form and integer products are not exact
+        # on the float path: WAIVED, the incapable-hardware gate, not a
+        # failure (the JAX driver's :447-457)
+        return _unrun(cfg, QAStatus.WAIVED,
+                      "kernel 9 (MXU) is SUM over float dtypes only")
 
     backend = _resolve_backend(cfg)
     x_host = host_data(cfg.n, cfg.dtype, rank=0, seed=cfg.seed)

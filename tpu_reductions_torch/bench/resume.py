@@ -1,0 +1,107 @@
+"""Checkpoint and resume of a race's `--out` artifact.
+
+The counterpart of the part of tpu_reductions/bench/resume.py that the
+kernel race uses: `Checkpoint` (one artifact `{**meta, "complete": bool,
+<rows_key>: [...]}`, written atomically after every row; a re-invocation
+against an artifact left `complete: false` by an interrupted run reuses its
+rows instead of measuring them again), `default_reusable` and
+`result_from_row`. A `complete: true` artifact is a finished race: running
+again measures afresh, since resume is interruption-proofing, not a cache.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+from pathlib import Path
+from typing import Callable, List, Optional
+
+from tpu_reductions_torch.bench.driver import BenchResult
+from tpu_reductions_torch.utils.jsonio import atomic_json_dump
+from tpu_reductions_torch.utils.qa import QAStatus
+
+
+def default_reusable(row: dict) -> bool:
+    """A persisted row may stand in for a measurement when it is verified
+    or waived by design; FAILED rows, and rows with no verdict, run
+    again."""
+    return row.get("status") in ("PASSED", "WAIVED")
+
+
+class Checkpoint:
+    """Atomic, idempotent row persistence behind one `--out` artifact."""
+
+    def __init__(self, path: Optional[str | os.PathLike], meta: dict, *,
+                 key_fn: Callable[[dict], object],
+                 rows_key: str = "rows",
+                 sort_key: Optional[Callable[[dict], object]] = None):
+        """`path` None keeps everything in memory. `meta` is the
+        invocation contract: prior rows are reused only when every meta
+        key round-trips identically through the prior artifact. `key_fn`
+        maps a row to its identity; `sort_key`, when given, orders the
+        rows at every persist."""
+        self.path = os.fspath(path) if path is not None else None
+        # a JSON round trip, so tuple-valued meta compares equal to the
+        # lists it becomes on disk
+        self.meta = json.loads(json.dumps(meta))
+        self.rows_key = rows_key
+        self._sort_key = sort_key
+        self.rows: List[dict] = []
+        self._prior = {}
+        prior = self._load_prior()
+        if (prior is not None and prior.get("complete") is not True
+                and all(prior.get(k) == v for k, v in self.meta.items())):
+            for row in prior.get(rows_key, []):
+                if isinstance(row, dict):
+                    self._prior[key_fn(row)] = row
+
+    def _load_prior(self) -> Optional[dict]:
+        if self.path is None or not os.path.exists(self.path):
+            return None
+        try:
+            data = json.loads(Path(self.path).read_text())
+        except (OSError, ValueError):
+            return None   # unreadable: measure again
+        return data if isinstance(data, dict) else None
+
+    def resume(self, key: object) -> Optional[dict]:
+        """The prior run's row for `key`, if there is one and
+        `default_reusable` accepts it; the caller skips the measurement
+        and `add()`s the row unchanged."""
+        row = self._prior.get(key)
+        return row if row is not None and default_reusable(row) else None
+
+    def add(self, row: dict, extra: Optional[dict] = None) -> None:
+        """Append one row and persist the artifact as incomplete."""
+        self.rows.append(row)
+        self._persist(complete=False, extra=extra)
+
+    def finalize(self, extra: Optional[dict] = None) -> None:
+        """Mark the artifact complete."""
+        self._persist(complete=True, extra=extra)
+
+    def _persist(self, complete: bool, extra: Optional[dict]) -> None:
+        if self.path is None:
+            return
+        rows = (sorted(self.rows, key=self._sort_key)
+                if self._sort_key else self.rows)
+        atomic_json_dump(self.path, {**self.meta, **(extra or {}),
+                                     "complete": complete,
+                                     self.rows_key: rows})
+
+
+def result_from_row(cfg, row: dict) -> BenchResult:
+    """A BenchResult from a persisted row, so that resumed candidates rank
+    beside fresh ones. Only what ranking and reporting read (gbps, status,
+    identity) is real; the oracle fields are nan, since the row was
+    verified when it was measured."""
+    gbps = row.get("gbps")
+    gbps = (float(gbps) if isinstance(gbps, (int, float))
+            and math.isfinite(gbps) else 0.0)
+    nan = float("nan")
+    return BenchResult(cfg.method, cfg.dtype, cfg.n, cfg.backend,
+                       cfg.kernel, gbps, 0.0, cfg.iterations,
+                       QAStatus[row.get("status", "FAILED")], nan, nan, nan,
+                       waived_reason=row.get("waived_reason"),
+                       timing=row.get("timing"))

@@ -7,9 +7,11 @@ package's spelling and defaults:
   --method={SUM|MIN|MAX}       required
   --type={int|float|double}    or int32/float32/float64/bfloat16
   --n, --seed, --threads, --maxblocks, --cpufinal, --cputhresh
-  --kernel                     6 (single pass) and 7 (partials) run;
-                               0-5 WAIVE; 8, 9 and 10 are not ported yet
-                               and are refused (ROADMAP.md)
+  --kernel                     6 (single pass), 7 (partials), 8
+                               (elementwise), 9 (tensor-core SUM over float
+                               dtypes; other pairs WAIVE) and 10 (streamed
+                               through shared memory) run; 0-5 WAIVE
+  --streambuffers              k10's pipeline depth (default 4)
   --backend={auto|cuda|torch}  cuda: the hand-written kernels (auto picks
                                them); torch: the comparator
   --platform={gpu|cpu}         the card by default
@@ -39,16 +41,14 @@ PLATFORMS = ("gpu", "cpu")
 TIMINGS = ("periter", "bulk", "fetch", "chained")
 
 # Kernel ids of the JAX package (its config.py:224-236). 0-5 WAIVE, as
-# the reference emptied them; 6 and 7 are ported; 8-10 wait in ROADMAP.md.
-LIVE_KERNELS = (6, 7)
-NOT_PORTED_KERNELS = (8, 9, 10)
+# the reference emptied them.
+LIVE_KERNELS = (6, 7, 8, 9, 10)
 KERNEL_SINGLE_PASS = 6
 KERNEL_TWO_PASS = 7
-
-
-def not_ported_message(kernel: int) -> str:
-    return (f"kernel {kernel} is not ported to the GPU yet; ROADMAP.md "
-            "(Queue B) lists it as still to be ported")
+KERNEL_ELEMENTWISE = 8
+KERNEL_MXU = 9          # SUM over float dtypes, on the tensor cores
+KERNEL_STREAM = 10      # fed by a `stream_buffers`-deep copy pipeline
+STREAM_BUFFERS = 4      # k10's default depth
 
 
 @dataclasses.dataclass
@@ -62,6 +62,7 @@ class ReduceConfig:
     kernel: int = KERNEL_SINGLE_PASS
     max_blocks: int = 64             # partial-block clamp
     cpu_final: bool = False
+    stream_buffers: int = STREAM_BUFFERS   # k10's depth; others ignore it
     cpu_thresh: int = 1
     backend: str = "auto"
     platform: str = "gpu"
@@ -88,12 +89,12 @@ class ReduceConfig:
             raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
         if self.platform not in PLATFORMS:
             raise ValueError(f"platform must be one of {PLATFORMS}, got {self.platform!r}")
-        if self.kernel in NOT_PORTED_KERNELS:
-            raise ValueError(not_ported_message(self.kernel))
         if self.n <= 0:
             raise ValueError("n must be positive")
         if self.threads <= 0 or self.max_blocks <= 0:
             raise ValueError("threads/max_blocks must be positive")
+        if self.stream_buffers <= 0:
+            raise ValueError("stream_buffers must be positive")
         if self.timing not in TIMINGS:
             raise ValueError(f"timing must be periter|bulk|fetch|chained, "
                              f"got {self.timing!r}")
@@ -130,10 +131,17 @@ def build_single_chip_parser() -> argparse.ArgumentParser:
     p.add_argument("--threads", type=int, default=256,
                    help="Tile rows (threads-per-block analog)")
     p.add_argument("--kernel", type=int, default=KERNEL_SINGLE_PASS,
-                   help="6=single-pass accumulator, 7=two-pass partials; "
-                        "0-5 WAIVED; 8-10 not ported yet")
+                   help="6=single-pass fold accumulator, 7=two-pass "
+                        "partials, 8=single-pass elementwise accumulator, "
+                        "9=tensor-core SUM (float dtypes; other combos "
+                        "WAIVE), 10=streamed elementwise accumulator; "
+                        "0-5 WAIVED")
     p.add_argument("--maxblocks", dest="max_blocks", type=int, default=64,
                    help="Partial-block clamp (maxblocks analog)")
+    p.add_argument("--streambuffers", dest="stream_buffers", type=int,
+                   default=STREAM_BUFFERS,
+                   help="Kernel-10 copy pipeline depth (default 4). Other "
+                        "kernels ignore this knob")
     p.add_argument("--cpufinal", dest="cpu_final", action="store_true",
                    help="Finish the partial reduction on the host")
     p.add_argument("--cputhresh", dest="cpu_thresh", type=int, default=1,
@@ -175,7 +183,8 @@ def parse_single_chip(argv=None) -> ReduceConfig:
         return ReduceConfig(
             method=ns.method, dtype=ns.dtype, n=ns.n, threads=ns.threads,
             kernel=ns.kernel, max_blocks=ns.max_blocks,
-            cpu_final=ns.cpu_final, cpu_thresh=ns.cpu_thresh,
+            stream_buffers=ns.stream_buffers, cpu_final=ns.cpu_final,
+            cpu_thresh=ns.cpu_thresh,
             backend=ns.backend, platform=ns.platform,
             iterations=ns.iterations, warmup=ns.warmup, seed=ns.seed,
             device=ns.device, log_file=ns.log_file,

@@ -1,0 +1,112 @@
+// Shared pieces of the hand-written Hopper (sm_90a) reduction kernels:
+// the op and dtype codes of ops/_cuda.py, the register type of each element
+// type, the op's identity and combine, and the dispatch from the runtime
+// (op, dtype) codes to a template instance. Each csrc/*.cu includes this
+// header and is built into its own library, which exports tr_error_string.
+//
+// int32 SUM adds in uint32_t: signed overflow is undefined in C++, and the
+// result must wrap modulo 2^32 like the host oracle.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <climits>
+#include <type_traits>
+
+namespace tr {
+
+constexpr int LANES = 128;
+constexpr int THREADS = 1024;
+
+// Codes shared with ops/_cuda.py.
+enum OpCode { OP_SUM = 0, OP_MIN = 1, OP_MAX = 2 };
+enum DtypeCode { DT_INT32 = 0, DT_FLOAT32 = 1, DT_FLOAT64 = 2, DT_BFLOAT16 = 3 };
+
+// Register type of each element type: bf16 is widened to float, exactly.
+__device__ __forceinline__ int widen(int v) { return v; }
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void store(int* p, int v) { *p = v; }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(double* p, double v) { *p = v; }
+// A bf16 MIN/MAX accumulator holds an input value or +-inf: exact in bf16.
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+template <int OP, class R>
+__device__ __forceinline__ R identity() {
+  if constexpr (OP == OP_SUM) {
+    return R(0);
+  } else if constexpr (std::is_same<R, int>::value) {
+    return OP == OP_MIN ? INT_MAX : INT_MIN;
+  } else if constexpr (std::is_same<R, float>::value) {
+    return OP == OP_MIN ? CUDART_INF_F : -CUDART_INF_F;
+  } else {
+    return OP == OP_MIN ? CUDART_INF : -CUDART_INF;
+  }
+}
+
+template <int OP, class R>
+__device__ __forceinline__ R combine(R a, R b) {
+  if constexpr (OP == OP_SUM) {
+    if constexpr (std::is_same<R, int>::value) {
+      return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+    } else {
+      return a + b;
+    }
+  } else if constexpr (OP == OP_MIN) {
+    return b < a ? b : a;
+  } else {
+    return a < b ? b : a;
+  }
+}
+
+// Calls launch.run<OP, T, O, SUB>(): T the element type, O the accumulator
+// type, SUB the accumulator rows of one slot group (8; 16 for bf16). bf16
+// SUM accumulates in float (the JAX package's accum_dtype); every other
+// pair keeps its input type.
+template <int OP, class L>
+cudaError_t by_dtype(int dtype, const L& launch) {
+  switch (dtype) {
+    case DT_INT32:
+      return launch.template run<OP, int, int, 8>();
+    case DT_FLOAT32:
+      return launch.template run<OP, float, float, 8>();
+    case DT_FLOAT64:
+      return launch.template run<OP, double, double, 8>();
+    case DT_BFLOAT16:
+      if constexpr (OP == OP_SUM) {
+        return launch.template run<OP, __nv_bfloat16, float, 16>();
+      } else {
+        return launch.template run<OP, __nv_bfloat16, __nv_bfloat16, 16>();
+      }
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <class L>
+cudaError_t by_op(int op, int dtype, const L& launch) {
+  switch (op) {
+    case OP_SUM:
+      return by_dtype<OP_SUM>(dtype, launch);
+    case OP_MIN:
+      return by_dtype<OP_MIN>(dtype, launch);
+    case OP_MAX:
+      return by_dtype<OP_MAX>(dtype, launch);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tr
+
+// Defined here, not only declared: each library is built from exactly one
+// source, so each gets one exported copy.
+extern "C" const char* tr_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -27,65 +27,12 @@
 // with a grid-stride walk, then one block folds their partials. k7 keeps the
 // reference's shape (P blocks, each its own T*TM rows), so at the default
 // P = 64 it occupies fewer than the H100's 132 SMs.
-//
-// int32 SUM adds in uint32_t: signed overflow is undefined in C++, and the
-// result must wrap modulo 2^32 like the host oracle.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-#include <climits>
-#include <type_traits>
+#include "common.cuh"
 
 namespace {
 
-constexpr int LANES = 128;
-constexpr int THREADS = 1024;
-
-// Codes shared with ops/_cuda.py.
-enum OpCode { OP_SUM = 0, OP_MIN = 1, OP_MAX = 2 };
-enum DtypeCode { DT_INT32 = 0, DT_FLOAT32 = 1, DT_FLOAT64 = 2, DT_BFLOAT16 = 3 };
-
-// Register type of each element type: bf16 is widened to float, exactly.
-__device__ __forceinline__ int widen(int v) { return v; }
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ double widen(double v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ void store(int* p, int v) { *p = v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(double* p, double v) { *p = v; }
-// A bf16 MIN/MAX accumulator holds an input value or +-inf: exact in bf16.
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-template <int OP, class R>
-__device__ __forceinline__ R identity() {
-  if constexpr (OP == OP_SUM) {
-    return R(0);
-  } else if constexpr (std::is_same<R, int>::value) {
-    return OP == OP_MIN ? INT_MAX : INT_MIN;
-  } else if constexpr (std::is_same<R, float>::value) {
-    return OP == OP_MIN ? CUDART_INF_F : -CUDART_INF_F;
-  } else {
-    return OP == OP_MIN ? CUDART_INF : -CUDART_INF;
-  }
-}
-
-template <int OP, class R>
-__device__ __forceinline__ R combine(R a, R b) {
-  if constexpr (OP == OP_SUM) {
-    if constexpr (std::is_same<R, int>::value) {
-      return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-    } else {
-      return a + b;
-    }
-  } else if constexpr (OP == OP_MIN) {
-    return b < a ? b : a;
-  } else {
-    return a < b ? b : a;
-  }
-}
+using namespace tr;
 
 // Block b folds the SUB-row groups that start at rows b*block_step,
 // b*block_step + stride, ... below min(rows, b*block_step + block_rows)
@@ -160,42 +107,6 @@ struct K7 {
   }
 };
 
-// bf16 SUM accumulates in float (the JAX package's accum_dtype); every
-// other pair keeps its input type.
-template <int OP, class L>
-cudaError_t by_dtype(int dtype, const L& launch) {
-  switch (dtype) {
-    case DT_INT32:
-      return launch.template run<OP, int, int, 8>();
-    case DT_FLOAT32:
-      return launch.template run<OP, float, float, 8>();
-    case DT_FLOAT64:
-      return launch.template run<OP, double, double, 8>();
-    case DT_BFLOAT16:
-      if constexpr (OP == OP_SUM) {
-        return launch.template run<OP, __nv_bfloat16, float, 16>();
-      } else {
-        return launch.template run<OP, __nv_bfloat16, __nv_bfloat16, 16>();
-      }
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <class L>
-cudaError_t by_op(int op, int dtype, const L& launch) {
-  switch (op) {
-    case OP_SUM:
-      return by_dtype<OP_SUM>(dtype, launch);
-    case OP_MIN:
-      return by_dtype<OP_MIN>(dtype, launch);
-    case OP_MAX:
-      return by_dtype<OP_MAX>(dtype, launch);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // Each returns cudaGetLastError() after its launches: 0 on success.
@@ -204,16 +115,12 @@ extern "C" int tr_k6_reduce(const void* in, void* partials, void* out,
                             void* stream) {
   const K6 launch{in, partials, out, rows, blocks,
                   static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(by_op(op, dtype, launch));
+  return static_cast<int>(tr::by_op(op, dtype, launch));
 }
 
 extern "C" int tr_k7_reduce(const void* in, void* out, long long rows,
                             long long span, int blocks, int op, int dtype,
                             void* stream) {
   const K7 launch{in, out, rows, span, blocks, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(by_op(op, dtype, launch));
-}
-
-extern "C" const char* tr_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return static_cast<int>(tr::by_op(op, dtype, launch));
 }

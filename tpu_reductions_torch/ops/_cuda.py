@@ -2,8 +2,10 @@
 
 At first use each source `csrc/<name>.cu` is compiled by `nvcc` for
 `sm_90a` into `_build/lib<name>.so` (one `nvcc` per source, all started
-together) and loaded with ctypes. The sources have a plain C interface:
-pointers and the stream go in as `c_void_p`, and each C function returns
+together) and loaded with ctypes, each library by its own name:
+`reduce` (k6, k7), `accumulate` (k8, k10) and `mxu` (k9); they share
+`csrc/common.cuh`. The sources have a plain C interface: pointers and the
+stream go in as `c_void_p`, and each C function returns
 `cudaGetLastError()` after its launches, which the wrappers here turn
 into an exception. Nothing is built or loaded at import, so the CPU tests
 import this module without `nvcc`.
@@ -33,13 +35,28 @@ DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.float64: 2,
                torch.bfloat16: 3}
 
 _VP = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_INT = ctypes.c_int
+# The C functions of each source's library, csrc/<name>.cu -> lib<name>.so.
 _SIGNATURES = {
-    # tr_k6_reduce(in, partials, out, rows, blocks, op, dtype, stream)
-    "tr_k6_reduce": [_VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_int, _VP],
-    # tr_k7_reduce(in, out, rows, span, blocks, op, dtype, stream)
-    "tr_k7_reduce": [_VP, _VP, ctypes.c_longlong, ctypes.c_longlong,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
+    "reduce": {
+        # tr_k6_reduce(in, partials, out, rows, blocks, op, dtype, stream)
+        "tr_k6_reduce": [_VP, _VP, _VP, _LL, _INT, _INT, _INT, _VP],
+        # tr_k7_reduce(in, out, rows, span, blocks, op, dtype, stream)
+        "tr_k7_reduce": [_VP, _VP, _LL, _LL, _INT, _INT, _INT, _VP],
+    },
+    "accumulate": {
+        # tr_k8_reduce(in, partials, out, tiles, tm, splits, op, dtype, stream)
+        "tr_k8_reduce": [_VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT, _VP],
+        # tr_k10_reduce(in, partials, out, tiles, tm, splits, depth, op,
+        #               dtype, stream)
+        "tr_k10_reduce": [_VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT, _INT,
+                          _VP],
+    },
+    "mxu": {
+        # tr_k9_reduce(in, partials, out, rows, blocks, dtype, stream)
+        "tr_k9_reduce": [_VP, _VP, _VP, _LL, _INT, _INT, _VP],
+    },
 }
 
 
@@ -55,15 +72,23 @@ def _library_path(source: Path) -> Path:
     return BUILD / f"lib{source.stem}.so"
 
 
+def _stale(source: Path, newest_header: float) -> bool:
+    lib = _library_path(source)
+    return (not lib.exists() or lib.stat().st_mtime
+            < max(source.stat().st_mtime, newest_header))
+
+
 def build() -> tuple[float, str]:
-    """Compile every stale source, in parallel; return (seconds, the
-    compilers' output, which holds `-Xptxas -v`'s register report).
-    Raises CalledProcessError when a compile fails."""
+    """Compile every stale source (older than its library, or than a
+    header in csrc/), in parallel; return (seconds, the compilers' output,
+    which holds `-Xptxas -v`'s register report). Raises
+    CalledProcessError when a compile fails."""
     BUILD.mkdir(exist_ok=True)
     t0 = time.perf_counter()
+    newest_header = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")),
+                        default=0.0)
     stale = [src for src in sorted(CSRC.glob("*.cu"))
-             if not _library_path(src).exists()
-             or _library_path(src).stat().st_mtime < src.stat().st_mtime]
+             if _stale(src, newest_header)]
     jobs = []
     for src in stale:
         tmp = BUILD / f"lib{src.stem}.so.{os.getpid()}.tmp"
@@ -82,11 +107,12 @@ def build() -> tuple[float, str]:
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library of csrc/reduce.cu, built first if stale."""
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library of csrc/<name>.cu, built first if
+    stale."""
     build()
-    lib = ctypes.CDLL(str(_library_path(CSRC / "reduce.cu")))
-    for fn, argtypes in _SIGNATURES.items():
+    lib = ctypes.CDLL(str(_library_path(CSRC / f"{name}.cu")))
+    for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     lib.tr_error_string.argtypes = [ctypes.c_int]
@@ -107,7 +133,7 @@ def _stream(t: torch.Tensor) -> int:
 def k6_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
               blocks: int, op_name: str) -> None:
     """Launch k6's two passes on x2d's device and current stream."""
-    lib = library()
+    lib = library("reduce")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k6_reduce(x2d.data_ptr(), partials.data_ptr(),
                                out.data_ptr(), x2d.shape[0], blocks,
@@ -119,9 +145,46 @@ def k6_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
 def k7_reduce(x2d: torch.Tensor, out: torch.Tensor, span: int, blocks: int,
               op_name: str) -> None:
     """Launch one k7 pass on x2d's device and current stream."""
-    lib = library()
+    lib = library("reduce")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k7_reduce(x2d.data_ptr(), out.data_ptr(), x2d.shape[0],
                                span, blocks, OP_CODES[op_name],
                                DTYPE_CODES[x2d.dtype], _stream(x2d))
     _check(lib, err, "k7")
+
+
+def k8_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
+              tm: int, splits: int, op_name: str) -> None:
+    """Launch k8's two passes on x2d's device and current stream."""
+    lib = library("accumulate")
+    with torch.cuda.device(x2d.device):
+        err = lib.tr_k8_reduce(x2d.data_ptr(), partials.data_ptr(),
+                               out.data_ptr(), x2d.shape[0] // tm, tm, splits,
+                               OP_CODES[op_name], DTYPE_CODES[x2d.dtype],
+                               _stream(x2d))
+    _check(lib, err, "k8")
+
+
+def k10_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
+               tm: int, splits: int, depth: int, op_name: str) -> None:
+    """Launch k10's streamed pass and its fold on x2d's device and current
+    stream."""
+    lib = library("accumulate")
+    with torch.cuda.device(x2d.device):
+        err = lib.tr_k10_reduce(x2d.data_ptr(), partials.data_ptr(),
+                                out.data_ptr(), x2d.shape[0] // tm, tm,
+                                splits, depth, OP_CODES[op_name],
+                                DTYPE_CODES[x2d.dtype], _stream(x2d))
+    _check(lib, err, "k10")
+
+
+def k9_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
+              blocks: int) -> None:
+    """Launch k9's tensor-core pass and its fold on x2d's device and
+    current stream."""
+    lib = library("mxu")
+    with torch.cuda.device(x2d.device):
+        err = lib.tr_k9_reduce(x2d.data_ptr(), partials.data_ptr(),
+                               out.data_ptr(), x2d.shape[0], blocks,
+                               DTYPE_CODES[x2d.dtype], _stream(x2d))
+    _check(lib, err, "k9")

@@ -1,4 +1,4 @@
-"""Single-chip reduction kernels k6 and k7: staging, wrappers, plain
+"""Single-chip reduction kernels k6-k10: staging, wrappers, plain
 versions and the multi-pass finish.
 
 The counterpart of tpu_reductions/ops/pallas_reduce.py. The payload is
@@ -10,13 +10,20 @@ device (`choose_tiling`, `stage_padded`: --threads sets the TM tile rows,
   k7  two_pass_call    -> (P*sub, 128) partials, relaunched on its own
                           partials by _multipass_finish while more than
                           --cputhresh rows remain, then finished on the
-                          device or, with --cpufinal, on the host.
+                          device or, with --cpufinal, on the host;
+  k8  elementwise_call -> one (TM, 128) accumulator;
+  k9  mxu_call         -> (8, 128): row 0 the column sums (SUM over float
+                          dtypes only, on the tensor cores), rows 1-7 zero;
+  k10 stream_call      -> k8's (TM, 128) accumulator, its input streamed
+                          through a --streambuffers-deep copy pipeline.
 
 sub is 8 rows, or 16 for bf16. Slot (r, c) of a (sub, 128) block is the
 combine, over the rows the block covers that are congruent to r modulo
-sub, of column c; that definition does not depend on the tiling, so the
-CUDA kernels (csrc/reduce.cu) are free to pick their own launch geometry
-and still equal the JAX kernels element by element for int32 and MIN/MAX.
+sub, of column c; slot (r, c) of k8's and k10's (TM, 128) accumulator is
+the combine over all staged rows congruent to r modulo TM. Neither
+definition depends on the launch geometry, so the CUDA kernels
+(csrc/reduce.cu, csrc/accumulate.cu) are free to pick their own and still
+equal the JAX kernels element by element for int32 and MIN/MAX.
 
 Each wrapper takes its plain PyTorch version only for a tensor on the CPU;
 for a CUDA tensor it launches the kernel (or raises), and counts the
@@ -31,16 +38,20 @@ from typing import Optional, Union
 import torch
 
 from tpu_reductions_torch import device as device_mod
-from tpu_reductions_torch.config import (KERNEL_SINGLE_PASS,
-                                         KERNEL_TWO_PASS,
-                                         NOT_PORTED_KERNELS,
-                                         not_ported_message)
+from tpu_reductions_torch.config import (KERNEL_ELEMENTWISE, KERNEL_MXU,
+                                         KERNEL_SINGLE_PASS, KERNEL_STREAM,
+                                         KERNEL_TWO_PASS, STREAM_BUFFERS)
 from tpu_reductions_torch.ops import _cuda
 from tpu_reductions_torch.ops.oracle import host_value
 from tpu_reductions_torch.ops.registry import (ReduceOpSpec, accum_dtype,
                                                get_op, torch_dtype)
 
 LANES = 128      # row width of the staged layout (the TPU's lane count)
+MXU_ACC_ROWS = 8    # k9's accumulator rows (the JAX kernel's, bf16 too)
+# k10's shared-memory ring: the bytes one Hopper block can use (227 KB), and
+# the most stages its barrier array holds (csrc/accumulate.cu MAX_STAGES)
+SMEM_PER_BLOCK = 232448
+STREAM_MAX_STAGES = 64
 
 DtypeLike = Union[str, torch.dtype]
 
@@ -110,6 +121,25 @@ def two_pass_plain(x2d: torch.Tensor, op: ReduceOpSpec, tm: int, p: int,
     return parts.reshape(p * sub, LANES)
 
 
+def elementwise_plain(x2d: torch.Tensor, op: ReduceOpSpec,
+                      tm: int) -> torch.Tensor:
+    """k8's and k10's function in PyTorch: the (TM, 128) accumulator whose
+    slot (r, c) combines the rows congruent to r modulo TM of column c."""
+    return op.reduce_dim(x2d.reshape(-1, tm, LANES), 0)
+
+
+stream_plain = elementwise_plain   # k10 computes k8's function
+
+
+def mxu_plain(x2d: torch.Tensor) -> torch.Tensor:
+    """k9's function in PyTorch: an (8, 128) block in the accumulator
+    dtype, row 0 the column sums, rows 1-7 zero."""
+    acc = accum_dtype(x2d.dtype)
+    out = torch.zeros((MXU_ACC_ROWS, LANES), dtype=acc, device=x2d.device)
+    out[0] = x2d.to(acc).sum(0)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -176,6 +206,125 @@ def two_pass_call(x2d: torch.Tensor, op: ReduceOpSpec, tm: int, p: int,
 two_pass_call.launches = 0
 
 
+def _check_period(x2d: torch.Tensor, tm: int) -> None:
+    """k8 and k10 take whole (TM, 128) tiles (JAX's stream_call refuses
+    the rest too): a ragged tail would be dropped."""
+    if tm <= 0 or x2d.shape[0] % tm:
+        raise ValueError(f"k8/k10 need rows % tm == 0, got {x2d.shape[0]} "
+                         f"rows with tm={tm}")
+
+
+def _period_buffers(x2d: torch.Tensor, op: ReduceOpSpec, tm: int):
+    """(out, partials, splits) of a k8 or k10 launch. The tiles are cut
+    into `splits` interleaved sets, as many as keep the tm/sub slot groups
+    x splits blocks of 1024 threads within one wave (two blocks per SM);
+    it depends on the shape alone, so k8 and k10 add in the same order.
+    With one split, pass 1 writes `out`."""
+    sub = sublanes_for(x2d.dtype)
+    _check_staged(x2d, sub)
+    if tm % sub:
+        raise ValueError(f"tm={tm} is not a multiple of {sub} rows")
+    tiles = x2d.shape[0] // tm
+    splits = max(1, min(tiles, 2 * _sm_count(x2d.device) // (tm // sub)))
+    acc = _acc_dtype(x2d.dtype, op)
+    out = torch.empty((tm, LANES), dtype=acc, device=x2d.device)
+    partials = (torch.empty((splits * tm, LANES), dtype=acc,
+                            device=x2d.device) if splits > 1 else out)
+    return out, partials, splits
+
+
+def _check_aligned(x2d: torch.Tensor) -> None:
+    """k9's 16-byte loads and k10's bulk copies need a 16-byte aligned
+    base (rows are 256 bytes or more, so every row is then aligned)."""
+    if x2d.data_ptr() % 16:
+        raise ValueError("the staged tensor must start on a 16-byte "
+                         "boundary")
+
+
+def elementwise_call(x2d: torch.Tensor, op: ReduceOpSpec,
+                     tm: int) -> torch.Tensor:
+    """k8: the (TM, 128) accumulator of a staged tensor, by plain loads
+    into registers. Its two CUDA passes (the split partials, then their
+    fold) count as one launch."""
+    _check_period(x2d, tm)
+    if x2d.device.type == "cpu":
+        return elementwise_plain(x2d, op, tm)
+    out, partials, splits = _period_buffers(x2d, op, tm)
+    _cuda.k8_reduce(x2d, partials, out, tm, splits, op.name)
+    elementwise_call.launches += 1
+    return out
+
+
+elementwise_call.launches = 0
+
+
+def stream_max_depth(dtype: torch.dtype) -> int:
+    """The deepest ring k10 can have for a dtype: stages of one SUB x 128
+    chunk beside the barriers in one block's shared memory."""
+    chunk = sublanes_for(dtype) * LANES * dtype.itemsize
+    return min(STREAM_MAX_STAGES,
+               (SMEM_PER_BLOCK - 8 * STREAM_MAX_STAGES) // chunk)
+
+
+def stream_call(x2d: torch.Tensor, op: ReduceOpSpec, tm: int,
+                stream_buffers: int = STREAM_BUFFERS) -> torch.Tensor:
+    """k10: k8's accumulator, with the input brought into shared memory
+    by a `stream_buffers`-deep ring of bulk copies. The depth moves
+    copies, not the order of the adds: every depth gives the same bits.
+    A depth that does not fit in shared memory raises; it is never
+    clamped."""
+    _check_period(x2d, tm)
+    if stream_buffers <= 0:
+        raise ValueError("stream_buffers must be positive")
+    if x2d.device.type == "cpu":
+        return stream_plain(x2d, op, tm)
+    out, partials, splits = _period_buffers(x2d, op, tm)
+    deepest = stream_max_depth(x2d.dtype)
+    if stream_buffers > deepest:
+        chunk = sublanes_for(x2d.dtype) * LANES * x2d.element_size()
+        raise ValueError(
+            f"kernel 10 cannot run {stream_buffers} stages for {x2d.dtype}: "
+            f"each stage holds a {chunk} B chunk, and at most {deepest} "
+            f"stages fit beside the barriers in the {SMEM_PER_BLOCK} B of "
+            f"shared memory one block can use")
+    _check_aligned(x2d)
+    _cuda.k10_reduce(x2d, partials, out, tm, splits, stream_buffers,
+                     op.name)
+    stream_call.launches += 1
+    return out
+
+
+stream_call.launches = 0
+
+
+def mxu_call(x2d: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
+    """k9: SUM over float dtypes on the tensor cores, as an (8, 128)
+    block: row 0 the column sums, rows 1-7 exactly zero. MIN/MAX have no
+    product form and integers no exact one: both raise, and the driver
+    WAIVEs those rows. Its two CUDA passes count as one launch."""
+    if op.name != "SUM":
+        raise ValueError("kernel 9 (MXU) implements SUM only")
+    if not x2d.dtype.is_floating_point:
+        raise ValueError(f"kernel 9 (MXU) needs a float dtype, got "
+                         f"{x2d.dtype}")
+    if x2d.device.type == "cpu":
+        return mxu_plain(x2d)
+    _check_staged(x2d, sublanes_for(x2d.dtype))
+    _check_aligned(x2d)
+    slab_rows = {torch.bfloat16: 16, torch.float32: 8, torch.float64: 4}
+    slabs = x2d.shape[0] // slab_rows[x2d.dtype]
+    blocks = max(1, min(2 * _sm_count(x2d.device), -(-slabs // 8)))
+    acc = accum_dtype(x2d.dtype)
+    partials = torch.empty((blocks, LANES), dtype=acc, device=x2d.device)
+    out = torch.empty((MXU_ACC_ROWS, LANES), dtype=acc, device=x2d.device)
+    _cuda.k9_reduce(x2d, partials, out, blocks)
+    mxu_call.launches += 1
+    return out
+
+
+mxu_call.launches = 0
+
+
 def _multipass_finish(partials: torch.Tensor, op: ReduceOpSpec, threads: int,
                       max_blocks: int, cpu_thresh: int) -> torch.Tensor:
     """Relaunch k7 on its own partials while more than cpu_thresh rows
@@ -211,24 +360,39 @@ def host_finish(partials: torch.Tensor, op: ReduceOpSpec):
 # ---------------------------------------------------------------------------
 
 
+# One kernel call per reduce, by kernel id, each called as
+# (x2d, op, tm, stream_buffers); k7 (the multi-pass partials chain) is the
+# only structure outside this map. k10's entry is the one place where the
+# depth meets the dispatch, for every entry point.
+SINGLE_INVOCATION_CALLS = {
+    KERNEL_SINGLE_PASS: lambda x2d, op, tm, depth: single_pass_call(x2d, op),
+    KERNEL_ELEMENTWISE: lambda x2d, op, tm, depth: elementwise_call(
+        x2d, op, tm),
+    KERNEL_MXU: lambda x2d, op, tm, depth: mxu_call(x2d, op),
+    KERNEL_STREAM: lambda x2d, op, tm, depth: stream_call(x2d, op, tm,
+                                                          depth),
+}
+
+
 def _device_fn(kernel: int, op: ReduceOpSpec, tm: int, p: int, t: int,
-               threads: int, max_blocks: int, cpu_thresh: int):
+               threads: int, max_blocks: int, cpu_thresh: int,
+               stream_buffers: int):
     """The device-only accumulator function of a kernel id."""
-    if kernel == KERNEL_SINGLE_PASS:
-        return lambda x2d: single_pass_call(x2d, op)
+    if kernel in SINGLE_INVOCATION_CALLS:
+        call = SINGLE_INVOCATION_CALLS[kernel]
+        return lambda x2d: call(x2d, op, tm, stream_buffers)
     if kernel == KERNEL_TWO_PASS:
         return lambda x2d: _multipass_finish(
             two_pass_call(x2d, op, tm, p, t), op, threads, max_blocks,
             cpu_thresh)
-    if kernel in NOT_PORTED_KERNELS:
-        raise NotImplementedError(not_ported_message(kernel))
-    raise ValueError(f"kernel {kernel} is not live; only 6 and 7 run "
+    raise ValueError(f"kernel {kernel} is not live; only 6-10 run "
                      "(0-5 are WAIVED)")
 
 
 def _make_staged_parts(method: str, n: int, dtype: DtypeLike, *,
                        threads: int, max_blocks: int, kernel: int,
-                       cpu_thresh: int, device: Optional[torch.device]):
+                       cpu_thresh: int, stream_buffers: int,
+                       device: Optional[torch.device]):
     op = get_op(method)
     tm, p, t = choose_tiling(n, threads, max_blocks, dtype)
 
@@ -236,13 +400,14 @@ def _make_staged_parts(method: str, n: int, dtype: DtypeLike, *,
         return stage_padded(x, tm, p, t, op, device)
 
     return op, stage_fn, _device_fn(kernel, op, tm, p, t, threads,
-                                    max_blocks, cpu_thresh)
+                                    max_blocks, cpu_thresh, stream_buffers)
 
 
 def make_staged_reduce(method: str, n: int, dtype: DtypeLike, *,
                        threads: int = 256, max_blocks: int = 64,
                        kernel: int = KERNEL_SINGLE_PASS,
                        cpu_final: bool = False, cpu_thresh: int = 1,
+                       stream_buffers: int = STREAM_BUFFERS,
                        device: Optional[torch.device] = None):
     """(stage_fn, reduce_fn): `stage_fn` pads and copies the host payload
     to `device` once, outside the timed loop; `reduce_fn` maps the staged
@@ -250,7 +415,8 @@ def make_staged_reduce(method: str, n: int, dtype: DtypeLike, *,
     cpu_final)."""
     op, stage_fn, device_fn = _make_staged_parts(
         method, n, dtype, threads=threads, max_blocks=max_blocks,
-        kernel=kernel, cpu_thresh=cpu_thresh, device=device)
+        kernel=kernel, cpu_thresh=cpu_thresh, stream_buffers=stream_buffers,
+        device=device)
     if cpu_final:
         return stage_fn, lambda x2d: host_finish(device_fn(x2d), op)
     return stage_fn, lambda x2d: finish(device_fn(x2d), op)
@@ -259,12 +425,14 @@ def make_staged_reduce(method: str, n: int, dtype: DtypeLike, *,
 def make_staged_core(method: str, n: int, dtype: DtypeLike, *,
                      threads: int = 256, max_blocks: int = 64,
                      kernel: int = KERNEL_SINGLE_PASS, cpu_thresh: int = 1,
+                     stream_buffers: int = STREAM_BUFFERS,
                      device: Optional[torch.device] = None):
     """(op, stage_fn, core) with `core(x2d)` a 0-d tensor computed on the
     device alone: the chainable form ops/chain.py consumes."""
     op, stage_fn, device_fn = _make_staged_parts(
         method, n, dtype, threads=threads, max_blocks=max_blocks,
-        kernel=kernel, cpu_thresh=cpu_thresh, device=device)
+        kernel=kernel, cpu_thresh=cpu_thresh, stream_buffers=stream_buffers,
+        device=device)
     return op, stage_fn, lambda x2d: finish(device_fn(x2d), op)
 
 
@@ -283,11 +451,13 @@ def target_device(x: torch.Tensor,
 def kernel_reduce(x: torch.Tensor, method: str, *, threads: int = 256,
                   max_blocks: int = 64, kernel: int = KERNEL_SINGLE_PASS,
                   cpu_final: bool = False, cpu_thresh: int = 1,
+                  stream_buffers: int = STREAM_BUFFERS,
                   device: Union[str, torch.device, None] = None):
-    """Reduce a flat tensor to a scalar with k6 or k7, staging included."""
+    """Reduce a flat tensor to a scalar with one of k6-k10, staging
+    included."""
     target = target_device(x, device)
     stage_fn, reduce_fn = make_staged_reduce(
         method, x.numel(), x.dtype, threads=threads, max_blocks=max_blocks,
         kernel=kernel, cpu_final=cpu_final, cpu_thresh=cpu_thresh,
-        device=target)
+        stream_buffers=stream_buffers, device=target)
     return reduce_fn(stage_fn(x))
