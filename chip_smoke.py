@@ -14,9 +14,13 @@ Run from the repository root on a machine with one NVIDIA GPU:
    at --threads 256 and 2048, k10 at depths 1, 2, 4 and 8, which must give
    bit-identical accumulators (and k8's bits); k9 for SUM x float32/
    float64/bfloat16, and its column sums of uniform [0, 1) data against
-   float64 ones (its precision mode). Times each kernel, its plain version and one PyTorch
-   reduction of the same staged tensor with CUDA events, at int32 SUM
-   n = 2^24 (k9: float32 SUM).
+   float64 ones (its precision mode); dd, the f64 pair kernel, for
+   SUM/MIN/MAX at the same sizes and --threads, on the benchmark payload
+   and on a full-range SUM (uniform(-1, 1) x 1e300 against math.fsum).
+   Times each kernel, its plain version and one PyTorch reduction of the
+   same staged tensor with CUDA events, at int32 SUM n = 2^24 (k9: float32
+   SUM; dd: float64 SUM, its library call torch.sum of the native f64
+   tensor).
 3. Drives the port's main path, its CLI `main()`, for the benchmark rows
    below, each to a verified PASSED row (or the WAIVED it must give), and
    checks through the wrappers' launch counters that each row went
@@ -26,7 +30,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
    depth race on int32 SUM at n = 2^26. Each must exit 0 with a kernel row
    as its best and no FAILED kernel candidate; the counters show which
    kernels each race launched.
-5. Prints the card's name and power limit, a `kernels` JSON line, and as
+5. Drives the streaming pipeline: the CLI's `--stream` on four payloads
+   up to 2 GiB, and `tpu_reductions_torch.bench.stream --serial-baseline`,
+   each to PASSED, beside the rate of one pinned 256 MiB host-to-device
+   copy (a stream is bound by the host link, not by device memory).
+6. Prints the card's name and power limit, a `kernels` JSON line, and as
    the last line `{"ok": true, "device": {...}}`.
 
 Any disagreement, failed row or missing launch raises, and the script
@@ -39,6 +47,8 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -46,6 +56,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 N = 1 << 24
@@ -57,17 +68,21 @@ METHODS = ("SUM", "MIN", "MAX")
 # data sheet gives; a reduction does one combine per element on them)
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
-KERNELS = ("k6", "k7", "k8", "k9", "k10")
+# float32 additions of one dd_add (two-sum 6, renormalisation 5)
+DD_ADD_OPS = 11
+KERNELS = ("k6", "k7", "k8", "k9", "k10", "dd")
 SOURCES = {"k6": "tpu_reductions_torch/csrc/reduce.cu",
            "k7": "tpu_reductions_torch/csrc/reduce.cu",
            "k8": "tpu_reductions_torch/csrc/accumulate.cu",
            "k9": "tpu_reductions_torch/csrc/mxu.cu",
-           "k10": "tpu_reductions_torch/csrc/accumulate.cu"}
+           "k10": "tpu_reductions_torch/csrc/accumulate.cu",
+           "dd": "tpu_reductions_torch/csrc/pair.cu"}
 REPLACES = {"k6": "tpu_reductions/ops/pallas_reduce.py:390",
             "k7": "tpu_reductions/ops/pallas_reduce.py:404",
             "k8": "tpu_reductions/ops/pallas_reduce.py:227",
             "k9": "tpu_reductions/ops/pallas_reduce.py:240",
-            "k10": "tpu_reductions/ops/pallas_reduce.py:338"}
+            "k10": "tpu_reductions/ops/pallas_reduce.py:338",
+            "dd": "tpu_reductions/ops/dd_reduce.py:250"}
 PERIOD_THREADS = (256, 2048)      # k8/k10: the default and largest tile
 DEPTHS = (1, 2, 4, 8)
 MXU_DTYPES = ("float32", "float64", "bfloat16")
@@ -99,12 +114,35 @@ MAIN_ROWS = (
          f"--streambuffers={d}"], "k10", 0) for d in DEPTHS]
     + [(["--method=MAX", "--type=float", "--kernel=10"], "k10", 0),
        (["--method=SUM", "--type=float", "--kernel=10", f"--n={1 << 28}",
-         "--timing=chained"], "k10", 0)])
+         "--timing=chained"], "k10", 0)]
+    # the f64 pair route, with the JAX driver's gates
+    + [([f"--method={m}", "--type=double", "--f64=dd"], "dd", 0)
+       for m in METHODS]
+    + [(["--method=SUM", "--type=double", "--f64=dd", "--cpufinal"], "dd", 0),
+       (["--method=SUM", "--type=double", "--f64=dd", "--timing=chained"],
+        "dd", 0),
+       (["--method=SUM", "--type=double", "--f64=dd", "--kernel=8"], None, 2),
+       (["--method=SUM", "--type=double", "--f64=dd", "--kernel=9"], None, 2),
+       (["--method=SUM", "--type=double", "--f64=dd", "--backend=torch"],
+        None, 2),
+       (["--method=SUM", "--type=int", "--f64=dd"], "k6", 0)])
+
+# The streaming pipeline through the CLI's --stream; each must PASS.
+STREAM_ROWS = (
+    ["--method=SUM", "--type=int", f"--n={1 << 29}"],       # 8 x 256 MiB
+    ["--method=SUM", "--type=double", f"--n={1 << 27}",
+     f"--chunk-bytes={16 << 20}"],                           # 32 chunks
+    ["--method=MIN", "--type=double", f"--n={1 << 27}"],
+    ["--method=MAX", "--type=bfloat16", f"--n={1 << 26}"],
+)
+# ... and the probe CLI with its serial comparator
+STREAM_PROBE = ["--method=SUM", "--type=int", f"--n={1 << 28}",
+                f"--chunk-bytes={64 << 20}", "--serial-baseline"]
 
 # The kernel race at full width: (argv, the kernels it must launch).
 RACES = (
     (["--method=SUM", "--type=float", f"--n={N}", "--grid=default",
-      "--comparator"], KERNELS),
+      "--comparator"], ("k6", "k7", "k8", "k9", "k10")),
     (["--method=SUM", "--type=int", f"--n={1 << 26}", "--grid=hbm",
       "--comparator"], ("k6", "k7", "k8", "k10")),
 )
@@ -131,15 +169,23 @@ def device_ms(fn, calls: int = 20, trials: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def bound(x2d, out) -> dict:
-    """The least time the card could take to fold x2d into out: the larger
-    of reading x2d and writing out once at the memory rate, and one
-    combine per element of x2d at the core rate."""
-    nbytes = x2d.numel() * x2d.element_size() + out.numel() * out.element_size()
+def bound_of(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: the larger of moving nbytes at
+    the memory rate and doing ops at the core rate."""
     by = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
-          "operations": 1e3 * x2d.numel() / CORE_OPS_PER_S}
+          "operations": 1e3 * ops / CORE_OPS_PER_S}
     bound_by = max(by, key=by.get)
     return {"bound_ms": by[bound_by], "bound_by": bound_by}
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(x2d, out) -> dict:
+    """The least time the card could take to fold x2d into out: reading
+    x2d and writing out once, one combine per element of x2d."""
+    return bound_of(nbytes_of(x2d, out), x2d.numel())
 
 
 def check_pair(kr, registry, name, got, want, method, dtype, n, depth):
@@ -176,11 +222,11 @@ def check_pair(kr, registry, name, got, want, method, dtype, n, depth):
     return max_err
 
 
-def wrappers(kr) -> dict:
+def wrappers(kr, dd) -> dict:
     """Each kernel's launch wrapper, which carries its launch count."""
     return {"k6": kr.single_pass_call, "k7": kr.two_pass_call,
             "k8": kr.elementwise_call, "k9": kr.mxu_call,
-            "k10": kr.stream_call}
+            "k10": kr.stream_call, "dd": dd.dd_call}
 
 
 def timing_row(name, method, dtype, n, x2d, out, call, plain, reduce,
@@ -330,6 +376,99 @@ def k9_vs_plain(kr, registry, host_data, dev, worst, table):
                                  f"{errs['k9']:.3e} > rtol {MXU_RTOL[dtype]}")
 
 
+PAIR_UNIT = 2.0**-24      # float32's unit roundoff; a pair's is 4u^2
+# the full-range payload's acceptance, tests/test_dd_reduce.py's rule
+FULL_RANGE_RTOL = 1e-12
+
+
+def check_dd(name, got, want, hi2d, lo2d, method, tm, scale_exp) -> float:
+    """dd's accumulator against dd_plain's (csrc/pair.cu): MIN/MAX must be
+    bit-equal; for SUM, each slot's hi + lo within 2 (d - 1) 4u^2 sum|x| of
+    the plain one, d the tiles folded into the slot, sum|x| over its
+    elements. Returns the largest |diff| of a slot, in payload units."""
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: shape/dtype {tuple(g.shape)} "
+                                 f"{g.dtype} != {tuple(w.shape)} {w.dtype}")
+    if method != "SUM":
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"{name}: not bit-equal to dd_plain")
+        return 0.0
+    d = hi2d.shape[0] // tm
+    err = ((got[0].double() + got[1].double())
+           - (want[0].double() + want[1].double())).abs()
+    mag = (hi2d.double() + lo2d.double()).abs().reshape(d, tm, -1).sum(0)
+    if bool((err > 2 * (d - 1) * 4 * PAIR_UNIT**2 * mag).any()):
+        raise AssertionError(f"{name}: slot error {float(err.max())} over "
+                             "the pair summation bound")
+    return math.ldexp(float(err.max()), scale_exp)
+
+
+def dd_vs_plain(dd, registry, oracle, host_data, dev, worst, table):
+    """dd on SUM/MIN/MAX of the float64 payload at both sizes and both
+    tile heights, the finished scalars against the oracle; a full-range
+    SUM against math.fsum; and the timing row of float64 SUM at n = 2^24."""
+    for n in SIZES:
+        x = host_data(n, "float64")
+        for method in METHODS:
+            want_scalar = oracle.host_reduce(x, method)
+            tol = registry.tolerance(method, "float64", n)
+            for threads in PERIOD_THREADS:
+                hi, lo, (tm, _, _), s = dd.stage_split_padded(
+                    x.numpy(), method, threads)
+                hi2d = torch.from_numpy(hi).to(dev)
+                lo2d = torch.from_numpy(lo).to(dev)
+                got = dd.dd_call(hi2d, lo2d, method, tm)
+                want = dd.dd_plain(hi2d, lo2d, method, tm)
+                torch.cuda.synchronize()
+                name = f"dd {method} n={n} tm={tm}"
+                worst["dd"] = max(worst["dd"], check_dd(
+                    name, got, want, hi2d, lo2d, method, tm, s))
+                value = dd.decode_pair_scalar(
+                    *dd.device_finish_pairs(*got, method), method, s)
+                if abs(float(value) - float(want_scalar)) > tol:
+                    raise AssertionError(f"{name}: {value!r} != oracle "
+                                         f"{want_scalar!r} (tol {tol})")
+                if n != N or threads != 256 or method != "SUM":
+                    continue
+                x2d = torch.from_numpy(
+                    np.pad(x.numpy(), (0, hi.size - n))).view(hi.shape).to(dev)
+                row = {"kernel": "dd", "method": method, "dtype": "float64",
+                       "n": n, "rows": hi.shape[0],
+                       "ms": device_ms(lambda: dd.dd_call(hi2d, lo2d,
+                                                          method, tm)),
+                       # a Python loop over the tiles: few trials
+                       "plain_ms": device_ms(lambda: dd.dd_plain(
+                           hi2d, lo2d, method, tm), calls=1, trials=3),
+                       "library_ms": device_ms(lambda: torch.sum(x2d)),
+                       "reduce_ms": device_ms(lambda: dd.device_finish_pairs(
+                           *dd.dd_call(hi2d, lo2d, method, tm), method)),
+                       **bound_of(nbytes_of(hi2d, lo2d, *got),
+                                  DD_ADD_OPS * hi2d.numel())}
+                print(f"  dd SUM float64 n={n} ms={row['ms']:.5f} "
+                      f"plain_ms={row['plain_ms']:.5f} "
+                      f"library_ms={row['library_ms']:.5f} "
+                      f"reduce_ms={row['reduce_ms']:.5f} "
+                      f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})",
+                      flush=True)
+                table.append(row)
+    # full range: the staging scale keeps the float32 planes finite
+    x = np.random.default_rng(0).uniform(-1, 1, N) * 1e300
+    hi, lo, (tm, _, _), s = dd.stage_split_padded(x, "SUM", 256)
+    hi2d, lo2d = torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+    got = dd.dd_call(hi2d, lo2d, "SUM", tm)
+    check_dd("dd full-range SUM", got, dd.dd_plain(hi2d, lo2d, "SUM", tm),
+             hi2d, lo2d, "SUM", tm, s)
+    value = float(dd.decode_pair_scalar(
+        *dd.device_finish_pairs(*got, "SUM"), "SUM", s))
+    exact = math.fsum(x.tolist())
+    tol = FULL_RANGE_RTOL * max(abs(exact), float(np.abs(x).max()))
+    print(f"  dd full-range SUM n={N}: {value!r} vs fsum {exact!r}, "
+          f"|diff| {abs(value - exact):.3e} (tol {tol:.3e})", flush=True)
+    if not abs(value - exact) <= tol:
+        raise AssertionError("dd full-range SUM off the exact sum")
+
+
 def run_cli(entry, argv) -> tuple[int, str, float]:
     """Run a CLI `main(argv)` in this process: (exit code, its standard
     output, seconds)."""
@@ -340,11 +479,10 @@ def run_cli(entry, argv) -> tuple[int, str, float]:
     return rc, out.getvalue(), time.perf_counter() - t0
 
 
-def drive_main_path(driver, kr) -> dict:
+def drive_main_path(driver, counted) -> dict:
     """Phase 3: every MAIN_ROWS row through the CLI to its status, each
     launching its own kernel and no other. Returns each kernel's
     launches over the whole main path."""
-    counted = wrappers(kr)
     for w in counted.values():
         w.launches = 0
     for argv, kernel, want_rc in MAIN_ROWS:
@@ -365,10 +503,9 @@ def drive_main_path(driver, kr) -> dict:
     return {k: w.launches for k, w in counted.items()}
 
 
-def drive_races(autotune, kr) -> list:
+def drive_races(autotune, counted) -> list:
     """Phase 4: each RACES race through the autotune CLI, with the
     counters set to 0 just before it. Returns each race's launches."""
-    counted = wrappers(kr)
     per_race = []
     with tempfile.TemporaryDirectory() as tmp:
         for i, (argv, must) in enumerate(RACES):
@@ -396,13 +533,64 @@ def drive_races(autotune, kr) -> list:
     return per_race
 
 
+STREAM_LINE = re.compile(r"streamed (\d+) chunk\(s\): ([\d.]+) GB/s "
+                         r"sustained, ([\d.]+) chunks/s")
+
+
+def pinned_copy_gbps(dev) -> float:
+    """The rate of one pinned 256 MiB host-to-device copy: the bound of
+    a stream, whose bytes cross the host link."""
+    nbytes = 256 << 20
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ms = device_ms(lambda: card.copy_(host, non_blocking=True), calls=4,
+                   trials=3)
+    return nbytes / (ms * 1e-3) / 1e9
+
+
+def drive_stream(driver, stream_cli, counted, dev) -> dict:
+    """Phase 5: the CLI's --stream on STREAM_ROWS and the probe CLI with
+    its serial comparator, each to PASSED, with the counters set to 0
+    just before. Returns the launches (the stream's fold is PyTorch, as
+    the JAX package's is jnp)."""
+    copy_gbps = pinned_copy_gbps(dev)
+    print(f"  pinned 256 MiB host-to-device copy: {copy_gbps:.4f} GB/s",
+          flush=True)
+    for w in counted.values():
+        w.launches = 0
+    for argv in STREAM_ROWS:
+        rc, text, seconds = run_cli(driver.main,
+                                    argv + ["--stream", "--logfile="])
+        print(text, end="")
+        found = STREAM_LINE.search(text)
+        if rc != 0 or "&&&& tpu_reductions_torch PASSED" not in text \
+                or found is None:
+            raise AssertionError(f"stream row {argv}: exit {rc}")
+        print(f"  ({seconds:.1f} s) chunks={found[1]} gbps_sustained="
+              f"{found[2]} chunks_per_s={found[3]} pinned_copy_gbps="
+              f"{copy_gbps:.4f}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "stream.json"
+        rc, text, seconds = run_cli(stream_cli.main,
+                                    STREAM_PROBE + [f"--out={out}"])
+        final = next(r for r in json.loads(out.read_text())["rows"]
+                     if r.get("final"))
+    print(text, end="")
+    print(f"  ({seconds:.1f} s) {json.dumps(final)}", flush=True)
+    if rc != 0 or final["status"] != "PASSED" \
+            or not isinstance(final.get("overlap_efficiency"), float):
+        raise AssertionError(f"stream probe {STREAM_PROBE}: exit {rc}")
+    return {k: w.launches for k, w in counted.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from tpu_reductions_torch import device
     from tpu_reductions_torch.bench import autotune, driver
-    from tpu_reductions_torch.ops import _cuda
+    from tpu_reductions_torch.bench import stream as stream_cli
+    from tpu_reductions_torch.ops import _cuda, dd_reduce, oracle
     from tpu_reductions_torch.ops import kernel_reduce as kr
     from tpu_reductions_torch.ops import registry
     from tpu_reductions_torch.utils.rng import host_data
@@ -422,21 +610,34 @@ def main() -> int:
         phase(kr, registry, host_data, dev, worst, table)
         print(f"[kernels vs plain: {phase.__name__}] "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # the main path's shape: int32 SUM, n = 2^24 (k9: float32 SUM)
+    print("[kernels vs plain: dd_vs_plain]", flush=True)
+    t0 = time.perf_counter()
+    dd_vs_plain(dd_reduce, registry, oracle, host_data, dev, worst, table)
+    print(f"[kernels vs plain: dd_vs_plain] {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # the main path's shape: int32 SUM, n = 2^24 (k9: float32 SUM; dd:
+    # float64 SUM)
+    shape_dtype = {"k9": "float32", "dd": "float64"}
     main_shape = {r["kernel"]: r for r in table
                   if r["method"] == "SUM" and r["dtype"]
-                  == ("float32" if r["kernel"] == "k9" else "int32")}
+                  == shape_dtype.get(r["kernel"], "int32")}
 
+    counted = wrappers(kr, dd_reduce)
     print("[main path]", flush=True)
     t0 = time.perf_counter()
-    paths = {"main_path": drive_main_path(driver, kr)}
+    paths = {"main_path": drive_main_path(driver, counted)}
     print(f"[main path] {time.perf_counter() - t0:.1f} s, launches "
           f"{paths['main_path']}", flush=True)
     print("[races]", flush=True)
     t0 = time.perf_counter()
-    for i, launches in enumerate(drive_races(autotune, kr)):
+    for i, launches in enumerate(drive_races(autotune, counted)):
         paths[f"race_{i + 1}"] = launches
     print(f"[races] {time.perf_counter() - t0:.1f} s", flush=True)
+    print("[stream]", flush=True)
+    t0 = time.perf_counter()
+    paths["stream"] = drive_stream(driver, stream_cli, counted, dev)
+    print(f"[stream] {time.perf_counter() - t0:.1f} s, launches "
+          f"{paths['stream']}", flush=True)
     for name in KERNELS:
         if paths["main_path"][name] == 0:
             raise AssertionError(f"the main path never launched {name}")

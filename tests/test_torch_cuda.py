@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (k6-k10) on the card, against their plain
-versions.
+"""The port's CUDA kernels (k6-k10 and dd) on the card, against their
+plain versions, and the streaming pipeline on the card.
 
 Every test here needs an NVIDIA GPU with nvcc and skips elsewhere. The
 file imports neither jax nor tpu_reductions, so it also runs on a machine
@@ -11,7 +11,8 @@ out:
 int32 and MIN/MAX must be bit-equal; float SUM adds in another order and
 is held to rtol 1e-6 (float32), 1e-12 (float64), 1e-2 (bfloat16 data,
 float32 accumulator). k10 must give the same bits at every depth, and the
-same bits as k8.
+same bits as k8. dd is held to the rule in csrc/pair.cu: MIN/MAX
+bit-equal, SUM per slot within 2 (d - 1) 4u^2 sum|x| of dd_plain.
 """
 
 import numpy as np
@@ -223,3 +224,118 @@ def test_one_shot_reduce_new_kernels(cuda_device, kernel):
                            device=cuda_device)
     assert got.device.type == "cuda"
     assert abs(float(got) - want) <= SUM_RTOL["float32"] * want
+
+
+# --- the f64 pair route (dd) and the streaming pipeline ---------------------
+
+PAIR_UNIT = 2.0**-24      # float32's unit roundoff; a pair's is 4u^2
+
+
+def assert_pair_match(got, want, planes, method, tm):
+    """dd against dd_plain. MIN/MAX select and must be bit-equal. SUM adds
+    in another grouping once the tiles are split: each slot's hi + lo must
+    be within 2 (d - 1) 4u^2 sum|x| of dd_plain's, d the tiles folded into
+    the slot and sum|x| over the slot's elements (csrc/pair.cu)."""
+    got = tuple(g.cpu() for g in got)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (tm, 128) and g.dtype == w.dtype
+    if method != "SUM":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return
+    hi, lo = (p.cpu().double() for p in planes)
+    d = hi.shape[0] // tm
+    mag = (hi + lo).abs().reshape(d, tm, 128).sum(0)
+    err = ((got[0].double() + got[1].double())
+           - (want[0].double() + want[1].double())).abs()
+    assert bool((err <= 2 * (d - 1) * 4 * PAIR_UNIT**2 * mag).all()), \
+        float(err.max())
+
+
+def f64_payload(n, method, seed=0, scale=1.0) -> np.ndarray:
+    """Non-negative for SUM (the benchmark payload's sign), signed for
+    MIN/MAX; `scale` spreads it over the f64 range."""
+    rng = np.random.default_rng(seed)
+    x = rng.random(n) if method == "SUM" else rng.standard_normal(n)
+    return x * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, threads", [
+    (300_001, 8), ((1 << 20) + 37, 256), (1 << 22, 2048)])
+@pytest.mark.parametrize("method", METHODS)
+def test_dd_matches_plain(cuda_device, method, n, threads):
+    """The pair kernel against dd_plain at TM 8, 256 and 2048, ragged n
+    included; one launch each."""
+    from tpu_reductions_torch.ops import dd_reduce as dd
+    x = f64_payload(n, method, seed=n)
+    hi, lo, (tm, _, _), _ = dd.stage_split_padded(x, method, threads, 64)
+    planes = (torch.from_numpy(hi).to(cuda_device),
+              torch.from_numpy(lo).to(cuda_device))
+    before = dd.dd_call.launches
+    got = dd.dd_call(*planes, method, tm)
+    assert dd.dd_call.launches == before + 1
+    assert_pair_match(got, dd.dd_plain(torch.from_numpy(hi),
+                                       torch.from_numpy(lo), method, tm),
+                      planes, method, tm)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", METHODS)
+def test_dd_full_range_on_card(cuda_device, method):
+    """uniform(-1, 1) x 1e300: SUM within 1e-12 max(|exact|, max|x|) of
+    math.fsum (tests/test_dd_reduce.py's rule), MIN/MAX exact, through the
+    device finish; the accumulator holds to the plain version's rule."""
+    import math
+
+    from tpu_reductions_torch.ops import dd_reduce as dd
+    n = (1 << 20) + 37
+    x = np.random.default_rng(7).uniform(-1, 1, n) * 1e300
+    stage_fn, core, finish = dd.make_dd_device_reduce(method, n,
+                                                      device=cuda_device)
+    hi2d, lo2d, s = stage_fn(x)
+    got = float(finish(*core(hi2d, lo2d), scale_exp=s))
+    if method == "SUM":
+        exact = math.fsum(x.tolist())
+        assert abs(got - exact) <= 1e-12 * max(abs(exact),
+                                               float(np.abs(x).max()))
+    else:
+        assert got == (x.min() if method == "MIN" else x.max())
+    assert_pair_match(dd.dd_call(hi2d, lo2d, method, 256),
+                      dd.dd_plain(hi2d.cpu(), lo2d.cpu(), method, 256),
+                      (hi2d, lo2d), method, 256)
+
+
+@pytest.mark.gpu
+def test_dd_refuses_what_it_cannot_take(cuda_device):
+    from tpu_reductions_torch.ops import dd_reduce as dd
+    f = torch.zeros((64, 128), dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 planes"):
+        dd.dd_call(f.int(), f.int(), "SUM", 8)
+    with pytest.raises(ValueError, match="rows % tm"):
+        dd.dd_call(f[:56], f[:56], "SUM", 16)
+    with pytest.raises(ValueError, match="planes differ"):
+        dd.dd_call(f, f[:56], "SUM", 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method, dtype", [
+    ("SUM", "int32"), ("SUM", "float64"), ("MIN", "float64"),
+    ("MAX", "bfloat16"), ("SUM", "float32")])
+def test_stream_pipelined_equals_serial_on_card(cuda_device, method, dtype):
+    """The double-buffered stream gives the serial comparator's value bit
+    for bit (same chunks, same folds), and passes the oracle."""
+    from tpu_reductions_torch.bench.stream import run_serial_baseline
+    from tpu_reductions_torch.ops.oracle import host_reduce, verify
+    from tpu_reductions_torch.ops.stream import run_stream
+    from tpu_reductions_torch.utils.rng import host_data
+    n = (1 << 22) + 5
+    x = host_data(n, dtype, seed=4)
+    res = run_stream(x, method, chunk_bytes=1 << 20, sync_every=3,
+                     device=cuda_device)
+    assert res.num_chunks > 4
+    serial = run_serial_baseline(x, method, chunk_bytes=1 << 20,
+                                 device=cuda_device)
+    assert float(np.asarray(res.value, np.float64)) == serial["value"]
+    ok, diff = verify(res.value, host_reduce(x, method), method, dtype, n)
+    assert ok, diff

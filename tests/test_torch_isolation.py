@@ -1,7 +1,8 @@
 """The port stands alone: tpu_reductions_torch/ and chip_smoke.py import
 neither jax nor any tpu_reductions module, and without a card and without
 an explicit CPU request the entry points and kernel wrappers raise rather
-than run on the CPU."""
+than run on the CPU. Every kernel wrapper (k6-k10 and the pair kernel dd)
+takes its plain version only for a CPU tensor."""
 
 import ast
 import io
@@ -9,13 +10,16 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from tpu_reductions_torch import device as device_mod
 from tpu_reductions_torch.bench import driver
 from tpu_reductions_torch.config import ReduceConfig
+from tpu_reductions_torch.ops import dd_reduce as dd
 from tpu_reductions_torch.ops import kernel_reduce as kr
+from tpu_reductions_torch.ops.stream import StreamReducer
 from tpu_reductions_torch.ops.registry import get_op
 from tpu_reductions_torch.utils.logging import BenchLogger
 
@@ -65,7 +69,7 @@ def test_importing_every_port_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 14   # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 18   # every module was imported
 
 
 @pytest.fixture
@@ -86,6 +90,10 @@ def test_entry_points_raise_without_card(no_card):
                                         device=torch.device("cuda"))
     with pytest.raises((RuntimeError, AssertionError)):
         stage_fn(torch.arange(100, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dd.dd_reduce_f64(np.ones(100), "SUM")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamReducer("SUM", "int32", 100)
 
 
 def test_cli_raises_without_card(no_card):
@@ -113,15 +121,17 @@ WRAPPERS = {  # name: (wrapper, call(x2d, op))
            lambda x2d, op: kr.elementwise_call(x2d, op, 8)),
     "k9": (kr.mxu_call, lambda x2d, op: kr.mxu_call(x2d, op)),
     "k10": (kr.stream_call, lambda x2d, op: kr.stream_call(x2d, op, 8, 2)),
+    "dd": (dd.dd_call, lambda x2d, op: dd.dd_call(
+        x2d, torch.zeros_like(x2d), op.name, 8)[0]),
 }
 
 
-@pytest.mark.parametrize("call", ["k6", "k7", "k8", "k9", "k10"])
+@pytest.mark.parametrize("call", ["k6", "k7", "k8", "k9", "k10", "dd"])
 def test_wrappers_take_plain_version_only_on_cpu(call):
     """A tensor on any device but the CPU goes to the kernel; one the
     kernel cannot take raises instead of falling back."""
     op = get_op("SUM")
-    dtype = torch.float32 if call == "k9" else torch.int32
+    dtype = torch.float32 if call in ("k9", "dd") else torch.int32
     meta = torch.empty((64, 128), dtype=dtype, device="meta")
     cpu = torch.ones((64, 128), dtype=dtype)
     _, run = WRAPPERS[call]

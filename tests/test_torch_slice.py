@@ -200,10 +200,9 @@ def test_cli_waives_emptied_kernel(tmp_path):
 
 
 @pytest.mark.parametrize("kernel", [8, 9, 10])
-def test_unported_kernel_is_refused(kernel, tmp_path):
-    """Kernels 8-10, once refused as unported, now run: the parser takes
-    --kernel=8|9|10 (and k10's --streambuffers), the one-shot entry point
-    reduces with it, and the CLI PASSES."""
+def test_kernels_8_to_10_run(kernel, tmp_path):
+    """The parser takes --kernel=8|9|10 (and k10's --streambuffers), the
+    one-shot entry point reduces with it, and the CLI PASSES."""
     cfg = parse_single_chip(["--method=SUM", f"--kernel={kernel}",
                              "--type=float", "--streambuffers=2",
                              "--platform=cpu"])
@@ -218,10 +217,10 @@ def test_unported_kernel_is_refused(kernel, tmp_path):
     assert proc.stdout.splitlines()[-1] == "&&&& tpu_reductions_torch PASSED"
 
 
-def test_cli_refuses_unported_kernel(tmp_path):
-    """What the CLI still refuses: k9 is SUM over float dtypes only, as in
-    the JAX driver, and kernel 11 is not live; both WAIVE with exit 2.
-    --streambuffers=0 is refused by the parser."""
+def test_cli_waives_k9_off_float_sum_and_kernel_11(tmp_path):
+    """k9 is SUM over float dtypes only, as in the JAX driver, and kernel
+    11 is not live; both WAIVE with exit 2. --streambuffers=0 is refused
+    by the parser."""
     for args in (["--kernel=9", "--method=MIN", "--type=float"],
                  ["--kernel=9", "--method=SUM", "--type=int"],
                  ["--kernel=11", "--method=SUM", "--type=int"]):

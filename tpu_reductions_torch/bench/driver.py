@@ -7,10 +7,15 @@ The counterpart of tpu_reductions/bench/driver.py:
   -> GB/s from the per-iteration time -> verify against the host oracle
   -> PASSED / FAILED / WAIVED, which is also the exit code.
 
-float64 runs natively on the card through the chosen kernel. The JAX
-package routes f64 on a TPU through its double-double kernel and WAIVEs
-what that route cannot label honestly (its driver.py:127-153, 459-496);
-those gates have no counterpart here.
+float64 runs natively on the card through the chosen kernel by default.
+`--f64=dd` takes the JAX package's route for f64 on a chip without native
+f64 (its driver.py:127-153, 201-216): two 32-bit planes through the pair
+kernel (ops/dd_reduce.py), finished on the device to a scalar pair. That
+route has the JAX driver's gates too (its :444-446, 459-475, 485-493):
+kernel 9 WAIVEs float64, kernels 7, 8 and 10 WAIVE (the pair kernel has
+kernel 6's structure, so their label would misname the measurement), and
+so does --backend=torch. `--stream` runs the streaming pipeline instead
+(bench/stream.py).
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ import numpy as np
 import torch
 
 from tpu_reductions_torch import device as device_mod
-from tpu_reductions_torch.config import (KERNEL_MXU, LIVE_KERNELS,
-                                         ReduceConfig, parse_single_chip)
+from tpu_reductions_torch.config import (KERNEL_MXU, KERNEL_SINGLE_PASS,
+                                         LIVE_KERNELS, ReduceConfig,
+                                         parse_single_chip)
+from tpu_reductions_torch.ops import dd_reduce
 from tpu_reductions_torch.ops.chain import make_chained_reduce
 from tpu_reductions_torch.ops.kernel_reduce import (choose_tiling,
                                                     make_staged_core,
@@ -41,8 +48,9 @@ from tpu_reductions_torch.utils.rng import host_data
 from tpu_reductions_torch.utils.timing import time_chained, time_fn
 
 NAME = "tpu_reductions_torch"
-# k9 runs these dtypes (SUM only). f64 is among them: the card has native
-# f64, which is the JAX driver's off-TPU branch (its driver.py:444-446).
+# k9 runs these dtypes (SUM only). f64 is among them on the native route:
+# the card has native f64, which is the JAX driver's off-TPU branch (its
+# driver.py:444-446); the dd route loses it, as on the TPU.
 MXU_DTYPES = ("float32", "bfloat16", "float64")
 
 
@@ -96,6 +104,11 @@ def _unrun(cfg: ReduceConfig, status: QAStatus, reason: str,
                        cfg.kernel, status=status, waived_reason=reason, **row)
 
 
+def _dd_route(cfg: ReduceConfig) -> bool:
+    """Whether float64 takes the pair route (--f64=dd)."""
+    return cfg.dtype == "float64" and cfg.f64 == "dd"
+
+
 def _resolve_backend(cfg: ReduceConfig) -> str:
     # auto: the hand-written kernels; torch remains the comparator
     return "cuda" if cfg.backend == "auto" else cfg.backend
@@ -111,6 +124,19 @@ def _make_device_fn(cfg: ReduceConfig, backend: str, device: torch.device):
             return stage_padded(x, tm, p, t, op, device)
 
         return stage_fn, make_torch_reduce(cfg.method)
+    if _dd_route(cfg):
+        # stage_fn gives (hi2d, lo2d, s); only the 8-byte scalar pair comes
+        # to the host, unless --cpufinal finishes the accumulator there
+        dd_args = dict(threads=cfg.threads, max_blocks=cfg.max_blocks,
+                       device=device)
+        if cfg.cpu_final:
+            stage_fn, reduce_fn = dd_reduce.make_dd_staged_reduce(
+                cfg.method, cfg.n, **dd_args)
+            return stage_fn, lambda staged: reduce_fn(*staged)
+        stage_fn, core, finish = dd_reduce.make_dd_device_reduce(
+            cfg.method, cfg.n, **dd_args)
+        return stage_fn, lambda staged: finish(*core(*staged[:2]),
+                                               scale_exp=staged[2])
     return make_staged_reduce(
         cfg.method, cfg.n, cfg.dtype, threads=cfg.threads,
         max_blocks=cfg.max_blocks, kernel=cfg.kernel,
@@ -139,6 +165,13 @@ def _make_chained_fn(cfg: ReduceConfig, backend: str, device: torch.device):
     if backend == "torch":
         op = get_op(cfg.method)
         return make_chained_reduce(op.reduce, op)
+    if _dd_route(cfg):
+        # the pair chain over (hi2d, lo2d); the scale is host metadata
+        _stage, core, _finish = dd_reduce.make_dd_device_reduce(
+            cfg.method, cfg.n, threads=cfg.threads,
+            max_blocks=cfg.max_blocks, device=device)
+        pair_chained = make_chained_reduce(core, get_op(cfg.method))
+        return lambda staged, k: pair_chained(staged[:2], k)
     op, _stage, core = make_staged_core(
         cfg.method, cfg.n, cfg.dtype, threads=cfg.threads,
         max_blocks=cfg.max_blocks, kernel=cfg.kernel,
@@ -251,15 +284,29 @@ def _run_benchmark_inner(cfg: ReduceConfig, logger: BenchLogger,
         # the reference emptied kernels 0-5: not an error, not provided
         return _unrun(cfg, QAStatus.WAIVED,
                       f"kernel {cfg.kernel} not live (live: {LIVE_KERNELS})")
+    dd = _dd_route(cfg)
+    mxu_dtypes = tuple(d for d in MXU_DTYPES if not (dd and d == "float64"))
     if (cfg.kernel == KERNEL_MXU and cfg.backend != "torch"
-            and (cfg.method != "SUM" or cfg.dtype not in MXU_DTYPES)):
+            and (cfg.method != "SUM" or cfg.dtype not in mxu_dtypes)):
         # MIN/MAX have no product form and integer products are not exact
         # on the float path: WAIVED, the incapable-hardware gate, not a
         # failure (the JAX driver's :447-457)
         return _unrun(cfg, QAStatus.WAIVED,
                       "kernel 9 (MXU) is SUM over float dtypes only")
+    if dd and cfg.backend != "torch" and cfg.kernel != KERNEL_SINGLE_PASS:
+        # the pair route ignores --kernel: any other label would misname
+        # a pair-kernel measurement (the JAX driver's :459-475)
+        return _unrun(cfg, QAStatus.WAIVED,
+                      "f64 on the dd route runs the pair kernel (kernel-6 "
+                      f"structure); a kernel-{cfg.kernel} label would be a "
+                      "mislabeled dd measurement")
 
     backend = _resolve_backend(cfg)
+    if dd and backend == "torch":
+        # the JAX driver's :485-493: its comparator has no f64 there
+        return _unrun(cfg, QAStatus.WAIVED,
+                      "no native f64 on the dd route; use backend=cuda",
+                      backend=backend)
     x_host = host_data(cfg.n, cfg.dtype, rank=0, seed=cfg.seed)
 
     stage_fn, reduce_fn = _make_device_fn(cfg, backend, device)
@@ -311,5 +358,22 @@ def main(argv=None) -> int:
     QA exit code."""
     qa_start(NAME, list(argv) if argv else sys.argv[1:])
     cfg = parse_single_chip(argv)
-    res = run_benchmark(cfg, logger=_make_logger(cfg))
+    logger = _make_logger(cfg)
+    if cfg.stream:
+        # the streaming pipeline replaces stage-then-reduce; the probe
+        # CLI (bench/stream.py) shares this core. Imported here: it imports
+        # bench/resume.py, which imports this module.
+        from tpu_reductions_torch.bench.stream import run_stream_benchmark
+        row = run_stream_benchmark(
+            cfg.method, cfg.dtype, cfg.n, seed=cfg.seed,
+            chunk_bytes=cfg.chunk_bytes, verify=cfg.verify,
+            platform=cfg.platform, device_index=cfg.device, log=logger.log)
+        logger.log_master(throughput_line(
+            row["gbps_sustained"], row["stream_wall_s"], cfg.n,
+            devices=1, workgroup=cfg.threads))
+        logger.log(f"streamed {row['num_chunks']} chunk(s): "
+                   f"{row['gbps_sustained']} GB/s sustained, "
+                   f"{row['chunks_per_s']} chunks/s")
+        return qa_finish(NAME, QAStatus[row["status"]])
+    res = run_benchmark(cfg, logger=logger)
     return qa_finish(NAME, res.status)

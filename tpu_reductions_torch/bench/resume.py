@@ -1,12 +1,13 @@
-"""Checkpoint and resume of a race's `--out` artifact.
+"""Checkpoint and resume of a race's or a stream's `--out` artifact.
 
 The counterpart of the part of tpu_reductions/bench/resume.py that the
-kernel race uses: `Checkpoint` (one artifact `{**meta, "complete": bool,
-<rows_key>: [...]}`, written atomically after every row; a re-invocation
-against an artifact left `complete: false` by an interrupted run reuses its
-rows instead of measuring them again), `default_reusable` and
-`result_from_row`. A `complete: true` artifact is a finished race: running
-again measures afresh, since resume is interruption-proofing, not a cache.
+kernel race and the streaming probe (bench/stream.py) use: `Checkpoint`
+(one artifact `{**meta, "complete": bool, <rows_key>: [...]}`, written
+atomically after every row; a re-invocation against an artifact left
+`complete: false` by an interrupted run reuses its rows instead of
+measuring them again), `default_reusable` and `result_from_row`. A
+`complete: true` artifact is a finished run: running again measures
+afresh, since resume is interruption-proofing, not a cache.
 """
 
 from __future__ import annotations
@@ -65,12 +66,14 @@ class Checkpoint:
             return None   # unreadable: measure again
         return data if isinstance(data, dict) else None
 
-    def resume(self, key: object) -> Optional[dict]:
-        """The prior run's row for `key`, if there is one and
-        `default_reusable` accepts it; the caller skips the measurement
-        and `add()`s the row unchanged."""
+    def resume(self, key: object,
+               reusable: Callable[[dict], bool] = default_reusable
+               ) -> Optional[dict]:
+        """The prior run's row for `key`, if there is one and `reusable`
+        accepts it; the caller skips the measurement and `add()`s the row
+        unchanged."""
         row = self._prior.get(key)
-        return row if row is not None and default_reusable(row) else None
+        return row if row is not None and reusable(row) else None
 
     def add(self, row: dict, extra: Optional[dict] = None) -> None:
         """Append one row and persist the artifact as incomplete."""

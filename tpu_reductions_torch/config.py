@@ -14,6 +14,15 @@ package's spelling and defaults:
   --streambuffers              k10's pipeline depth (default 4)
   --backend={auto|cuda|torch}  cuda: the hand-written kernels (auto picks
                                them); torch: the comparator
+  --f64={native|dd}            float64 natively on the card (default), or
+                               the JAX package's route for a chip without
+                               native f64: two 32-bit planes through the
+                               pair kernel (ops/dd_reduce.py); other dtypes
+                               ignore it
+  --stream, --chunk-bytes      the streaming pipeline (ops/stream.py):
+                               chunks of at most --chunk-bytes (default
+                               256 MiB, `stage_chunk_bytes`) copied to the
+                               card while the previous one is folded
   --platform={gpu|cpu}         the card by default
   --iterations --warmup --device --logfile --masterlog --qatest
   --no-verify --timing --chainreps --stat
@@ -39,6 +48,7 @@ METHODS = ("SUM", "MIN", "MAX")
 BACKENDS = ("auto", "cuda", "torch")
 PLATFORMS = ("gpu", "cpu")
 TIMINGS = ("periter", "bulk", "fetch", "chained")
+F64_ROUTES = ("native", "dd")   # the JAX package's f64_strategy() routes
 
 # Kernel ids of the JAX package (its config.py:224-236). 0-5 WAIVE, as
 # the reference emptied them.
@@ -49,6 +59,17 @@ KERNEL_ELEMENTWISE = 8
 KERNEL_MXU = 9          # SUM over float dtypes, on the tensor cores
 KERNEL_STREAM = 10      # fed by a `stream_buffers`-deep copy pipeline
 STREAM_BUFFERS = 4      # k10's default depth
+
+# The streaming pipeline's per-chunk bound on a host-to-device copy.
+DEFAULT_STAGE_CHUNK_BYTES = 256 << 20
+
+
+def stage_chunk_bytes(override: Optional[int] = None) -> int:
+    """The per-chunk bound: `override` (the --chunk-bytes flag) when
+    positive, else 256 MiB."""
+    if override is not None and override > 0:
+        return int(override)
+    return DEFAULT_STAGE_CHUNK_BYTES
 
 
 @dataclasses.dataclass
@@ -77,6 +98,9 @@ class ReduceConfig:
     timing: str = "periter"
     chain_reps: int = 5
     stat: str = "mean"
+    f64: str = "native"              # --f64: float64's route (F64_ROUTES)
+    stream: bool = False             # --stream: the streaming pipeline
+    chunk_bytes: Optional[int] = None   # --chunk-bytes (stage_chunk_bytes)
 
     def __post_init__(self) -> None:
         self.method = self.method.upper()
@@ -102,6 +126,9 @@ class ReduceConfig:
             raise ValueError("chain_reps must be positive")
         if self.stat not in ("mean", "median"):
             raise ValueError(f"stat must be mean|median, got {self.stat!r}")
+        if self.f64 not in F64_ROUTES:
+            raise ValueError(f"f64 must be one of {F64_ROUTES}, got "
+                             f"{self.f64!r}")
 
     @property
     def nbytes(self) -> int:
@@ -166,6 +193,18 @@ def build_single_chip_parser() -> argparse.ArgumentParser:
     p.add_argument("--stat", type=str, default="mean",
                    choices=("mean", "median"),
                    help="Per-iteration statistic feeding GB/s")
+    p.add_argument("--f64", type=str, default="native", choices=F64_ROUTES,
+                   help="float64's route: native (the card's f64, default) "
+                        "or dd, the JAX package's route for f64 on a chip "
+                        "without native f64 (two 32-bit planes through the "
+                        "pair kernel). Other dtypes ignore it")
+    p.add_argument("--stream", action="store_true",
+                   help="Streaming pipeline (ops/stream.py): bounded chunks "
+                        "copied to the card while the previous chunk is "
+                        "folded; sustained-GB/s and chunks/s metrics")
+    p.add_argument("--chunk-bytes", dest="chunk_bytes", type=int,
+                   default=None,
+                   help="Per-chunk bound of --stream (default 256 MiB)")
     return p
 
 
@@ -189,6 +228,7 @@ def parse_single_chip(argv=None) -> ReduceConfig:
             iterations=ns.iterations, warmup=ns.warmup, seed=ns.seed,
             device=ns.device, log_file=ns.log_file,
             master_log=ns.master_log, qatest=ns.qatest, verify=ns.verify,
-            timing=ns.timing, chain_reps=ns.chain_reps, stat=ns.stat)
+            timing=ns.timing, chain_reps=ns.chain_reps, stat=ns.stat,
+            f64=ns.f64, stream=ns.stream, chunk_bytes=ns.chunk_bytes)
     except ValueError as e:
         p.error(str(e))

@@ -3,12 +3,12 @@
 At first use each source `csrc/<name>.cu` is compiled by `nvcc` for
 `sm_90a` into `_build/lib<name>.so` (one `nvcc` per source, all started
 together) and loaded with ctypes, each library by its own name:
-`reduce` (k6, k7), `accumulate` (k8, k10) and `mxu` (k9); they share
-`csrc/common.cuh`. The sources have a plain C interface: pointers and the
-stream go in as `c_void_p`, and each C function returns
-`cudaGetLastError()` after its launches, which the wrappers here turn
-into an exception. Nothing is built or loaded at import, so the CPU tests
-import this module without `nvcc`.
+`reduce` (k6, k7), `accumulate` (k8, k10), `mxu` (k9) and `pair` (dd,
+the f64 pair route); they share `csrc/common.cuh`. The sources have a
+plain C interface: pointers and the stream go in as `c_void_p`, and each
+C function returns `cudaGetLastError()` after its launches, which the
+wrappers here turn into an exception. Nothing is built or loaded at
+import, so the CPU tests import this module without `nvcc`.
 """
 
 from __future__ import annotations
@@ -27,6 +27,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 
+# No --use_fast_math and nvcc's default -ftz=false: csrc/pair.cu's
+# error-free transformations need every addition rounded to nearest, and
+# subnormal lo planes kept, which fast math would give up.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,6 +59,12 @@ _SIGNATURES = {
     "mxu": {
         # tr_k9_reduce(in, partials, out, rows, blocks, dtype, stream)
         "tr_k9_reduce": [_VP, _VP, _VP, _LL, _INT, _INT, _VP],
+    },
+    "pair": {
+        # tr_dd_reduce(hi, lo, part_hi, part_lo, out_hi, out_lo, tiles, tm,
+        #              splits, op, stream)
+        "tr_dd_reduce": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _INT, _INT,
+                         _VP],
     },
 }
 
@@ -188,3 +197,19 @@ def k9_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
                                out.data_ptr(), x2d.shape[0], blocks,
                                DTYPE_CODES[x2d.dtype], _stream(x2d))
     _check(lib, err, "k9")
+
+
+def dd_reduce(hi2d: torch.Tensor, lo2d: torch.Tensor, part_hi: torch.Tensor,
+              part_lo: torch.Tensor, out_hi: torch.Tensor,
+              out_lo: torch.Tensor, tm: int, splits: int,
+              op_name: str) -> None:
+    """Launch the pair kernel's two passes on hi2d's device and current
+    stream."""
+    lib = library("pair")
+    with torch.cuda.device(hi2d.device):
+        err = lib.tr_dd_reduce(hi2d.data_ptr(), lo2d.data_ptr(),
+                               part_hi.data_ptr(), part_lo.data_ptr(),
+                               out_hi.data_ptr(), out_lo.data_ptr(),
+                               hi2d.shape[0] // tm, tm, splits,
+                               OP_CODES[op_name], _stream(hi2d))
+    _check(lib, err, "dd")
