@@ -20,7 +20,13 @@ Run from the repository root on a machine with one NVIDIA GPU:
    Times each kernel, its plain version and one PyTorch reduction of the
    same staged tensor with CUDA events, at int32 SUM n = 2^24 (k9: float32
    SUM; dd: float64 SUM, its library call torch.sum of the native f64
-   tensor).
+   tensor). k6 and k7 must give the same bits when called again on the
+   same tensor.
+   Then profiles one k6 call and one k7 chain at int32 SUM n = 2^24 with
+   torch.profiler (tpu_reductions_torch/bench/passes.py): each CUDA
+   kernel's name, launches and device time, each launch in order (k6's
+   two passes, the chain's passes and finish), and the idle time between
+   them; and prints the cluster occupancy and the k6/k7 plans there.
 3. Drives the port's main path, its CLI `main()`, for the benchmark rows
    below, each to a verified PASSED row (or the WAIVED it must give), and
    checks through the wrappers' launch counters that each row went
@@ -49,7 +55,6 @@ import io
 import json
 import math
 import re
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -59,7 +64,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-N = 1 << 24
+from tpu_reductions_torch.bench import passes
+from tpu_reductions_torch.bench.passes import N, bits, device_ms
+
 SIZES = (N, N + 37)
 DTYPES = ("int32", "float32", "float64", "bfloat16")
 METHODS = ("SUM", "MIN", "MAX")
@@ -148,27 +155,6 @@ RACES = (
 )
 
 
-def device_ms(fn, calls: int = 20, trials: int = 5) -> float:
-    """Device time of one fn() call, in ms: the median over `trials` of
-    `calls` back-to-back calls between two CUDA events. A sleep kernel
-    queued first lets the host enqueue every call before the first event
-    fires, so host overhead between calls does not count."""
-    fn()
-    torch.cuda.synchronize()
-    per_call = []
-    for _ in range(trials):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) / calls)
-    return statistics.median(per_call)
-
-
 def bound_of(nbytes: int, ops: int) -> dict:
     """The least time the card could take: the larger of moving nbytes at
     the memory rate and doing ops at the core rate."""
@@ -222,6 +208,22 @@ def check_pair(kr, registry, name, got, want, method, dtype, n, depth):
     return max_err
 
 
+def profile_phase(kr, registry, host_data, dev) -> None:
+    """Per-pass device times of k6 and the k7 chain at int32 SUM n = 2^24
+    (bench/passes.py), and the cluster plans behind them."""
+    for dtype in DTYPES:
+        tm, p, t = kr.choose_tiling(N, 256, 64, dtype)
+        sub = kr.sublanes_for(dtype)
+        rows = p * t * tm
+        sms = kr._sm_count(dev)
+        active = kr._active_clusters(dev, "SUM", getattr(torch, dtype))
+        print(f"  {dtype}: {sms} SMs, {active} active clusters of "
+              f"{kr.CLUSTER} CTAs; k6 {kr.plan_k6(rows, sub, sms, active)}; "
+              f"k7 {kr.plan_k7(rows, sub, p, t * tm, sms, active)}",
+              flush=True)
+    passes.print_profile(passes.profile_k6_k7(kr, registry, host_data, dev))
+
+
 def wrappers(kr, dd) -> dict:
     """Each kernel's launch wrapper, which carries its launch count."""
     return {"k6": kr.single_pass_call, "k7": kr.two_pass_call,
@@ -259,6 +261,12 @@ def k6_k7_vs_plain(kr, registry, host_data, dev, worst, table):
                 k6 = kr.single_pass_call(x2d, op)
                 k7 = kr.two_pass_call(x2d, op, tm, p, t)
                 torch.cuda.synchronize()
+                if not (torch.equal(bits(k6), bits(kr.single_pass_call(
+                            x2d, op))) and
+                        torch.equal(bits(k7), bits(kr.two_pass_call(
+                            x2d, op, tm, p, t)))):
+                    raise AssertionError(f"k6/k7 {method} {dtype} n={n}: a "
+                                         f"second call gave other bits")
                 worst["k6"] = max(worst["k6"], check_pair(
                     kr, registry, "k6", k6, kr.single_pass_plain(x2d, op),
                     method, dtype, n, x2d.shape[0] // sub))
@@ -614,6 +622,11 @@ def main() -> int:
     t0 = time.perf_counter()
     dd_vs_plain(dd_reduce, registry, oracle, host_data, dev, worst, table)
     print(f"[kernels vs plain: dd_vs_plain] {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print("[profile: k6 and the k7 chain]", flush=True)
+    t0 = time.perf_counter()
+    profile_phase(kr, registry, host_data, dev)
+    print(f"[profile: k6 and the k7 chain] {time.perf_counter() - t0:.1f} s",
           flush=True)
     # the main path's shape: int32 SUM, n = 2^24 (k9: float32 SUM; dd:
     # float64 SUM)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_reductions_torch.bench.passes import bits
 from tpu_reductions_torch.ops import kernel_reduce as kr
 from tpu_reductions_torch.ops.registry import get_op
 
@@ -97,10 +98,80 @@ def test_kernels_refuse_what_they_cannot_take(cuda_device):
         kr.single_pass_call(x2d.t().contiguous().t(), op)
     with pytest.raises(ValueError, match="multiple of 8"):
         kr.single_pass_call(x2d[:60], op)
+    # k7 takes fewer rows than its tiling covers, never more
     with pytest.raises(ValueError, match="rows for tiling"):
-        kr.two_pass_call(x2d, op, 8, 4, 4)
+        kr.two_pass_call(x2d, op, 8, 4, 1)
     with pytest.raises(ValueError, match="no kernel for dtype"):
         kr.single_pass_call(x2d.to(torch.int64), op)
+    # the 16-byte loads need a 16-byte aligned base
+    skewed = x2d.view(-1)[1:1 + 56 * 128].view(56, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        kr.single_pass_call(skewed, op)
+    with pytest.raises(ValueError, match="16-byte"):
+        kr.two_pass_call(skewed, op, 8, 7, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k6_k7_repeat_their_bits(cuda_device, dtype):
+    """No float atomics, and an order fixed by the shape: the same staged
+    tensor gives the same bits on every call, float SUM included, for k6
+    and for the k7 chain, at the default --maxblocks and at 2 (where k7
+    folds each span with a cluster of CTAs)."""
+    op = get_op("SUM")
+    n = (1 << 22) + 37
+    x = payload(n, dtype, "SUM", seed=8)
+    for max_blocks in (64, 2):
+        tm, p, t = kr.choose_tiling(n, 256, max_blocks, x.dtype)
+        x2d = kr.stage_padded(x, tm, p, t, op, cuda_device)
+
+        def chain():
+            return kr._multipass_finish(kr.two_pass_call(x2d, op, tm, p, t),
+                                        op, 256, max_blocks, 1)
+
+        first6, first7 = bits(kr.single_pass_call(x2d, op)), bits(chain())
+        for _ in range(5):
+            assert torch.equal(bits(kr.single_pass_call(x2d, op)), first6)
+            assert torch.equal(bits(chain()), first7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 63, 64, 127, 128, 1000, 4096, 4097,
+                                    65536 + 3])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k6_matches_plain_at_plan_edges(cuda_device, dtype, groups):
+    """One CTA; one short of, at and past MIN_GROUPS groups for one and
+    for two CTAs; clusters of 8 CTAs over ragged runs of groups."""
+    sub = kr.sublanes_for(dtype)
+    for method in ("SUM", "MAX"):
+        op = get_op(method)
+        x2d = payload(groups * sub * 128, dtype, method, seed=groups
+                      ).view(-1, 128)
+        assert_acc_match(kr.single_pass_call(x2d.to(cuda_device), op),
+                         kr.single_pass_plain(x2d, op), method, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p, groups", [(1, 512), (2, 512), (3, 512),
+                                       (16, 64), (64, 3), (132, 3),
+                                       (1000, 3)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k7_matches_plain_at_plan_edges(cuda_device, dtype, p, groups):
+    """Every class of P, with spans of `groups` sub-row groups (clusters
+    of 4, 2 and single CTAs), on arrays that fill the tiling and on ones
+    that stop a ragged number of groups short of it, as the chain's
+    partials do."""
+    sub = kr.sublanes_for(dtype)
+    tm, t = groups * sub, 1
+    for method in ("SUM", "MIN"):
+        op = get_op(method)
+        for rows in (p * tm, p * tm - sub, (p * tm // 2 // sub + 1) * sub):
+            x2d = payload(rows * 128, dtype, method, seed=rows
+                          ).view(-1, 128)
+            assert_acc_match(kr.two_pass_call(x2d.to(cuda_device), op, tm,
+                                              p, t),
+                             kr.two_pass_plain(x2d, op, tm, p, t), method,
+                             dtype)
 
 
 @pytest.mark.gpu

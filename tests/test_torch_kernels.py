@@ -126,13 +126,14 @@ def test_choose_tiling_agrees(dtype):
 
 
 def _record_passes(monkeypatch, module, call_name):
-    """Wrap module.two_pass_call to record (input shape, output shape)."""
+    """Wrap module.two_pass_call to record each pass's (input rows,
+    (tm, p, t) tiling, output shape)."""
     passes = []
     real = getattr(module, call_name)
 
-    def recording(x2d, *args, **kwargs):
-        out = real(x2d, *args, **kwargs)
-        passes.append((tuple(x2d.shape), tuple(out.shape)))
+    def recording(x2d, op, tm, p, t, **kwargs):
+        out = real(x2d, op, tm, p, t, **kwargs)
+        passes.append((x2d.shape[0], (tm, p, t), tuple(out.shape)))
         return out
 
     monkeypatch.setattr(module, call_name, recording)
@@ -149,6 +150,10 @@ def _record_passes(monkeypatch, module, call_name):
     (65536, "bfloat16", "SUM", 16, 64, 1),   # f32 partials of bf16 data
 ])
 def test_multipass_finish_matches_pallas(monkeypatch, case):
+    """The port's chain runs the JAX chain's passes, each with its tiling
+    and output shape, and gives its bits; each port pass takes the
+    previous pass's partials as they are (no identity-padded copy), so
+    its input has at most the rows its tiling covers."""
     n, dtype, method, threads, max_blocks, cpu_thresh = case
     x = payload(n, dtype, method)
     x2d_jax, x2d, (tm, p, t) = stage_both(x, method, threads, max_blocks)
@@ -160,8 +165,11 @@ def test_multipass_finish_matches_pallas(monkeypatch, case):
         threads, max_blocks, cpu_thresh, interpret=True)
     got = kr._multipass_finish(kr.two_pass_call(x2d, op, tm, p, t), op,
                                threads, max_blocks, cpu_thresh)
-    assert torch_passes == jax_passes
+    assert [ps[1:] for ps in torch_passes] == [ps[1:] for ps in jax_passes]
     assert len(torch_passes) >= 2
+    for before, (rows, (tm2, p2, t2), _out) in zip(torch_passes,
+                                                    torch_passes[1:]):
+        assert rows == before[2][0] <= p2 * t2 * tm2
     assert_acc_match(got, want, method, dtype)
 
 

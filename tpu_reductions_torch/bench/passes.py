@@ -1,0 +1,315 @@
+"""Per-pass device times of k6 and of the k7 chain, for one tree of the
+port or for two in turns.
+
+    python tpu_reductions_torch/bench/passes.py [--package-root DIR]
+        [--out FILE] [--sweep]
+
+Stages the benchmark payload at the main path's n = 2^24 with the
+default tiling (--threads 256, --maxblocks 64), then:
+
+1. profiles, with torch.profiler, one k6 call and one k7 chain (its
+   passes, the copies between them where the tree has any, and the
+   finish) at int32 SUM, ten times each with a synchronise after every
+   call: each CUDA kernel's name, launches and device time, and the span
+   of one call from its first kernel's start to its last kernel's end
+   (span minus the kernels' time is the device idling between launches);
+2. times with CUDA events k6, one k7 pass and the k7 chain with its
+   finish (`reduce_ms`) on int32/float32/float64 SUM and bf16
+   SUM/MIN/MAX, each beside one PyTorch reduction of the same staged
+   tensor (`library_ms`);
+3. times one k7 pass and the k7 chain with its finish at every k7
+   geometry of the two races chip_smoke.py drives (the default grid on
+   float32 SUM 2^24, the hbm grid on int32 SUM 2^26).
+
+It calls only the wrapper API that every tree of the port has, so
+`--package-root` can import `tpu_reductions_torch` from another checkout
+(the parent commit, unpacked into a directory): running the script once
+per tree, in turns in one call, compares two trees on one card. The
+kernels' own times are chip_smoke.py's; these are for that comparison.
+The last line of its output is one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+N = 1 << 24       # the main path's payload
+# (dtype, method) pairs timed: the main path's int32 SUM first
+CASES = (("int32", "SUM"), ("float32", "SUM"), ("float64", "SUM"),
+         ("bfloat16", "SUM"), ("bfloat16", "MIN"), ("bfloat16", "MAX"))
+# chip_smoke.py's races: the grid, and the payload it reduces with SUM
+RACES = (("default", "float32", 1 << 24), ("hbm", "int32", 1 << 26))
+PROFILED_CALLS = 10
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """t's bits as integers of its width, for a bit-for-bit comparison
+    (torch.equal calls -0.0 and 0.0 equal)."""
+    as_int = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+              torch.float64: torch.int64, torch.int32: torch.int32}
+    return t.view(as_int[t.dtype])
+
+
+def device_ms(fn, calls: int = 20, trials: int = 5) -> float:
+    """Device time of one fn() call, in ms: the median over `trials` of
+    `calls` back-to-back calls between two CUDA events, queued behind a
+    sleep kernel so that host overhead between calls does not count."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / calls)
+    return statistics.median(per_call)
+
+
+def kernel_profile(fn, calls: int = PROFILED_CALLS) -> dict:
+    """Run fn() `calls` times under torch.profiler, each call synchronised
+    and followed by a 2 ms pause of the host, so that the device events
+    of one call are those between two gaps of over 1 ms. Returns the
+    device activity of one call, averaged over the calls that recorded
+    the most common number of device events (the profiler may drop one):
+    per kernel name (in launch order) its launches and device µs; each
+    launch's µs in launch order (a kernel run twice in a call, as k6's
+    two passes are, shows there as two entries); the µs of all kernels;
+    and the median span from the first kernel's start to the last one's
+    end. Raises when the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    recorded = [[events[0]]]
+    for before, e in zip(events, events[1:]):
+        if e.time_range.start - before.time_range.end > 1000:
+            recorded.append([])
+        recorded[-1].append(e)
+    per_call = statistics.mode(len(r) for r in recorded)
+    kept = [r for r in recorded if len(r) == per_call]
+    kernels: dict = {}
+    launch_us = [0.0] * per_call
+    spans = []
+    for call in kept:
+        spans.append(call[-1].time_range.end - call[0].time_range.start)
+        for j, e in enumerate(call):
+            us = e.time_range.end - e.time_range.start
+            k = kernels.setdefault(e.name, {"launches": 0, "us": 0.0})
+            k["launches"] += 1
+            k["us"] += us
+            launch_us[j] += us
+    rows = [{"name": name, "launches": k["launches"] / len(kept),
+             "us": k["us"] / len(kept)} for name, k in kernels.items()]
+    return {"kernels": rows,
+            "launch_us": [us / len(kept) for us in launch_us],
+            "busy_us": sum(r["us"] for r in rows),
+            "span_us": statistics.median(spans), "calls": len(kept)}
+
+
+def profile_k6_k7(kr, registry, host_data, dev) -> dict:
+    """kernel_profile of one k6 call and of one k7 chain (passes and
+    finish) at int32 SUM n = N, default tiling."""
+    op = registry.get_op("SUM")
+    tm, p, t = kr.choose_tiling(N, 256, 64, "int32")
+    x2d = kr.stage_padded(host_data(N, "int32"), tm, p, t, op, dev)
+    return {
+        "k6": kernel_profile(lambda: kr.single_pass_call(x2d, op)),
+        "k7_chain": kernel_profile(lambda: kr.finish(kr._multipass_finish(
+            kr.two_pass_call(x2d, op, tm, p, t), op, 256, 64, 1), op)),
+    }
+
+
+def print_profile(profiles: dict) -> None:
+    for what, prof in profiles.items():
+        print(f"  profile {what}: span {prof['span_us']:.3f} us, kernels "
+              f"{prof['busy_us']:.3f} us, idle between launches "
+              f"{prof['span_us'] - prof['busy_us']:.3f} us", flush=True)
+        for k in prof["kernels"]:
+            print(f"    {k['launches']:g} x {k['us']:9.3f} us  "
+                  f"{k['name'][:100]}", flush=True)
+        print("    launches in order, us: " + " ".join(
+            f"{us:.3f}" for us in prof["launch_us"]), flush=True)
+
+
+def time_cases(kr, registry, host_data, dev) -> list:
+    """CUDA-event times of k6, one k7 pass and the k7 chain with finish,
+    beside torch's reduction of the same staged tensor, for CASES at
+    n = N."""
+    rows = []
+    for dtype, method in CASES:
+        op = registry.get_op(method)
+        tm, p, t = kr.choose_tiling(N, 256, 64, dtype)
+        x2d = kr.stage_padded(host_data(N, dtype), tm, p, t, op, dev)
+        row = {
+            "dtype": dtype, "method": method, "n": N,
+            "k6_ms": device_ms(lambda: kr.single_pass_call(x2d, op)),
+            "k7_pass_ms": device_ms(lambda: kr.two_pass_call(x2d, op, tm, p,
+                                                             t)),
+            "k7_reduce_ms": device_ms(lambda: kr.finish(kr._multipass_finish(
+                kr.two_pass_call(x2d, op, tm, p, t), op, 256, 64, 1), op)),
+            "library_ms": device_ms(lambda: op.reduce(x2d)),
+        }
+        print("  " + " ".join(f"{k}={v:.5f}" if isinstance(v, float)
+                              else f"{k}={v}" for k, v in row.items()),
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+def time_race_k7(kr, registry, host_data, dev) -> list:
+    """CUDA-event times of one k7 pass and of the k7 chain with finish at
+    each k7 (--threads, --maxblocks) of the RACES' grids, on the payload
+    that race reduces."""
+    from tpu_reductions_torch.bench.autotune import GRIDS
+    from tpu_reductions_torch.config import KERNEL_TWO_PASS
+    op = registry.get_op("SUM")
+    rows = []
+    for grid, dtype, n in RACES:
+        x = host_data(n, dtype)
+        for kernel, threads, max_blocks, *_ in GRIDS[grid]:
+            if kernel != KERNEL_TWO_PASS:
+                continue
+            tm, p, t = kr.choose_tiling(n, threads, max_blocks, dtype)
+            x2d = kr.stage_padded(x, tm, p, t, op, dev)
+            row = {
+                "grid": grid, "dtype": dtype, "n": n, "threads": threads,
+                "max_blocks": max_blocks,
+                "k7_pass_ms": device_ms(lambda: kr.two_pass_call(
+                    x2d, op, tm, p, t)),
+                "k7_reduce_ms": device_ms(lambda: kr.finish(
+                    kr._multipass_finish(kr.two_pass_call(x2d, op, tm, p, t),
+                                         op, threads, max_blocks, 1), op)),
+            }
+            print("  race " + " ".join(
+                f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in row.items()), flush=True)
+            rows.append(row)
+    return rows
+
+
+def sweep_plans(kr, registry, host_data, dev) -> list:
+    """CUDA-event times of k6 and k7 under other geometries than the
+    planners pick, at n = N: k6 (both passes) on int32 and bf16 SUM at
+    a quarter to one CTA per SM, in clusters of 1 or 8; one k7 pass over
+    P = 64, 32, 16 and 2 equal spans at 1 to 8 CTAs a cluster; and the k7
+    chain's two small passes (512 and 16 rows, P = 2 and 1, 256-row
+    spans) at 1, 2 and 8. Needs a tree with kernel_reduce.SpanPlan."""
+    from tpu_reductions_torch.ops import _cuda
+    rows_out = []
+    sms = kr._sm_count(dev)
+
+    def plan(groups, sub, blocks, cluster, span=None):
+        span = span or -(-groups // blocks) * sub
+        return kr.SpanPlan(-(-groups * sub // span) if blocks > 1 else blocks,
+                           cluster, span, -(-(span // sub) // cluster) * sub)
+
+    def record(what, x2d, p, ms):
+        row = {"what": what, "dtype": str(x2d.dtype).split(".")[-1],
+               "rows": x2d.shape[0], "blocks": p.blocks,
+               "cluster": p.cluster, "ctas": p.blocks * p.cluster, "ms": ms}
+        print(f"  sweep {what} {row['dtype']} rows={row['rows']} "
+              f"blocks={p.blocks} cluster={p.cluster} "
+              f"ctas={row['ctas']} ms={ms:.5f}", flush=True)
+        rows_out.append(row)
+
+    op = registry.get_op("SUM")
+    for dtype in ("int32", "bfloat16"):
+        tm, p, t = kr.choose_tiling(N, 256, 64, dtype)
+        x2d = kr.stage_padded(host_data(N, dtype), tm, p, t, op, dev)
+        sub = kr.sublanes_for(x2d.dtype)
+        groups = x2d.shape[0] // sub
+        acc = kr._acc_dtype(x2d.dtype, op)
+        out = torch.empty((sub, 128), dtype=acc, device=dev)
+        for ctas, cluster in ((sms // 4, 1), (sms // 2, 1), (sms // 2, 8),
+                              (3 * sms // 4, 1), (sms, 1), (sms, 8)):
+            k6 = plan(groups, sub, ctas // cluster, cluster)
+            parts = torch.empty((k6.blocks * sub, 128), dtype=acc,
+                                device=dev)
+            record("k6", x2d, k6, device_ms(lambda: _cuda.k6_reduce(
+                x2d, parts, out, k6, op.name)))
+        if dtype != "int32":
+            continue
+        for p7, cluster in ((64, 1), (64, 2), (32, 1), (32, 2), (16, 1),
+                            (16, 4), (2, 1), (2, 8)):
+            out7 = torch.empty((p7 * sub, 128), dtype=acc, device=dev)
+            k7 = plan(groups, sub, p7, cluster, groups // p7 * sub)
+            record("k7", x2d, k7, device_ms(lambda: _cuda.k7_reduce(
+                x2d, out7, k7, op.name)))
+    for rows, p in ((512, 2), (16, 1)):
+        x2d = kr.stage_padded(host_data(rows * 128, "int32"), 8, rows // 8,
+                              1, op, dev)
+        out = torch.empty((p * 8, 128), dtype=torch.int32, device=dev)
+        for cluster in (1, 2, 8):
+            k7 = plan(rows // 8, 8, p, cluster, 256)
+            record("chain", x2d, k7, device_ms(lambda: _cuda.k7_reduce(
+                x2d, out, k7, op.name)))
+    return rows_out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--package-root", default=str(Path(__file__)
+                                                  .resolve().parents[2]),
+                    help="directory holding the tpu_reductions_torch to "
+                         "time (default: this checkout)")
+    ap.add_argument("--out", default="", help="also write the JSON here")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time fold_span under other geometries")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("passes: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.package_root).resolve()))
+    from tpu_reductions_torch import device
+    from tpu_reductions_torch.ops import _cuda
+    from tpu_reductions_torch.ops import kernel_reduce as kr
+    from tpu_reductions_torch.ops import registry
+    from tpu_reductions_torch.utils.rng import host_data
+
+    dev = device.resolve("gpu")
+    seconds, log = _cuda.build()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    print(f"{kr.__file__} on {smi} (build {seconds:.1f} s)", flush=True)
+    for part in log.split("== nvcc "):     # reduce.cu's register report
+        if part.startswith("reduce.cu"):
+            print(part, flush=True)
+    profiles = profile_k6_k7(kr, registry, host_data, dev)
+    print_profile(profiles)
+    result = {"package": kr.__file__, "card": smi, "profile": profiles,
+              "times": time_cases(kr, registry, host_data, dev),
+              "races": time_race_k7(kr, registry, host_data, dev)}
+    if args.sweep:
+        result["sweep"] = sweep_plans(kr, registry, host_data, dev)
+    text = json.dumps(result)
+    if args.out:
+        Path(args.out).write_text(text + "\n")
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

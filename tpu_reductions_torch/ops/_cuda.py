@@ -43,10 +43,15 @@ _INT = ctypes.c_int
 # The C functions of each source's library, csrc/<name>.cu -> lib<name>.so.
 _SIGNATURES = {
     "reduce": {
-        # tr_k6_reduce(in, partials, out, rows, blocks, op, dtype, stream)
-        "tr_k6_reduce": [_VP, _VP, _VP, _LL, _INT, _INT, _INT, _VP],
-        # tr_k7_reduce(in, out, rows, span, blocks, op, dtype, stream)
-        "tr_k7_reduce": [_VP, _VP, _LL, _LL, _INT, _INT, _INT, _VP],
+        # tr_k6_reduce(in, partials, out, rows, span, share, blocks, cluster,
+        #              op, dtype, stream)
+        "tr_k6_reduce": [_VP, _VP, _VP, _LL, _LL, _LL, _INT, _INT, _INT, _INT,
+                         _VP],
+        # tr_k7_reduce(in, out, rows, span, share, blocks, cluster, op, dtype,
+        #              stream)
+        "tr_k7_reduce": [_VP, _VP, _LL, _LL, _LL, _INT, _INT, _INT, _INT, _VP],
+        # tr_span_active_clusters(cluster, op, dtype, &clusters)
+        "tr_span_active_clusters": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
     },
     "accumulate": {
         # tr_k8_reduce(in, partials, out, tiles, tm, splits, op, dtype, stream)
@@ -140,26 +145,45 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def k6_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
-              blocks: int, op_name: str) -> None:
-    """Launch k6's two passes on x2d's device and current stream."""
+              plan, op_name: str) -> None:
+    """Launch k6's two passes, laid out by `plan` (a kernel_reduce.SpanPlan),
+    on x2d's device and current stream."""
     lib = library("reduce")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k6_reduce(x2d.data_ptr(), partials.data_ptr(),
-                               out.data_ptr(), x2d.shape[0], blocks,
+                               out.data_ptr(), x2d.shape[0], plan.span,
+                               plan.share, plan.blocks, plan.cluster,
                                OP_CODES[op_name], DTYPE_CODES[x2d.dtype],
                                _stream(x2d))
     _check(lib, err, "k6")
 
 
-def k7_reduce(x2d: torch.Tensor, out: torch.Tensor, span: int, blocks: int,
+def k7_reduce(x2d: torch.Tensor, out: torch.Tensor, plan,
               op_name: str) -> None:
-    """Launch one k7 pass on x2d's device and current stream."""
+    """Launch one k7 pass, laid out by `plan`, on x2d's device and current
+    stream."""
     lib = library("reduce")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k7_reduce(x2d.data_ptr(), out.data_ptr(), x2d.shape[0],
-                               span, blocks, OP_CODES[op_name],
+                               plan.span, plan.share, plan.blocks,
+                               plan.cluster, OP_CODES[op_name],
                                DTYPE_CODES[x2d.dtype], _stream(x2d))
     _check(lib, err, "k7")
+
+
+def span_active_clusters(device: torch.device, cluster: int, op_name: str,
+                         dtype: torch.dtype) -> int:
+    """cudaOccupancyMaxActiveClusters of k6's and k7's pass for `dtype`
+    (the input's) and clusters of `cluster` CTAs: how many such clusters
+    the device holds at once."""
+    lib = library("reduce")
+    clusters = _INT(0)
+    with torch.cuda.device(device):
+        err = lib.tr_span_active_clusters(cluster, OP_CODES[op_name],
+                                          DTYPE_CODES[dtype],
+                                          ctypes.byref(clusters))
+    _check(lib, err, "the cluster occupancy query of k6/k7")
+    return clusters.value
 
 
 def k8_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,

@@ -8,9 +8,10 @@ device (`choose_tiling`, `stage_padded`: --threads sets the TM tile rows,
 
   k6  single_pass_call -> one (sub, 128) accumulator, finished to a scalar;
   k7  two_pass_call    -> (P*sub, 128) partials, relaunched on its own
-                          partials by _multipass_finish while more than
-                          --cputhresh rows remain, then finished on the
-                          device or, with --cpufinal, on the host;
+                          partials (as they are, not re-staged) by
+                          _multipass_finish while more than --cputhresh
+                          rows remain, then finished on the device or,
+                          with --cpufinal, on the host;
   k8  elementwise_call -> one (TM, 128) accumulator;
   k9  mxu_call         -> (8, 128): row 0 the column sums (SUM over float
                           dtypes only, on the tensor cores), rows 1-7 zero;
@@ -32,6 +33,7 @@ launch in its `launches` attribute.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional, Union
 
@@ -112,11 +114,26 @@ def single_pass_plain(x2d: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
     return op.reduce_dim(x2d.reshape(-1, sub, LANES), 0)
 
 
+def _check_tiling(x2d: torch.Tensor, tm: int, p: int, t: int) -> None:
+    """k7 takes at most the P*T*TM rows its tiling covers."""
+    if x2d.shape[0] > p * t * tm:
+        raise ValueError(f"k7 takes at most {p * t * tm} rows for tiling "
+                         f"({tm}, {p}, {t}), got {x2d.shape[0]}")
+
+
 def two_pass_plain(x2d: torch.Tensor, op: ReduceOpSpec, tm: int, p: int,
                    t: int) -> torch.Tensor:
     """k7's function in PyTorch: block i's (sub, 128) partial of its rows
-    [i*T*TM, (i+1)*T*TM), stacked to (P*sub, 128)."""
+    [i*T*TM, (i+1)*T*TM), stacked to (P*sub, 128). Rows that the tiling
+    covers past the end of x2d read as the op's identity: they are padded
+    here, as stage_padded would pad them."""
+    _check_tiling(x2d, tm, p, t)
     sub = sublanes_for(x2d.dtype)
+    missing = p * t * tm - x2d.shape[0]
+    if missing:
+        x2d = torch.cat([x2d, torch.full((missing, LANES),
+                                         op.identity(x2d.dtype),
+                                         dtype=x2d.dtype, device=x2d.device)])
     parts = op.reduce_dim(x2d.reshape(p, t * tm // sub, sub, LANES), 1)
     return parts.reshape(p * sub, LANES)
 
@@ -145,9 +162,96 @@ def mxu_plain(x2d: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# k6's and k7's pass (csrc/reduce.cu fold_span): CTAs of 512 threads, in
+# thread-block clusters of at most CLUSTER CTAs (the portable limit). A
+# CTA keeps 8 loads of 16 bytes in flight per thread (64 KiB), so about 64
+# CTAs, one per two SMs, read at the card's full rate; more only lengthen
+# the fold, and a cluster launch costs about a microsecond more than a
+# plain one (bench/passes.py --sweep, PERF.md). So the planners fill half
+# the SMs, split a span over a cluster only when its partial blocks alone
+# would not, and never give a CTA a share of fewer than MIN_GROUPS
+# sub-row groups.
+CLUSTER = 8
+MIN_GROUPS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanPlan:
+    """The geometry of one fold_span pass: `blocks` partial blocks, block
+    i folding rows [i*span, (i+1)*span) with one cluster of `cluster`
+    CTAs, of which rank s takes rows [i*span + s*share, +share) of that
+    span (both bounded by the block's span and by the array)."""
+    blocks: int
+    cluster: int
+    span: int
+    share: int
+
+
+def _pow2_floor(v: int) -> int:
+    return 1 << (max(1, v).bit_length() - 1)
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << (max(1, v) - 1).bit_length()
+
+
+def _fill(sm_count: int, active_clusters: int) -> int:
+    """The CTAs a pass aims for: half the SMs, in whole clusters, within
+    one wave of resident clusters."""
+    if active_clusters < 1:
+        raise ValueError("the device holds no cluster of k6/k7's CTAs")
+    return max(CLUSTER, min(sm_count // 2, active_clusters * CLUSTER)
+               // CLUSTER * CLUSTER)
+
+
+def _plan(blocks: int, cluster: int, span: int, sub: int) -> SpanPlan:
+    """Cut each span into `cluster` shares of whole sub-row groups."""
+    return SpanPlan(blocks, cluster, span,
+                    -(-(span // sub) // cluster) * sub)
+
+
+def plan_k6(rows: int, sub: int, sm_count: int,
+            active_clusters: int) -> SpanPlan:
+    """k6's pass 1: as many CTAs as fill the card (_fill), but none with
+    fewer than MIN_GROUPS groups, in clusters of up to CLUSTER, each
+    cluster folding an equal run of whole groups (none empty) into one
+    partial. A function of the shape and the device alone, so one shape
+    always folds in one order."""
+    groups = rows // sub
+    ctas = max(1, min(_fill(sm_count, active_clusters),
+                      groups // MIN_GROUPS))
+    cluster = min(CLUSTER, _pow2_floor(ctas))
+    per_block = -(-groups // (ctas // cluster))
+    return _plan(-(-groups // per_block), cluster, per_block * sub, sub)
+
+
+def plan_k7(rows: int, sub: int, p: int, span: int, sm_count: int,
+            active_clusters: int) -> SpanPlan:
+    """k7's pass over `rows` rows under a tiling of P blocks of `span`
+    (T*TM) rows: P clusters of S CTAs, S the least power of two (at most
+    CLUSTER) for which P*S fills the card (_fill), cut back while a
+    share would hold fewer than MIN_GROUPS groups. So P*S is within one
+    wave of resident CTAs, or S = 1."""
+    fill = _fill(sm_count, active_clusters)
+    if rows > p * span or span % sub:
+        raise ValueError(f"k7 cannot cover {rows} rows with {p} blocks of "
+                         f"{span} rows of {sub}-row groups")
+    cluster = min(CLUSTER, _pow2_ceil(-(-fill // p)),
+                  _pow2_floor(span // sub // MIN_GROUPS))
+    while cluster > 1 and p * cluster > active_clusters * CLUSTER:
+        cluster //= 2
+    return _plan(p, cluster, span, sub)
+
+
 @functools.cache
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def _active_clusters(device: torch.device, op_name: str,
+                     dtype: torch.dtype) -> int:
+    return _cuda.span_active_clusters(device, CLUSTER, op_name, dtype)
 
 
 def _check_staged(x2d: torch.Tensor, sub: int) -> None:
@@ -166,19 +270,26 @@ def _check_staged(x2d: torch.Tensor, sub: int) -> None:
 
 
 def single_pass_call(x2d: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
-    """k6: the (sub, 128) accumulator of a staged tensor. Two CUDA passes
-    (grid-stride partials, then one block folds them) count as one
-    launch."""
+    """k6: the (sub, 128) accumulator of a staged tensor; replaces the
+    JAX package's single_pass_call. Bound by the bytes it reads. Pass 1
+    folds the rows with deep 16-byte loads over about one CTA per two
+    SMs, in thread-block clusters that fold their CTAs' slots over
+    distributed shared memory into one partial each (plan_k6); pass 2
+    folds those few partials over sub CTAs, one per slot row. No float
+    atomics, so a tensor gives the same bits on every call. Both passes
+    count as one launch."""
     if x2d.device.type == "cpu":
         return single_pass_plain(x2d, op)
     sub = sublanes_for(x2d.dtype)
     _check_staged(x2d, sub)
-    blocks = min(2 * _sm_count(x2d.device), x2d.shape[0] // sub)
+    _check_aligned(x2d)
+    plan = plan_k6(x2d.shape[0], sub, _sm_count(x2d.device),
+                   _active_clusters(x2d.device, op.name, x2d.dtype))
     acc = _acc_dtype(x2d.dtype, op)
-    partials = torch.empty((blocks * sub, LANES), dtype=acc,
-                           device=x2d.device)
     out = torch.empty((sub, LANES), dtype=acc, device=x2d.device)
-    _cuda.k6_reduce(x2d, partials, out, blocks, op.name)
+    partials = (torch.empty((plan.blocks * sub, LANES), dtype=acc,
+                            device=x2d.device) if plan.blocks > 1 else out)
+    _cuda.k6_reduce(x2d, partials, out, plan, op.name)
     single_pass_call.launches += 1
     return out
 
@@ -188,17 +299,25 @@ single_pass_call.launches = 0
 
 def two_pass_call(x2d: torch.Tensor, op: ReduceOpSpec, tm: int, p: int,
                   t: int) -> torch.Tensor:
-    """k7: the (P*sub, 128) partials of a staged (P*T*TM, 128) tensor."""
+    """k7: the (P*sub, 128) partials of a staged tensor of at most P*T*TM
+    rows (rows past its end read as the op's identity); replaces the JAX
+    package's two_pass_call. Bound by the bytes it reads. Each partial
+    block is folded with deep 16-byte loads by one thread-block cluster
+    of S CTAs, S > 1 only where P blocks alone would leave the card
+    short (plan_k7); the cluster folds its CTAs' slots in rank order over
+    distributed shared memory, with no float atomics, so a tensor gives
+    the same bits on every call."""
+    _check_tiling(x2d, tm, p, t)
     if x2d.device.type == "cpu":
         return two_pass_plain(x2d, op, tm, p, t)
     sub = sublanes_for(x2d.dtype)
     _check_staged(x2d, sub)
-    if x2d.shape[0] != p * t * tm:
-        raise ValueError(f"k7 needs {p * t * tm} rows for tiling "
-                         f"({tm}, {p}, {t}), got {x2d.shape[0]}")
+    _check_aligned(x2d)
+    plan = plan_k7(x2d.shape[0], sub, p, t * tm, _sm_count(x2d.device),
+                   _active_clusters(x2d.device, op.name, x2d.dtype))
     out = torch.empty((p * sub, LANES), dtype=_acc_dtype(x2d.dtype, op),
                       device=x2d.device)
-    _cuda.k7_reduce(x2d, out, t * tm, p, op.name)
+    _cuda.k7_reduce(x2d, out, plan, op.name)
     two_pass_call.launches += 1
     return out
 
@@ -234,8 +353,9 @@ def _period_buffers(x2d: torch.Tensor, op: ReduceOpSpec, tm: int):
 
 
 def _check_aligned(x2d: torch.Tensor) -> None:
-    """k9's 16-byte loads and k10's bulk copies need a 16-byte aligned
-    base (rows are 256 bytes or more, so every row is then aligned)."""
+    """The 16-byte loads of k6, k7 and k9 and k10's bulk copies need a
+    16-byte aligned base (rows are 256 bytes or more, so every row is
+    then aligned)."""
     if x2d.data_ptr() % 16:
         raise ValueError("the staged tensor must start on a 16-byte "
                          "boundary")
@@ -332,15 +452,17 @@ def _multipass_finish(partials: torch.Tensor, op: ReduceOpSpec, threads: int,
     the partials' own sublane count is the floor, and each pass is
     clamped to at least halve the rows (with tm == sublane and
     max_blocks >= tiles, a pass would otherwise give every tile its own
-    partial block and never shrink)."""
+    partial block and never shrink). Each pass has the JAX chain's tiling
+    and output shape, but takes the partials as they are: the rows its
+    tiling counts past them read as the identity, where the JAX chain
+    stages an identity-padded copy."""
     while (partials.shape[0] > max(cpu_thresh, 1)
            and partials.shape[0] > sublanes_for(partials.dtype)):
         sub2 = sublanes_for(partials.dtype)
         mb2 = max(1, min(max_blocks, partials.shape[0] // (2 * sub2)))
         tm2, p2, t2 = choose_tiling(partials.numel(), threads, mb2,
                                     partials.dtype)
-        x2 = stage_padded(partials, tm2, p2, t2, op)
-        partials = two_pass_call(x2, op, tm2, p2, t2)
+        partials = two_pass_call(partials, op, tm2, p2, t2)
     return partials
 
 
