@@ -11,22 +11,25 @@ Run from the repository root on a machine with one NVIDIA GPU:
 2. Holds every kernel against its plain PyTorch version on the card:
    k6 and k7 for SUM/MIN/MAX x int32/float32/float64/bfloat16 at
    n = 2^24 and at a ragged n = 2^24 + 37; k8 and k10 on the same pairs
-   at --threads 256 and 2048, k10 at depths 1, 2, 4 and 8, which must give
-   bit-identical accumulators (and k8's bits); k9 for SUM x float32/
-   float64/bfloat16, and its column sums of uniform [0, 1) data against
-   float64 ones (its precision mode); dd, the f64 pair kernel, for
+   at --threads 256 and 2048, k10 at depths 1, 2, 4, 8 and the deepest
+   ring, and at depth 4 once more, which must all give k8's bits; k9 for
+   SUM x float32/float64/bfloat16, and its column sums of uniform [0, 1)
+   data against float64 ones (its precision mode); dd, the f64 pair
+   kernel, for
    SUM/MIN/MAX at the same sizes and --threads, on the benchmark payload
    and on a full-range SUM (uniform(-1, 1) x 1e300 against math.fsum).
    Times each kernel, its plain version and one PyTorch reduction of the
    same staged tensor with CUDA events, at int32 SUM n = 2^24 (k9: float32
    SUM; dd: float64 SUM, its library call torch.sum of the native f64
-   tensor). k6 and k7 must give the same bits when called again on the
-   same tensor.
-   Then profiles one k6 call and one k7 chain at int32 SUM n = 2^24 with
+   tensor). k6, k7 and k9 must give the same bits when called again on
+   the same tensor.
+   Then profiles one k6 call, one k7 chain and one k10 call at depths 1
+   and 4 at int32 SUM n = 2^24, and one k9 call at float32 SUM, with
    torch.profiler (tpu_reductions_torch/bench/passes.py): each CUDA
    kernel's name, launches and device time, each launch in order (k6's
    two passes, the chain's passes and finish), and the idle time between
-   them; and prints the cluster occupancy and the k6/k7 plans there.
+   them; and prints the cluster occupancy and the k6/k7/k10/k9 plans
+   there.
 3. Drives the port's main path, its CLI `main()`, for the benchmark rows
    below, each to a verified PASSED row (or the WAIVED it must give), and
    checks through the wrappers' launch counters that each row went
@@ -65,7 +68,8 @@ import numpy as np
 import torch
 
 from tpu_reductions_torch.bench import passes
-from tpu_reductions_torch.bench.passes import N, bits, device_ms
+from tpu_reductions_torch.bench.passes import (DEPTHS, MXU_DTYPES, N, bits,
+                                               device_ms)
 
 SIZES = (N, N + 37)
 DTYPES = ("int32", "float32", "float64", "bfloat16")
@@ -91,8 +95,6 @@ REPLACES = {"k6": "tpu_reductions/ops/pallas_reduce.py:390",
             "k10": "tpu_reductions/ops/pallas_reduce.py:338",
             "dd": "tpu_reductions/ops/dd_reduce.py:250"}
 PERIOD_THREADS = (256, 2048)      # k8/k10: the default and largest tile
-DEPTHS = (1, 2, 4, 8)
-MXU_DTYPES = ("float32", "float64", "bfloat16")
 # k9's column sums against float64 on uniform data: the rtol the card
 # tests hold float SUM to (bf16 data, float32 accumulator: 1e-2)
 MXU_RTOL = {"float32": 1e-6, "float64": 1e-12, "bfloat16": 1e-2}
@@ -209,19 +211,25 @@ def check_pair(kr, registry, name, got, want, method, dtype, n, depth):
 
 
 def profile_phase(kr, registry, host_data, dev) -> None:
-    """Per-pass device times of k6 and the k7 chain at int32 SUM n = 2^24
-    (bench/passes.py), and the cluster plans behind them."""
+    """Per-pass device times of k6 and the k7 chain at int32 SUM n = 2^24,
+    of k10 at depths 1 and 4 there and of k9 on float32 SUM
+    (bench/passes.py), and the plans behind them."""
+    sms = kr._sm_count(dev)
     for dtype in DTYPES:
         tm, p, t = kr.choose_tiling(N, 256, 64, dtype)
         sub = kr.sublanes_for(dtype)
         rows = p * t * tm
-        sms = kr._sm_count(dev)
-        active = kr._active_clusters(dev, "SUM", getattr(torch, dtype))
+        torch_dtype = getattr(torch, dtype)
+        active = kr._active_clusters(dev, "SUM", torch_dtype)
+        k9 = (kr.plan_k9(rows // kr.MXU_SLAB_ROWS[torch_dtype], sms)
+              if torch_dtype in kr.MXU_SLAB_ROWS else None)
+        k10 = kr.plan_k10(rows // tm, tm, sub, torch_dtype.itemsize, 4, sms)
         print(f"  {dtype}: {sms} SMs, {active} active clusters of "
               f"{kr.CLUSTER} CTAs; k6 {kr.plan_k6(rows, sub, sms, active)}; "
-              f"k7 {kr.plan_k7(rows, sub, p, t * tm, sms, active)}",
-              flush=True)
+              f"k7 {kr.plan_k7(rows, sub, p, t * tm, sms, active)}; k10 at "
+              f"depth 4 {k10}; k9 {k9}", flush=True)
     passes.print_profile(passes.profile_k6_k7(kr, registry, host_data, dev))
+    passes.print_profile(passes.profile_k9_k10(kr, registry, host_data, dev))
 
 
 def wrappers(kr, dd) -> dict:
@@ -306,14 +314,15 @@ def k8_k10_vs_plain(kr, registry, host_data, dev, worst, table):
                     tm, p, t = kr.choose_tiling(n, threads, 64, dtype)
                     x2d = kr.stage_padded(x, tm, p, t, op, dev)
                     k8 = kr.elementwise_call(x2d, op, tm)
-                    k10 = {d: kr.stream_call(x2d, op, tm, d) for d in DEPTHS}
+                    depths = DEPTHS + (kr.stream_max_depth(x2d.dtype),)
+                    k10 = {d: kr.stream_call(x2d, op, tm, d) for d in depths}
+                    again = kr.stream_call(x2d, op, tm, 4)
                     torch.cuda.synchronize()
-                    for d, acc in k10.items():
-                        if not torch.equal(acc, k8):
+                    for d, acc in [*k10.items(), ("4, called again", again)]:
+                        if not torch.equal(bits(acc), bits(k8)):
                             raise AssertionError(
                                 f"k10 depth {d} {method} {dtype} n={n} "
-                                f"tm={tm}: not bit-identical to depth 1 "
-                                f"and k8")
+                                f"tm={tm}: not bit-identical to k8")
                     err = check_pair(kr, registry, "k8", k8,
                                      kr.elementwise_plain(x2d, op, tm),
                                      method, dtype, n, x2d.shape[0] // tm)
@@ -356,6 +365,9 @@ def k9_vs_plain(kr, registry, host_data, dev, worst, table):
             torch.cuda.synchronize()
             if bool(k9[1:].any()):
                 raise AssertionError(f"k9 {dtype} n={n}: rows 1-7 not zero")
+            if not torch.equal(bits(k9), bits(kr.mxu_call(x2d, op))):
+                raise AssertionError(f"k9 {dtype} n={n}: a second call "
+                                     f"gave other bits")
             worst["k9"] = max(worst["k9"], check_pair(
                 kr, registry, "k9", k9, kr.mxu_plain(x2d), "SUM", dtype, n,
                 x2d.shape[0]))

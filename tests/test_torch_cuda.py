@@ -222,6 +222,73 @@ def test_stream_depth_is_bit_identical(cuda_device, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("threads", [8, 256, 2048])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_stream_ragged_payloads_give_k8s_bits(cuda_device, dtype, threads):
+    """Payloads that end 37 elements into a tile (identity-padded), over
+    tile counts that leave some splits a half-full last stage (TM 8: 302
+    tiles over 264 splits; TM 256: 78 over 8; TM 2048: 9 in one split):
+    k10 at depths 1, 3 and 8 gives k8's bits, and both the plain
+    accumulator."""
+    tm = kr.choose_tiling(1, threads, 1, dtype)[0]
+    tiles = {8: 302, 16: 302, 256: 78, 2048: 9}[tm]
+    n = (tiles - 1) * tm * 128 + 37
+    for method in ("SUM", "MAX"):
+        op = get_op(method)
+        x = payload(n, dtype, method, seed=threads)
+        tm_, p, t = kr.choose_tiling(n, threads, 1000, x.dtype)
+        assert (tm_, p * t) == (tm, tiles)
+        x2d = kr.stage_padded(x, tm, p, t, op, cuda_device)
+        k8 = kr.elementwise_call(x2d, op, tm)
+        for depth in (1, 3, 8):
+            assert torch.equal(bits(kr.stream_call(x2d, op, tm, depth)),
+                               bits(k8)), depth
+        assert_acc_match(k8, kr.elementwise_plain(x2d.cpu(), op, tm),
+                         method, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k9_k10_repeat_their_bits(cuda_device, dtype):
+    """No float atomics, and an order fixed by the shape: k10 (depths 1
+    and 4) and k9 (float dtypes) give the same bits on every call on the
+    same staged tensor, float SUM included."""
+    op = get_op("SUM")
+    n = (1 << 22) + 37
+    x = payload(n, dtype, "SUM", seed=9)
+    tm, p, t = kr.choose_tiling(n, 256, 64, x.dtype)
+    x2d = kr.stage_padded(x, tm, p, t, op, cuda_device)
+    calls = {f"k10 depth {d}": (lambda d=d: kr.stream_call(x2d, op, tm, d))
+             for d in (1, 4)}
+    if dtype != "int32":
+        calls["k9"] = lambda: kr.mxu_call(x2d, op)
+    for name, call in calls.items():
+        first = bits(call())
+        for _ in range(5):
+            assert torch.equal(bits(call()), first), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slabs", [1, 3, 7, 2113, 16391])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+def test_mxu_runs_that_do_not_divide(cuda_device, dtype, slabs):
+    """Slab counts that the warps' equal runs do not divide (a last run
+    shorter than the others), and payloads smaller than one run of the
+    main path (8 slabs): row 0 the column sums, rows 1-7 zero. A float64
+    slab is 4 rows and the staged rows are a multiple of 8, so its counts
+    are twice these."""
+    rows = {"float32": 8, "float64": 8, "bfloat16": 16}[dtype] * slabs
+    x2d = payload(rows * 128, dtype, "SUM", seed=slabs).view(rows, 128)
+    got = kr.mxu_call(x2d.to(cuda_device), get_op("SUM")).cpu()
+    want = kr.mxu_plain(x2d)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got[1:], torch.zeros_like(got[1:]))
+    np.testing.assert_allclose(got[0].double().numpy(),
+                               want[0].double().numpy(),
+                               rtol=SUM_RTOL[dtype])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [1000, 300_001, 1 << 22])
 @pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
 def test_mxu_matches_plain(cuda_device, dtype, n):

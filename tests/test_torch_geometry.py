@@ -162,6 +162,145 @@ def test_two_pass_plain_pads_unpadded_partials(method, dtype):
                        bits(want))
 
 
+def ring_walk(count: int, chunks: int, depth: int) -> list:
+    """Walk k10's ring as csrc/accumulate.cu stream_period does for one
+    block of `count` chunks: stage q fills slot q % depth with chunks
+    [q*chunks, min((q+1)*chunks, count)). Checks the barrier parities the
+    kernel tracks with its `lap` bit: the consumers wait for the full
+    barrier's completion number q // depth of that slot, and the producer
+    refills a slot only after its empty barrier completed for the stage
+    depth before. Returns the chunk indices in the order they are
+    folded."""
+    folded = []
+    slot, lap = 0, 0
+    released = [0] * depth      # completions of each empty barrier
+    filled = [0] * depth        # completions of each full barrier
+    for q in range(-(-count // chunks)):
+        assert slot == q % depth and lap == (q // depth) & 1
+        if q >= depth:
+            # the producer waits on parity lap ^ 1: the release of use
+            # q // depth - 1 of this slot, by the stage depth before
+            assert released[slot] == q // depth
+            assert (released[slot] - 1) & 1 == lap ^ 1
+        # consumers wait on parity lap: this slot's fill number q // depth
+        assert filled[slot] == q // depth and filled[slot] & 1 == lap
+        filled[slot] += 1
+        first = q * chunks
+        folded.extend(range(first, min(first + chunks, count)))
+        released[slot] += 1
+        slot += 1
+        if slot == depth:
+            slot, lap = 0, lap ^ 1
+    return folded
+
+
+PERIOD_TMS = (8, 16, 256, 512, 1024, 2048)
+TILE_COUNTS = (1, 3, 8, 64, 65, 512, 1000)
+
+
+@pytest.mark.parametrize("dtype, tm", [
+    (dtype, tm) for dtype in (torch.int32, torch.float32, torch.float64,
+                              torch.bfloat16)
+    for tm in PERIOD_TMS if tm % kr.sublanes_for(dtype) == 0])
+def test_k10_plan_folds_every_tile_once_in_k8_order(dtype, tm):
+    """Every tile is folded once, by the split k8 gives it, in increasing
+    order, at every depth the CLI, the races and the tests use: the order
+    of adds per slot does not depend on the depth."""
+    sub = kr.sublanes_for(dtype)
+    deepest = kr.stream_max_depth(dtype)
+    for tiles in TILE_COUNTS:
+        splits = kr.plan_splits(tiles, tm, sub, SMS)
+        orders = set()
+        for depth in (1, 2, 4, 8, deepest):
+            plan = kr.plan_k10(tiles, tm, sub, dtype.itemsize, depth, SMS)
+            assert (plan.splits, plan.depth) == (splits, depth)
+            chunk = sub * 128 * dtype.itemsize
+            assert plan.chunks * chunk <= kr.STREAM_STAGE_BYTES
+            assert (depth * plan.chunks * chunk + kr.STREAM_BARRIER_BYTES
+                    <= kr.SMEM_PER_BLOCK)
+            order = []
+            for split in range(plan.splits):
+                count = len(range(split, tiles, plan.splits))
+                walked = ring_walk(count, plan.chunks, depth)
+                assert walked == list(range(count))
+                order.append(tuple(split + i * plan.splits for i in walked))
+            flat = sorted(k for split in order for k in split)
+            assert flat == list(range(tiles))      # each tile once
+            assert all(list(s) == sorted(s) for s in order)
+            orders.add(tuple(order))
+            assert plan == kr.plan_k10(tiles, tm, sub, dtype.itemsize, depth,
+                                       SMS)
+        assert len(orders) == 1
+
+
+@pytest.mark.parametrize("tm", PERIOD_TMS)
+@pytest.mark.parametrize("sms", [1, 66, 132])
+def test_period_splits_fill_one_wave(tm, sms):
+    """k8's and k10's splits: the tm/sub slot groups x splits blocks fit
+    one wave of two blocks per SM (or take one split), never more splits
+    than tiles; a function of the shape and the SM count alone."""
+    for sub in (8, 16):
+        if tm % sub:
+            continue
+        for tiles in TILE_COUNTS:
+            splits = kr.plan_splits(tiles, tm, sub, sms)
+            assert 1 <= splits <= tiles
+            assert tm // sub * splits <= 2 * sms or splits == 1
+            assert splits == kr.plan_splits(tiles, tm, sub, sms)
+
+
+def test_k10_plan_at_the_main_path_shape():
+    """int32 n = 2^24 at TM 256: 512 tiles, 32 slot groups x 8 splits,
+    two 4 KiB chunks a stage, 32 KiB of ring at depth 4."""
+    assert kr.plan_k10(512, 256, 8, 4, 4, SMS) == kr.StreamPlan(
+        splits=8, depth=4, chunks=2)
+
+
+def test_k10_plan_refuses_a_ring_that_does_not_fit():
+    deepest = kr.stream_max_depth(torch.float64)
+    kr.plan_k10(64, 256, 8, 8, deepest, SMS)
+    with pytest.raises(ValueError, match=f"at most {deepest} stages"):
+        kr.plan_k10(64, 256, 8, 8, deepest + 1, SMS)
+
+
+def mxu_runs(plan: kr.MxuPlan, slabs: int) -> list:
+    """The slab ranges the warps fold, as csrc/mxu.cu mxu_columns walks
+    them: warp w of the grid takes [w*run, min((w+1)*run, slabs))."""
+    ranges = []
+    for w in range(plan.blocks * kr.MXU_WARPS):
+        first, end = w * plan.run, min((w + 1) * plan.run, slabs)
+        if end > first:
+            ranges.append((first, end))
+    return ranges
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132])
+@pytest.mark.parametrize("slabs", [1, 2, 15, 16, 17, 125, 2112, 2113, 8192,
+                                   16384, 16384 + 7, 32768, 1 << 20])
+def test_k9_plan_splits_the_slabs_evenly(slabs, sms):
+    """Every slab once, in equal contiguous runs (the last may be
+    shorter), one block of MXU_WARPS warps per SM at most, no block
+    without a run; a function of the slab count and the SM count."""
+    plan = kr.plan_k9(slabs, sms)
+    runs = mxu_runs(plan, slabs)
+    assert covers_once(runs, slabs)
+    assert all(end - first == plan.run for first, end in runs[:-1])
+    assert 1 <= runs[-1][1] - runs[-1][0] <= plan.run
+    # the last block holds the last run; none holds no run
+    assert plan.blocks == -(-len(runs) // kr.MXU_WARPS) <= sms
+    # no fewer runs than warps could take them: a shorter run would not fit
+    assert plan.run == -(-slabs // min(slabs, sms * kr.MXU_WARPS))
+    assert plan == kr.plan_k9(slabs, sms)
+
+
+def test_k9_plan_at_the_main_path_shape():
+    """float32 n = 2^24: 16384 slabs of 8 rows in 2048 runs of 8 (the
+    parent's grid-stride walk gave 2112 warps 7 or 8), 128 blocks."""
+    plan = kr.plan_k9(16384, SMS)
+    assert plan == kr.MxuPlan(run=8, blocks=128)
+    assert len(mxu_runs(plan, 16384)) == 2048
+
+
 def test_k7_refuses_more_rows_than_its_tiling():
     x2d = torch.zeros((64, 128), dtype=torch.int32)
     for call in (kr.two_pass_call, kr.two_pass_plain):

@@ -313,11 +313,20 @@ def test_one_shot_matches_pallas_reduce(kernel):
 
 def test_stream_max_depth_fits_shared_memory():
     """The deepest ring k10 accepts fits one block's shared memory beside
-    its barriers; one stage more would not."""
+    its full and empty barriers; one stage more would not. A stage is
+    whole SUB x 128 chunks, at most STREAM_STAGE_BYTES; plan_k10 takes the
+    deepest ring and refuses one stage more."""
+    assert kr.STREAM_BARRIER_BYTES == 2 * 8 * kr.STREAM_MAX_STAGES
     for dtype in (torch.int32, torch.float32, torch.float64, torch.bfloat16):
-        chunk = kr.sublanes_for(dtype) * 128 * dtype.itemsize
+        sub = kr.sublanes_for(dtype)
+        chunk = sub * 128 * dtype.itemsize
         deepest = kr.stream_max_depth(dtype)
         assert deepest >= 8
-        room = kr.SMEM_PER_BLOCK - 8 * kr.STREAM_MAX_STAGES
-        assert deepest * chunk <= room
-        assert deepest == kr.STREAM_MAX_STAGES or (deepest + 1) * chunk > room
+        plan = kr.plan_k10(64, 256, sub, dtype.itemsize, deepest, 132)
+        stage = plan.chunks * chunk
+        assert stage <= kr.STREAM_STAGE_BYTES < stage + chunk
+        room = kr.SMEM_PER_BLOCK - kr.STREAM_BARRIER_BYTES
+        assert deepest * stage <= room
+        assert deepest == kr.STREAM_MAX_STAGES or (deepest + 1) * stage > room
+        with pytest.raises(ValueError, match=f"at most {deepest} stages"):
+            kr.plan_k10(64, 256, sub, dtype.itemsize, deepest + 1, 132)

@@ -1,5 +1,5 @@
-"""Per-pass device times of k6 and of the k7 chain, for one tree of the
-port or for two in turns.
+"""Per-pass device times of the port's kernels, for one tree of the port
+or for two in turns.
 
     python tpu_reductions_torch/bench/passes.py [--package-root DIR]
         [--out FILE] [--sweep]
@@ -9,17 +9,27 @@ default tiling (--threads 256, --maxblocks 64), then:
 
 1. profiles, with torch.profiler, one k6 call and one k7 chain (its
    passes, the copies between them where the tree has any, and the
-   finish) at int32 SUM, ten times each with a synchronise after every
-   call: each CUDA kernel's name, launches and device time, and the span
-   of one call from its first kernel's start to its last kernel's end
-   (span minus the kernels' time is the device idling between launches);
+   finish) at int32 SUM, one k10 call at depths 1 and 4 (int32 SUM) and
+   one k9 call (float32 SUM), ten times each with a synchronise after
+   every call: each CUDA kernel's name, launches and device time, and
+   the span of one call from its first kernel's start to its last
+   kernel's end (span minus the kernels' time is the device idling
+   between launches);
 2. times with CUDA events k6, one k7 pass and the k7 chain with its
    finish (`reduce_ms`) on int32/float32/float64 SUM and bf16
    SUM/MIN/MAX, each beside one PyTorch reduction of the same staged
    tensor (`library_ms`);
 3. times one k7 pass and the k7 chain with its finish at every k7
    geometry of the two races chip_smoke.py drives (the default grid on
-   float32 SUM 2^24, the hbm grid on int32 SUM 2^26).
+   float32 SUM 2^24, the hbm grid on int32 SUM 2^26);
+4. times k9 on float32/float64/bfloat16 SUM, k8 and k10 at depths 1, 2,
+   4 and 8 on int32 SUM, and dd on float64 SUM (the pair kernel alone),
+   at n = 2^24, and k8 and k10 at the hbm race's tiles and depths on
+   int32 SUM 2^26, each beside `library_ms`.
+
+With --sweep it also times the kernels under geometries their planners
+did not pick (k6/k7 clusters and CTA counts; k10 stage sizes and
+splits; k9 runs per warp); that needs this tree's planners.
 
 It calls only the wrapper API that every tree of the port has, so
 `--package-root` can import `tpu_reductions_torch` from another checkout
@@ -48,6 +58,12 @@ CASES = (("int32", "SUM"), ("float32", "SUM"), ("float64", "SUM"),
 # chip_smoke.py's races: the grid, and the payload it reduces with SUM
 RACES = (("default", "float32", 1 << 24), ("hbm", "int32", 1 << 26))
 PROFILED_CALLS = 10
+# k10's depths on the main path, and the hbm race's (TM, depths) of k10
+# on int32 SUM 2^26 (bench/autotune.py HBM_GRID)
+DEPTHS = (1, 2, 4, 8)
+HBM_N = 1 << 26
+HBM_STREAM = ((512, (2, 4, 8)), (1024, (2, 4, 8)), (256, (4,)))
+MXU_DTYPES = ("float32", "float64", "bfloat16")
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -141,6 +157,21 @@ def profile_k6_k7(kr, registry, host_data, dev) -> dict:
     }
 
 
+def profile_k9_k10(kr, registry, host_data, dev) -> dict:
+    """kernel_profile of one k10 call at depths 1 and 4 (int32 SUM) and
+    one k9 call (float32 SUM), at n = N, default tiling."""
+    op = registry.get_op("SUM")
+    tm, p, t = kr.choose_tiling(N, 256, 64, "int32")
+    x2d = kr.stage_padded(host_data(N, "int32"), tm, p, t, op, dev)
+    y2d = kr.stage_padded(host_data(N, "float32"),
+                          *kr.choose_tiling(N, 256, 64, "float32"), op, dev)
+    return {
+        "k10_depth1": kernel_profile(lambda: kr.stream_call(x2d, op, tm, 1)),
+        "k10_depth4": kernel_profile(lambda: kr.stream_call(x2d, op, tm, 4)),
+        "k9_float32": kernel_profile(lambda: kr.mxu_call(y2d, op)),
+    }
+
+
 def print_profile(profiles: dict) -> None:
     for what, prof in profiles.items():
         print(f"  profile {what}: span {prof['span_us']:.3f} us, kernels "
@@ -151,6 +182,12 @@ def print_profile(profiles: dict) -> None:
                   f"{k['name'][:100]}", flush=True)
         print("    launches in order, us: " + " ".join(
             f"{us:.3f}" for us in prof["launch_us"]), flush=True)
+
+
+def _print_row(row: dict) -> None:
+    print("  " + " ".join(f"{k}={v:.5f}" if isinstance(v, float)
+                          else f"{k}={v}" for k, v in row.items()),
+          flush=True)
 
 
 def time_cases(kr, registry, host_data, dev) -> list:
@@ -171,9 +208,7 @@ def time_cases(kr, registry, host_data, dev) -> list:
                 kr.two_pass_call(x2d, op, tm, p, t), op, 256, 64, 1), op)),
             "library_ms": device_ms(lambda: op.reduce(x2d)),
         }
-        print("  " + " ".join(f"{k}={v:.5f}" if isinstance(v, float)
-                              else f"{k}={v}" for k, v in row.items()),
-              flush=True)
+        _print_row(row)
         rows.append(row)
     return rows
 
@@ -206,6 +241,49 @@ def time_race_k7(kr, registry, host_data, dev) -> list:
                 f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in row.items()), flush=True)
             rows.append(row)
+    return rows
+
+
+def time_k8_k10_k9_dd(kr, registry, host_data, dev) -> list:
+    """CUDA-event times, each beside one PyTorch reduction of the same
+    staged tensor: k9 on MXU_DTYPES SUM, k8 and k10 at DEPTHS on int32
+    SUM and dd (the pair kernel, f64 SUM; its library call sums the
+    native f64 payload) at n = N, default tiling; then k8 and k10 at
+    HBM_STREAM's tiles and depths on int32 SUM n = HBM_N."""
+    from tpu_reductions_torch.ops import dd_reduce as dd
+    op = registry.get_op("SUM")
+    rows = []
+    for dtype in MXU_DTYPES:
+        x2d = kr.stage_padded(host_data(N, dtype),
+                              *kr.choose_tiling(N, 256, 64, dtype), op, dev)
+        rows.append({"kernel": "k9", "dtype": dtype, "n": N,
+                     "ms": device_ms(lambda: kr.mxu_call(x2d, op)),
+                     "library_ms": device_ms(lambda: op.reduce(x2d))})
+        _print_row(rows[-1])
+    x = host_data(N, "float64")
+    hi, lo, (tm, _, _), _ = dd.stage_split_padded(x.numpy(), "SUM", 256)
+    hi2d, lo2d = torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+    f64 = x.to(dev)
+    rows.append({"kernel": "dd", "dtype": "float64", "n": N,
+                 "ms": device_ms(lambda: dd.dd_call(hi2d, lo2d, "SUM", tm)),
+                 "library_ms": device_ms(lambda: torch.sum(f64))})
+    _print_row(rows[-1])
+    cases = [(N, 256, DEPTHS)] + [(HBM_N, tm, depths)
+                                  for tm, depths in HBM_STREAM]
+    staged = {}
+    for n, threads, depths in cases:
+        if n not in staged:
+            staged[n] = host_data(n, "int32")
+        tm, p, t = kr.choose_tiling(n, threads, 64, "int32")
+        x2d = kr.stage_padded(staged[n], tm, p, t, op, dev)
+        row = {"kernel": "k8/k10", "dtype": "int32", "n": n, "tm": tm,
+               "k8_ms": device_ms(lambda: kr.elementwise_call(x2d, op, tm))}
+        for d in depths:
+            row[f"k10_depth{d}_ms"] = device_ms(
+                lambda: kr.stream_call(x2d, op, tm, d))
+        row["library_ms"] = device_ms(lambda: op.reduce(x2d))
+        _print_row(row)
+        rows.append(row)
     return rows
 
 
@@ -268,6 +346,59 @@ def sweep_plans(kr, registry, host_data, dev) -> list:
     return rows_out
 
 
+def sweep_k9_k10(kr, registry, host_data, dev) -> list:
+    """CUDA-event times of k10 and k9 under other geometries than
+    plan_k10 and plan_k9 pick, at n = N: k10 (both passes, int32 SUM, TM
+    256) at depths 1 and 4 with stages of 1, 2 and 4 chunks, and with
+    half and twice the planned splits (other splits add in another
+    order: timed only); k9 (both passes, float32/float64/bfloat16 SUM)
+    with runs of half and twice the planned run. Needs a tree with
+    kernel_reduce.plan_k10 and plan_k9."""
+    from tpu_reductions_torch.ops import _cuda
+    op = registry.get_op("SUM")
+    sms = kr._sm_count(dev)
+    rows_out = []
+
+    def record(what, geometry, ms):
+        rows_out.append({"what": what, **geometry, "ms": ms})
+        print(f"  sweep {what} " + " ".join(f"{k}={v}" for k, v in
+                                            geometry.items())
+              + f" ms={ms:.5f}", flush=True)
+
+    tm, p, t = kr.choose_tiling(N, 256, 64, "int32")
+    x2d = kr.stage_padded(host_data(N, "int32"), tm, p, t, op, dev)
+    tiles = x2d.shape[0] // tm
+    out = torch.empty((tm, 128), dtype=torch.int32, device=dev)
+    for depth in (1, 4):
+        plan = kr.plan_k10(tiles, tm, 8, 4, depth, sms)
+        variants = ([(plan.splits, c) for c in (1, 2, 4)]
+                    + [(plan.splits // 2, plan.chunks),
+                       (plan.splits * 2, plan.chunks)])
+        for splits, chunks in variants:
+            k10 = kr.StreamPlan(splits, depth, chunks)
+            parts = torch.empty((splits * tm, 128), dtype=torch.int32,
+                                device=dev)
+            record("k10", {"depth": depth, "splits": splits,
+                           "chunks": chunks, "planned": k10 == plan},
+                   device_ms(lambda: _cuda.k10_reduce(x2d, parts, out, tm,
+                                                      k10, op.name)))
+    for dtype in MXU_DTYPES:
+        y2d = kr.stage_padded(host_data(N, dtype),
+                              *kr.choose_tiling(N, 256, 64, dtype), op, dev)
+        slabs = y2d.shape[0] // kr.MXU_SLAB_ROWS[y2d.dtype]
+        plan = kr.plan_k9(slabs, sms)
+        out9 = torch.empty((8, 128), dtype=kr.accum_dtype(y2d.dtype),
+                           device=dev)
+        for run in sorted({max(1, plan.run // 2), plan.run, 2 * plan.run}):
+            k9 = kr.MxuPlan(run, -(-slabs // (run * kr.MXU_WARPS)))
+            parts = torch.empty((k9.blocks, 128), dtype=out9.dtype,
+                                device=dev)
+            record("k9", {"dtype": dtype, "run": run, "blocks": k9.blocks,
+                          "planned": k9 == plan},
+                   device_ms(lambda: _cuda.k9_reduce(y2d, parts, out9, k9)))
+    return rows_out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package-root", default=str(Path(__file__)
@@ -294,16 +425,20 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     print(f"{kr.__file__} on {smi} (build {seconds:.1f} s)", flush=True)
-    for part in log.split("== nvcc "):     # reduce.cu's register report
-        if part.startswith("reduce.cu"):
+    for part in log.split("== nvcc "):     # the register reports
+        if part.startswith(("reduce.cu", "accumulate.cu", "mxu.cu")):
             print(part, flush=True)
     profiles = profile_k6_k7(kr, registry, host_data, dev)
+    profiles.update(profile_k9_k10(kr, registry, host_data, dev))
     print_profile(profiles)
     result = {"package": kr.__file__, "card": smi, "profile": profiles,
               "times": time_cases(kr, registry, host_data, dev),
-              "races": time_race_k7(kr, registry, host_data, dev)}
+              "races": time_race_k7(kr, registry, host_data, dev),
+              "k8_k10_k9_dd": time_k8_k10_k9_dd(kr, registry, host_data,
+                                                dev)}
     if args.sweep:
-        result["sweep"] = sweep_plans(kr, registry, host_data, dev)
+        result["sweep"] = (sweep_plans(kr, registry, host_data, dev)
+                           + sweep_k9_k10(kr, registry, host_data, dev))
     text = json.dumps(result)
     if args.out:
         Path(args.out).write_text(text + "\n")

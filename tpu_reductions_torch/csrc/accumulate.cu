@@ -16,29 +16,47 @@
 // r modulo TM, of column c. A (TM, 128) accumulator is up to 2048 x 128
 // slots (1 MiB of f32, 2 MiB of f64): no block's registers or shared memory
 // hold it. So the slots are cut into slot groups of SUB rows x 128 columns
-// (SUB = 8; 16 for bf16), one slot (two for bf16) per thread of a
-// 1024-thread block, and the tiles into `splits` interleaved sets. Block
-// (g, s) folds slot group g over the tiles k = s, s + splits, ... into
-// (splits, TM, 128) partials; a second pass folds the partials over s, in
-// order. The wrapper picks `splits` so that all blocks are in flight at
-// once (two per SM, one wave), from the shape alone: k8 and k10 take the
-// same `splits`, so they add in the same order and give bit-identical
-// accumulators, and k10's depth moves copies, never the order of the adds.
+// (SUB = 8; 16 for bf16), and the tiles into `splits` interleaved sets.
+// Block (g, s) folds slot group g over the tiles k = s, s + splits, ... in
+// increasing k into (splits, TM, 128) partials; a second pass folds the
+// partials over s, in order. The wrapper's planner
+// (ops/kernel_reduce.plan_splits) picks `splits` from the shape and the SM
+// count alone, and k8 and k10 take the same: they add in the same order
+// and give bit-identical accumulators, and k10's depth and stage size move
+// copies, never the order of the adds.
 //
 // Bound: each kernel reads every staged byte once and writes the
 // (splits, TM, 128) partials and the accumulator: bound by device-memory
 // bytes, never by arithmetic. What the designs do about it:
-//   k8   plain coalesced loads into registers: a warp reads 32 neighbouring
+//   k8   plain coalesced loads into registers: a 1024-thread block holds
+//        one slot (two for bf16) per thread, a warp reads 32 neighbouring
 //        elements of one row, and the tile walk is unrolled so that several
 //        loads per thread are in flight. No shared memory.
-//   k10  one thread of the block starts 1-D TMA bulk copies
-//        (cp.async.bulk ... mbarrier::complete_tx::bytes) of the block's
-//        SUB x 128 chunk of each tile into a ring of `depth` shared-memory
-//        stages, one mbarrier per stage; every thread waits on the stage's
-//        barrier, folds its slots from shared memory, and after a block
-//        barrier the stage is refilled with the chunk `depth` tiles ahead.
-//        The depth is a runtime argument, at most what fits in the 227 KB of
-//        shared memory a block can use (the wrapper refuses more).
+//   k10  a warp-specialised ring of TMA bulk copies. A block is one
+//        producer warp and CONSUMERS warps. One lane of the producer warp
+//        alone issues the 1-D bulk copies (cp.async.bulk ...
+//        mbarrier::complete_tx::bytes) of the block's SUB x 128 chunk of
+//        each of its tiles into a ring of `depth` shared-memory stages; a
+//        stage carries `chunks` consecutive chunks of the block's split
+//        (8 KiB, several copies on one expect_tx), so each barrier round
+//        trip moves 8 KiB. Each stage has a full barrier (completed by the
+//        copies' bytes) and an empty barrier (one arrival per consumer
+//        warp after it has read the stage); the producer waits on the
+//        empty barrier before it refills the stage. No block-wide barrier
+//        inside the loop: the parent design's __syncthreads() of all 1024
+//        threads per 4 KiB chunk, with the refill behind the slowest warp,
+//        bounded it at 59% of the memory rate. A consumer thread owns the
+//        VEC slots of one 16-byte vector of the group (two for f64) and
+//        reads shared memory 16 bytes at a time. Blocks are 288 threads, so
+//        their number (groups x splits, about two per SM) is set by the
+//        shape, not by the threads an SM holds; depth 4 keeps 32 KiB in
+//        flight per block. The depth is a runtime argument, at most what
+//        fits in the 227 KB of shared memory a block can use (the wrapper
+//        refuses more). Measured on an H100 (bench/passes.py --sweep):
+//        stages of one 4 KiB chunk lose 1.5 us at depth 4, and folding a
+//        slot group's splits in one thread-block cluster over distributed
+//        shared memory, instead of in the second pass, lost 0.6 us: the
+//        cluster launch costs more than the pass and its launch gap.
 
 #include <cstdint>
 
@@ -48,8 +66,12 @@ namespace {
 
 using namespace tr;
 
-// The most stages k10's ring may have: the size of its static barrier array.
+// The most stages k10's ring may have: the size of its barrier arrays.
 constexpr int MAX_STAGES = 64;
+// k10's consumer warps (they cover one slot group: a team of TEAM
+// threads) and its block: those and one producer warp.
+constexpr int CONSUMERS = TEAM / 32;
+constexpr int STREAM_THREADS = TEAM + 32;
 
 // Block (g, s) folds slot group g of tiles s, s + splits, ... < tiles of
 // `in` into slot group g of (TM, 128) block s of `out`.
@@ -88,6 +110,7 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
                : "memory");
 }
 
+// Wait until the barrier's phase of the given parity has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;
   while (!done) {
@@ -101,14 +124,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// Arm the stage's barrier for `bytes` and start the bulk copy that will
-// complete it.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Arrive on the stage's full barrier and arm it for `bytes` of copies.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// A bulk copy whose bytes complete the barrier's transaction count.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
@@ -117,67 +148,100 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 // k10's pass 1: as fold_period, with the block's chunk of each tile (SUB x
-// 128 elements, contiguous) streamed through a ring of `depth` stages.
+// 128 elements, contiguous) streamed through a ring of `depth` stages of
+// `chunks` chunks each. Chunk i of the block is tile split + i * splits;
+// stage q holds chunks [q * chunks, (q + 1) * chunks) in slot q % depth,
+// and each consumer thread folds them in chunk order, so the order of the
+// adds is k8's whatever the depth and the stage size.
 template <int OP, class T, class O, int SUB>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(STREAM_THREADS)
 stream_period(const T* __restrict__ in, O* __restrict__ out, long long tiles,
-              long long tm, long long splits, int depth) {
+              long long tm, long long splits, int depth, int chunks) {
   using R = decltype(widen(T()));
-  constexpr int SLOTS = SUB * LANES / THREADS;
+  using L = Layout<T, SUB>;
   constexpr int CHUNK = SUB * LANES;
   constexpr uint32_t BYTES = CHUNK * sizeof(T);
   static_assert(BYTES % 16 == 0, "bulk copies move multiples of 16 bytes");
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[MAX_STAGES];
-  T* stages = reinterpret_cast<T*>(smem);
+  __shared__ __align__(8) uint64_t empty[MAX_STAGES];
 
-  const long long group = static_cast<long long>(blockIdx.x) * SUB * LANES;
+  const long long group = static_cast<long long>(blockIdx.x) * CHUNK;
   const long long split = blockIdx.y;
   const long long tile_elems = tm * LANES;
   const long long count = split < tiles ? (tiles - 1 - split) / splits + 1 : 0;
-
-  // Chunk i of this block (tile split + i*splits) into stage `slot`. A
-  // refill is started after the block barrier that follows every read of
-  // the stage, as CUTLASS's TMA pipelines order it, with no proxy fence.
-  auto load_chunk = [&](long long i, int slot) {
-    bulk_load(stages + slot * CHUNK, in + (split + i * splits) * tile_elems + group,
-              BYTES, &full[slot]);
-  };
+  const long long stages = (count + chunks - 1) / chunks;
+  const int warp = threadIdx.x / 32;
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < depth; ++st) mbar_init(&full[st], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < depth && i < count; ++i) load_chunk(i, i);
-  }
-
-  R acc[SLOTS];
-#pragma unroll
-  for (int j = 0; j < SLOTS; ++j) acc[j] = identity<OP, R>();
-  // stage i % depth holds chunk i; its barrier completes once per lap of
-  // the ring, so the parity to wait for flips at every lap
-  int slot = 0;
-  uint32_t parity = 0;
-  for (long long i = 0; i < count; ++i) {
-    mbar_wait(&full[slot], parity);
-    const T* chunk = stages + slot * CHUNK;
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      acc[j] = combine<OP>(acc[j], widen(chunk[threadIdx.x + j * THREADS]));
+    for (int st = 0; st < depth; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], CONSUMERS);
     }
-    __syncthreads();  // every thread has read the stage before its refill
-    if (threadIdx.x == 0 && i + depth < count) load_chunk(i + depth, slot);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the only block barrier: the barriers exist
+
+  if (warp == CONSUMERS) {
+    // The producer: use u of a slot waits for the consumers' release of
+    // use u - 1 (the empty barrier's phase of parity u - 1), then refills.
+    if (threadIdx.x % 32 == 0) {
+      int slot = 0;
+      uint32_t lap = 0;
+      for (long long q = 0; q < stages; ++q) {
+        if (q >= depth) mbar_wait(&empty[slot], lap ^ 1u);
+        const long long first = q * chunks;
+        const int n = static_cast<int>(count - first < chunks ? count - first
+                                                               : chunks);
+        mbar_expect(&full[slot], n * BYTES);
+        unsigned char* dst = smem + static_cast<size_t>(slot) * chunks * BYTES;
+        for (int c = 0; c < n; ++c) {
+          bulk_copy(dst + c * BYTES,
+                    in + (split + (first + c) * splits) * tile_elems + group,
+                    BYTES, &full[slot]);
+        }
+        if (++slot == depth) {
+          slot = 0;
+          lap ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers: thread t of the team owns vectors t + k * TEAM of the
+  // slot group.
+  const int t = threadIdx.x;
+  R acc[L::SLOTS];
+#pragma unroll
+  for (int s = 0; s < L::SLOTS; ++s) acc[s] = identity<OP, R>();
+  int slot = 0;
+  uint32_t lap = 0;
+  for (long long q = 0; q < stages; ++q) {
+    mbar_wait(&full[slot], lap);
+    const long long first = q * chunks;
+    const int n = static_cast<int>(count - first < chunks ? count - first : chunks);
+    const uint4* stage =
+        reinterpret_cast<const uint4*>(smem + static_cast<size_t>(slot) * chunks * BYTES);
+    for (int c = 0; c < n; ++c) {
+      uint4 v[L::LOADS];
+#pragma unroll
+      for (int k = 0; k < L::LOADS; ++k) v[k] = stage[c * L::GROUP + t + k * TEAM];
+#pragma unroll
+      for (int s = 0; s < L::SLOTS; ++s) {
+        acc[s] = combine<OP>(acc[s], lane(v[s / L::VEC], s % L::VEC, T()));
+      }
+    }
+    __syncwarp();  // the warp has read the stage
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[slot]);
     if (++slot == depth) {
       slot = 0;
-      parity ^= 1u;
+      lap ^= 1u;
     }
   }
   O* dst = out + split * tile_elems + group;
 #pragma unroll
-  for (int j = 0; j < SLOTS; ++j) store(dst + threadIdx.x + j * THREADS, acc[j]);
+  for (int s = 0; s < L::SLOTS; ++s) store(dst + L::slot(t, s), acc[s]);
 }
 
 // Pass 2 of both kernels: fold the (splits, TM, 128) partials over splits.
@@ -222,20 +286,21 @@ struct K10 {
   long long tm;
   int splits;
   int depth;
+  int chunks;
   cudaStream_t stream;
 
   template <int OP, class T, class O, int SUB>
   cudaError_t run() const {
-    const size_t smem = static_cast<size_t>(depth) * SUB * LANES * sizeof(T);
-    if (depth < 1 || depth > MAX_STAGES) return cudaErrorInvalidValue;
+    const size_t smem = static_cast<size_t>(depth) * chunks * SUB * LANES * sizeof(T);
+    if (depth < 1 || depth > MAX_STAGES || chunks < 1) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         stream_period<OP, T, O, SUB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const dim3 grid(static_cast<unsigned>(tm / SUB), static_cast<unsigned>(splits));
-    stream_period<OP, T, O, SUB><<<grid, THREADS, smem, stream>>>(
+    stream_period<OP, T, O, SUB><<<grid, STREAM_THREADS, smem, stream>>>(
         static_cast<const T*>(in), static_cast<O*>(splits > 1 ? partials : out),
-        tiles, tm, splits, depth);
+        tiles, tm, splits, depth, chunks);
     err = cudaGetLastError();
     if (err != cudaSuccess || splits == 1) return err;
     return fold_partials<OP, O, SUB>(partials, out, tm, splits, stream);
@@ -255,8 +320,10 @@ extern "C" int tr_k8_reduce(const void* in, void* partials, void* out,
 
 extern "C" int tr_k10_reduce(const void* in, void* partials, void* out,
                              long long tiles, long long tm, int splits,
-                             int depth, int op, int dtype, void* stream) {
-  const K10 launch{in, partials, out, tiles, tm, splits, depth,
+                             int depth, int chunks, int op, int dtype,
+                             void* stream) {
+  const K10 launch{in,    partials, out,    tiles,
+                   tm,    splits,   depth,  chunks,
                    static_cast<cudaStream_t>(stream)};
   return static_cast<int>(tr::by_op(op, dtype, launch));
 }

@@ -57,58 +57,10 @@ namespace {
 
 using namespace tr;
 
-constexpr int TEAM = 256;          // threads that cover one slot group
-constexpr int TEAMS = 2;           // teams of one CTA
+constexpr int TEAMS = 2;           // teams of TEAM threads of one CTA
 constexpr int CTA = TEAM * TEAMS;  // threads of one CTA
 constexpr int UNROLL = 8;          // groups a team walks per step
 constexpr int MAX_CLUSTER = 8;     // the portable cluster-size limit
-
-// What thread t of a team owns in a SUB x 128 slot group of T: the
-// VEC-element 16-byte vectors t + k * TEAM, k < LOADS.
-template <class T, int SUB>
-struct Layout {
-  static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int LOADS = SUB * LANES / (VEC * TEAM);  // 1; 2 for f64
-  static constexpr int SLOTS = LOADS * VEC;
-  static constexpr long long GROUP = SUB * LANES / VEC;  // vectors of a group
-  static_assert(LOADS * VEC * TEAM == SUB * LANES, "a team covers a group");
-  // the slot (row * 128 + column) of a group that slot s of thread t is
-  __device__ static int slot(int t, int s) {
-    return (t + s / VEC * TEAM) * VEC + s % VEC;
-  }
-};
-
-__device__ __forceinline__ unsigned word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// Element j of a 16-byte vector of the tag's type, widened to its register
-// type (bf16: its 16 bits are the high half of its float, exactly).
-__device__ __forceinline__ int lane(const uint4& v, int j, int) {
-  return static_cast<int>(word(v, j));
-}
-__device__ __forceinline__ float lane(const uint4& v, int j, float) {
-  return __uint_as_float(word(v, j));
-}
-__device__ __forceinline__ double lane(const uint4& v, int j, double) {
-  return __hiloint2double(static_cast<int>(word(v, 2 * j + 1)),
-                          static_cast<int>(word(v, 2 * j)));
-}
-__device__ __forceinline__ float lane(const uint4& v, int j, __nv_bfloat16) {
-  const unsigned w = word(v, j / 2);
-  return __uint_as_float(j % 2 ? w & 0xffff0000u : w << 16);
-}
-
-// A 16-byte load of data read once: not kept in L1, and with a hint that
-// L2 fetch the whole 256-byte span around it from device memory.
-__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
-  uint4 v;
-  asm volatile(
-      "ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p));
-  return v;
-}
 
 __device__ __forceinline__ long long lmin(long long a, long long b) {
   return a < b ? a : b;

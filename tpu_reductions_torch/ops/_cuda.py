@@ -56,14 +56,14 @@ _SIGNATURES = {
     "accumulate": {
         # tr_k8_reduce(in, partials, out, tiles, tm, splits, op, dtype, stream)
         "tr_k8_reduce": [_VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT, _VP],
-        # tr_k10_reduce(in, partials, out, tiles, tm, splits, depth, op,
-        #               dtype, stream)
+        # tr_k10_reduce(in, partials, out, tiles, tm, splits, depth, chunks,
+        #               op, dtype, stream)
         "tr_k10_reduce": [_VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT, _INT,
-                          _VP],
+                          _INT, _VP],
     },
     "mxu": {
-        # tr_k9_reduce(in, partials, out, rows, blocks, dtype, stream)
-        "tr_k9_reduce": [_VP, _VP, _VP, _LL, _INT, _INT, _VP],
+        # tr_k9_reduce(in, partials, out, rows, run, blocks, dtype, stream)
+        "tr_k9_reduce": [_VP, _VP, _VP, _LL, _LL, _INT, _INT, _VP],
     },
     "pair": {
         # tr_dd_reduce(hi, lo, part_hi, part_lo, out_hi, out_lo, tiles, tm,
@@ -199,27 +199,31 @@ def k8_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
 
 
 def k10_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
-               tm: int, splits: int, depth: int, op_name: str) -> None:
-    """Launch k10's streamed pass and its fold on x2d's device and current
+               tm: int, plan, op_name: str) -> None:
+    """Launch k10's streamed pass, laid out by `plan` (a
+    kernel_reduce.StreamPlan), and its fold on x2d's device and current
     stream."""
     lib = library("accumulate")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k10_reduce(x2d.data_ptr(), partials.data_ptr(),
                                 out.data_ptr(), x2d.shape[0] // tm, tm,
-                                splits, depth, OP_CODES[op_name],
-                                DTYPE_CODES[x2d.dtype], _stream(x2d))
+                                plan.splits, plan.depth, plan.chunks,
+                                OP_CODES[op_name], DTYPE_CODES[x2d.dtype],
+                                _stream(x2d))
     _check(lib, err, "k10")
 
 
 def k9_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
-              blocks: int) -> None:
-    """Launch k9's tensor-core pass and its fold on x2d's device and
-    current stream."""
+              plan) -> None:
+    """Launch k9's tensor-core pass, laid out by `plan` (a
+    kernel_reduce.MxuPlan), and its fold on x2d's device and current
+    stream."""
     lib = library("mxu")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k9_reduce(x2d.data_ptr(), partials.data_ptr(),
-                               out.data_ptr(), x2d.shape[0], blocks,
-                               DTYPE_CODES[x2d.dtype], _stream(x2d))
+                               out.data_ptr(), x2d.shape[0], plan.run,
+                               plan.blocks, DTYPE_CODES[x2d.dtype],
+                               _stream(x2d))
     _check(lib, err, "k9")
 
 

@@ -50,10 +50,18 @@ from tpu_reductions_torch.ops.registry import (ReduceOpSpec, accum_dtype,
 
 LANES = 128      # row width of the staged layout (the TPU's lane count)
 MXU_ACC_ROWS = 8    # k9's accumulator rows (the JAX kernel's, bf16 too)
-# k10's shared-memory ring: the bytes one Hopper block can use (227 KB), and
-# the most stages its barrier array holds (csrc/accumulate.cu MAX_STAGES)
+# k10's shared-memory ring: the bytes one Hopper block can use (227 KB),
+# the most stages its barrier arrays hold (csrc/accumulate.cu MAX_STAGES)
+# and their bytes (a full and an empty mbarrier per stage), and the bytes
+# one stage carries (whole SUB x 128 chunks of consecutive tiles)
 SMEM_PER_BLOCK = 232448
 STREAM_MAX_STAGES = 64
+STREAM_BARRIER_BYTES = 2 * 8 * STREAM_MAX_STAGES
+STREAM_STAGE_BYTES = 8192
+# the warps of one k9 block (csrc/mxu.cu WARPS), and the rows of one
+# slab, the K of its mma.sync shape, by dtype
+MXU_WARPS = 16
+MXU_SLAB_ROWS = {torch.bfloat16: 16, torch.float32: 8, torch.float64: 4}
 
 DtypeLike = Union[str, torch.dtype]
 
@@ -333,18 +341,81 @@ def _check_period(x2d: torch.Tensor, tm: int) -> None:
                          f"rows with tm={tm}")
 
 
+def plan_splits(tiles: int, tm: int, sub: int, sm_count: int) -> int:
+    """k8's and k10's splits: block (g, s) of the tm/sub slot groups x
+    splits grid folds slot group g of the tiles s, s + splits, ... in
+    increasing order, and a second pass folds the splits in order. As
+    many splits as keep the grid within one wave of k8's 1024-thread
+    blocks (two per SM), at most one per tile. A function of the shape
+    and the SM count alone: k8 and k10 take the same, so they add in the
+    same order."""
+    return max(1, min(tiles, 2 * sm_count // (tm // sub)))
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """k10's launch (csrc/accumulate.cu stream_period): plan_splits'
+    grid and a ring of `depth` stages of `chunks` consecutive chunks of
+    the block's split each."""
+    splits: int
+    depth: int
+    chunks: int
+
+
+def _stream_ring(chunk: int) -> tuple[int, int]:
+    """(chunks a stage, the deepest ring) of k10 for SUB x 128 chunks of
+    `chunk` bytes: whole chunks up to STREAM_STAGE_BYTES a stage, and as
+    many stages as fit beside the barriers in one block's shared
+    memory."""
+    chunks = max(1, STREAM_STAGE_BYTES // chunk)
+    return chunks, min(STREAM_MAX_STAGES,
+                       (SMEM_PER_BLOCK - STREAM_BARRIER_BYTES)
+                       // (chunks * chunk))
+
+
+def plan_k10(tiles: int, tm: int, sub: int, itemsize: int, depth: int,
+             sm_count: int) -> StreamPlan:
+    """k10's geometry: k8's grid (plan_splits), so the order of adds is
+    k8's, and _stream_ring's stages. Raises when the ring does not fit
+    one block's shared memory beside its barriers; never clamps the
+    depth."""
+    chunk = sub * LANES * itemsize
+    chunks, deepest = _stream_ring(chunk)
+    if depth > deepest:
+        raise ValueError(
+            f"kernel 10 cannot run {depth} stages: each stage holds "
+            f"{chunks} chunk(s) of {chunk} B, and at most {deepest} stages "
+            f"fit beside the barriers in the {SMEM_PER_BLOCK} B of shared "
+            f"memory one block can use")
+    return StreamPlan(plan_splits(tiles, tm, sub, sm_count), depth, chunks)
+
+
+@dataclasses.dataclass(frozen=True)
+class MxuPlan:
+    """k9's pass 1 (csrc/mxu.cu mxu_columns): warp w of `blocks` blocks of
+    MXU_WARPS warps folds slabs [w*run, (w+1)*run), cut at the last
+    slab."""
+    run: int
+    blocks: int
+
+
+def plan_k9(slabs: int, sm_count: int) -> MxuPlan:
+    """Equal contiguous runs of slabs over at most one block of MXU_WARPS
+    warps per SM (one wave): the shortest run that the resident warps
+    cover, then as few warps as that run needs, so only the last run may
+    be shorter. A function of the slab count and the SM count alone."""
+    run = max(1, -(-slabs // (sm_count * MXU_WARPS)))
+    return MxuPlan(run, max(1, -(-slabs // (run * MXU_WARPS))))
+
+
 def _period_buffers(x2d: torch.Tensor, op: ReduceOpSpec, tm: int):
-    """(out, partials, splits) of a k8 or k10 launch. The tiles are cut
-    into `splits` interleaved sets, as many as keep the tm/sub slot groups
-    x splits blocks of 1024 threads within one wave (two blocks per SM);
-    it depends on the shape alone, so k8 and k10 add in the same order.
-    With one split, pass 1 writes `out`."""
+    """(out, partials, plan_splits' splits) of a k8 or k10 launch. With
+    one split, pass 1 writes `out`."""
     sub = sublanes_for(x2d.dtype)
     _check_staged(x2d, sub)
     if tm % sub:
         raise ValueError(f"tm={tm} is not a multiple of {sub} rows")
-    tiles = x2d.shape[0] // tm
-    splits = max(1, min(tiles, 2 * _sm_count(x2d.device) // (tm // sub)))
+    splits = plan_splits(x2d.shape[0] // tm, tm, sub, _sm_count(x2d.device))
     acc = _acc_dtype(x2d.dtype, op)
     out = torch.empty((tm, LANES), dtype=acc, device=x2d.device)
     partials = (torch.empty((splits * tm, LANES), dtype=acc,
@@ -379,37 +450,29 @@ elementwise_call.launches = 0
 
 
 def stream_max_depth(dtype: torch.dtype) -> int:
-    """The deepest ring k10 can have for a dtype: stages of one SUB x 128
-    chunk beside the barriers in one block's shared memory."""
-    chunk = sublanes_for(dtype) * LANES * dtype.itemsize
-    return min(STREAM_MAX_STAGES,
-               (SMEM_PER_BLOCK - 8 * STREAM_MAX_STAGES) // chunk)
+    """The deepest ring k10 can have for a dtype (_stream_ring)."""
+    return _stream_ring(sublanes_for(dtype) * LANES * dtype.itemsize)[1]
 
 
 def stream_call(x2d: torch.Tensor, op: ReduceOpSpec, tm: int,
                 stream_buffers: int = STREAM_BUFFERS) -> torch.Tensor:
     """k10: k8's accumulator, with the input brought into shared memory
-    by a `stream_buffers`-deep ring of bulk copies. The depth moves
-    copies, not the order of the adds: every depth gives the same bits.
-    A depth that does not fit in shared memory raises; it is never
-    clamped."""
+    by a `stream_buffers`-deep ring of bulk copies, issued by a producer
+    warp and released stage by stage by the consumer warps (plan_k10).
+    The depth moves copies, not the order of the adds: every depth gives
+    the same bits, k8's. A depth that does not fit in shared memory
+    raises; it is never clamped."""
     _check_period(x2d, tm)
     if stream_buffers <= 0:
         raise ValueError("stream_buffers must be positive")
     if x2d.device.type == "cpu":
         return stream_plain(x2d, op, tm)
-    out, partials, splits = _period_buffers(x2d, op, tm)
-    deepest = stream_max_depth(x2d.dtype)
-    if stream_buffers > deepest:
-        chunk = sublanes_for(x2d.dtype) * LANES * x2d.element_size()
-        raise ValueError(
-            f"kernel 10 cannot run {stream_buffers} stages for {x2d.dtype}: "
-            f"each stage holds a {chunk} B chunk, and at most {deepest} "
-            f"stages fit beside the barriers in the {SMEM_PER_BLOCK} B of "
-            f"shared memory one block can use")
+    out, partials, _ = _period_buffers(x2d, op, tm)
+    plan = plan_k10(x2d.shape[0] // tm, tm, sublanes_for(x2d.dtype),
+                    x2d.element_size(), stream_buffers,
+                    _sm_count(x2d.device))
     _check_aligned(x2d)
-    _cuda.k10_reduce(x2d, partials, out, tm, splits, stream_buffers,
-                     op.name)
+    _cuda.k10_reduce(x2d, partials, out, tm, plan, op.name)
     stream_call.launches += 1
     return out
 
@@ -421,7 +484,10 @@ def mxu_call(x2d: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
     """k9: SUM over float dtypes on the tensor cores, as an (8, 128)
     block: row 0 the column sums, rows 1-7 exactly zero. MIN/MAX have no
     product form and integers no exact one: both raise, and the driver
-    WAIVEs those rows. Its two CUDA passes count as one launch."""
+    WAIVEs those rows. The warps take equal runs of slabs (plan_k9), 16
+    to an SM, so that some have loads in flight while others are in the
+    tensor cores; no float atomics, so a tensor gives the same bits on
+    every call. Its two CUDA passes count as one launch."""
     if op.name != "SUM":
         raise ValueError("kernel 9 (MXU) implements SUM only")
     if not x2d.dtype.is_floating_point:
@@ -431,13 +497,13 @@ def mxu_call(x2d: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
         return mxu_plain(x2d)
     _check_staged(x2d, sublanes_for(x2d.dtype))
     _check_aligned(x2d)
-    slab_rows = {torch.bfloat16: 16, torch.float32: 8, torch.float64: 4}
-    slabs = x2d.shape[0] // slab_rows[x2d.dtype]
-    blocks = max(1, min(2 * _sm_count(x2d.device), -(-slabs // 8)))
+    plan = plan_k9(x2d.shape[0] // MXU_SLAB_ROWS[x2d.dtype],
+                   _sm_count(x2d.device))
     acc = accum_dtype(x2d.dtype)
-    partials = torch.empty((blocks, LANES), dtype=acc, device=x2d.device)
+    partials = torch.empty((plan.blocks, LANES), dtype=acc,
+                           device=x2d.device)
     out = torch.empty((MXU_ACC_ROWS, LANES), dtype=acc, device=x2d.device)
-    _cuda.k9_reduce(x2d, partials, out, blocks)
+    _cuda.k9_reduce(x2d, partials, out, plan)
     mxu_call.launches += 1
     return out
 
