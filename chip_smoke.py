@@ -15,20 +15,24 @@ Run from the repository root on a machine with one NVIDIA GPU:
    ring, and at depth 4 once more, which must all give k8's bits; k9 for
    SUM x float32/float64/bfloat16, and its column sums of uniform [0, 1)
    data against float64 ones (its precision mode); dd, the f64 pair
-   kernel, for
-   SUM/MIN/MAX at the same sizes and --threads, on the benchmark payload
-   and on a full-range SUM (uniform(-1, 1) x 1e300 against math.fsum).
+   kernel, for SUM/MIN/MAX at the same sizes and --threads (and 8 and 200
+   at the ragged size), on the benchmark payload and on a full-range SUM
+   (uniform(-1, 1) x 1e300 against math.fsum), its fused pair finish
+   bit-equal to the torch halving tree over its accumulator, and the
+   same bits twice in a row and on two streams at once.
    Times each kernel, its plain version and one PyTorch reduction of the
    same staged tensor with CUDA events, at int32 SUM n = 2^24 (k9: float32
    SUM; dd: float64 SUM, its library call torch.sum of the native f64
-   tensor). k6, k7 and k9 must give the same bits when called again on
+   tensor, its reduce the fused finish and `tree_ms` the torch tree it
+   replaced). k6, k7 and k9 must give the same bits when called again on
    the same tensor.
    Then profiles one k6 call, one k7 chain and one k10 call at depths 1
-   and 4 at int32 SUM n = 2^24, and one k9 call at float32 SUM, with
+   and 4 at int32 SUM n = 2^24, one k9 call at float32 SUM, and dd and
+   the f64 pair route at float64 SUM, with
    torch.profiler (tpu_reductions_torch/bench/passes.py): each CUDA
    kernel's name, launches and device time, each launch in order (k6's
    two passes, the chain's passes and finish), and the idle time between
-   them; and prints the cluster occupancy and the k6/k7/k10/k9 plans
+   them; and prints the cluster occupancy and the k6/k7/k10/k9/dd plans
    there.
 3. Drives the port's main path, its CLI `main()`, for the benchmark rows
    below, each to a verified PASSED row (or the WAIVED it must give), and
@@ -210,10 +214,11 @@ def check_pair(kr, registry, name, got, want, method, dtype, n, depth):
     return max_err
 
 
-def profile_phase(kr, registry, host_data, dev) -> None:
+def profile_phase(kr, dd, registry, host_data, dev) -> None:
     """Per-pass device times of k6 and the k7 chain at int32 SUM n = 2^24,
-    of k10 at depths 1 and 4 there and of k9 on float32 SUM
-    (bench/passes.py), and the plans behind them."""
+    of k10 at depths 1 and 4 there, of k9 on float32 SUM and of dd and
+    the f64 pair route on float64 SUM (bench/passes.py), and the plans
+    behind them."""
     sms = kr._sm_count(dev)
     for dtype in DTYPES:
         tm, p, t = kr.choose_tiling(N, 256, 64, dtype)
@@ -228,8 +233,11 @@ def profile_phase(kr, registry, host_data, dev) -> None:
               f"{kr.CLUSTER} CTAs; k6 {kr.plan_k6(rows, sub, sms, active)}; "
               f"k7 {kr.plan_k7(rows, sub, p, t * tm, sms, active)}; k10 at "
               f"depth 4 {k10}; k9 {k9}", flush=True)
+    tm, p, t = dd.choose_tiling(N)
+    print(f"  float64 pairs: dd {dd.plan_dd(p * t, tm, sms)}", flush=True)
     passes.print_profile(passes.profile_k6_k7(kr, registry, host_data, dev))
     passes.print_profile(passes.profile_k9_k10(kr, registry, host_data, dev))
+    passes.print_profile(passes.profile_dd(host_data, dev))
 
 
 def wrappers(kr, dd) -> dict:
@@ -424,32 +432,74 @@ def check_dd(name, got, want, hi2d, lo2d, method, tm, scale_exp) -> float:
     return math.ldexp(float(err.max()), scale_exp)
 
 
+# dd's --threads: the default and largest tile at both sizes; the
+# smallest and one whose accumulator pads to a power of two at the ragged
+DD_THREADS = {N: PERIOD_THREADS, N + 37: PERIOD_THREADS + (8, 200)}
+
+
+def check_dd_scalar(dd, name, scalar, acc, method) -> None:
+    """The fused finish's scalar pair against the torch halving tree over
+    the kernel's accumulator, on the card: bit-equal."""
+    tree = dd.device_finish_pairs(*acc, method)
+    if [bits(v).item() for v in scalar] != [bits(v).item() for v in tree]:
+        raise AssertionError(f"{name}: the fused scalar pair "
+                             f"{[v.item() for v in scalar]} is not the "
+                             f"torch tree's {[v.item() for v in tree]}")
+
+
+def check_dd_repeats(dd, name, hi2d, lo2d, method, tm, dev) -> None:
+    """Two calls back to back, and two on two streams at once, give the
+    first call's bits: every launch leaves its stream's tickets at zero,
+    and each stream has its own."""
+    want = [bits(v).item() for v in dd.dd_scalar_call(hi2d, lo2d, method,
+                                                       tm)]
+    got = [dd.dd_scalar_call(hi2d, lo2d, method, tm) for _ in range(2)]
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    for st in streams:
+        with torch.cuda.stream(st):
+            got.append(dd.dd_scalar_call(hi2d, lo2d, method, tm))
+    torch.cuda.synchronize()
+    for pair in got:
+        if [bits(v).item() for v in pair] != want:
+            raise AssertionError(f"{name}: a second call, or one on another "
+                                 f"stream, gave other bits")
+
+
 def dd_vs_plain(dd, registry, oracle, host_data, dev, worst, table):
-    """dd on SUM/MIN/MAX of the float64 payload at both sizes and both
-    tile heights, the finished scalars against the oracle; a full-range
-    SUM against math.fsum; and the timing row of float64 SUM at n = 2^24."""
+    """dd on SUM/MIN/MAX of the float64 payload at both sizes and at TM
+    256 and 2048 (and 8 and 200 at the ragged size): the accumulator
+    against dd_plain, the fused scalar pair bit-equal to the torch tree
+    over the accumulator, the decoded scalar against the oracle, repeat
+    bits back to back and on two streams; a full-range SUM against
+    math.fsum; and the timing row of float64 SUM at n = 2^24."""
     for n in SIZES:
         x = host_data(n, "float64")
         for method in METHODS:
             want_scalar = oracle.host_reduce(x, method)
             tol = registry.tolerance(method, "float64", n)
-            for threads in PERIOD_THREADS:
+            for threads in DD_THREADS[n]:
                 hi, lo, (tm, _, _), s = dd.stage_split_padded(
                     x.numpy(), method, threads)
                 hi2d = torch.from_numpy(hi).to(dev)
                 lo2d = torch.from_numpy(lo).to(dev)
                 got = dd.dd_call(hi2d, lo2d, method, tm)
+                scalar = dd.dd_scalar_call(hi2d, lo2d, method, tm)
                 want = dd.dd_plain(hi2d, lo2d, method, tm)
                 torch.cuda.synchronize()
                 name = f"dd {method} n={n} tm={tm}"
                 worst["dd"] = max(worst["dd"], check_dd(
                     name, got, want, hi2d, lo2d, method, tm, s))
-                value = dd.decode_pair_scalar(
-                    *dd.device_finish_pairs(*got, method), method, s)
+                check_dd_scalar(dd, name, scalar, got, method)
+                value = dd.decode_pair_scalar(*scalar, method, s)
                 if abs(float(value) - float(want_scalar)) > tol:
                     raise AssertionError(f"{name}: {value!r} != oracle "
                                          f"{want_scalar!r} (tol {tol})")
-                if n != N or threads != 256 or method != "SUM":
+                if n != N or threads != 256:
+                    continue
+                check_dd_repeats(dd, name, hi2d, lo2d, method, tm, dev)
+                if method != "SUM":
                     continue
                 x2d = torch.from_numpy(
                     np.pad(x.numpy(), (0, hi.size - n))).view(hi.shape).to(dev)
@@ -461,14 +511,19 @@ def dd_vs_plain(dd, registry, oracle, host_data, dev, worst, table):
                        "plain_ms": device_ms(lambda: dd.dd_plain(
                            hi2d, lo2d, method, tm), calls=1, trials=3),
                        "library_ms": device_ms(lambda: torch.sum(x2d)),
-                       "reduce_ms": device_ms(lambda: dd.device_finish_pairs(
-                           *dd.dd_call(hi2d, lo2d, method, tm), method)),
+                       # the route's reduce: the kernel with the fused
+                       # finish, and the torch tree it replaced
+                       "reduce_ms": device_ms(lambda: dd.dd_scalar_call(
+                           hi2d, lo2d, method, tm)),
+                       "tree_ms": device_ms(lambda: dd.device_finish_pairs(
+                           *got, method)),
                        **bound_of(nbytes_of(hi2d, lo2d, *got),
                                   DD_ADD_OPS * hi2d.numel())}
                 print(f"  dd SUM float64 n={n} ms={row['ms']:.5f} "
                       f"plain_ms={row['plain_ms']:.5f} "
                       f"library_ms={row['library_ms']:.5f} "
                       f"reduce_ms={row['reduce_ms']:.5f} "
+                      f"tree_ms={row['tree_ms']:.5f} "
                       f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})",
                       flush=True)
                 table.append(row)
@@ -479,8 +534,9 @@ def dd_vs_plain(dd, registry, oracle, host_data, dev, worst, table):
     got = dd.dd_call(hi2d, lo2d, "SUM", tm)
     check_dd("dd full-range SUM", got, dd.dd_plain(hi2d, lo2d, "SUM", tm),
              hi2d, lo2d, "SUM", tm, s)
-    value = float(dd.decode_pair_scalar(
-        *dd.device_finish_pairs(*got, "SUM"), "SUM", s))
+    scalar = dd.dd_scalar_call(hi2d, lo2d, "SUM", tm)
+    check_dd_scalar(dd, "dd full-range SUM", scalar, got, "SUM")
+    value = float(dd.decode_pair_scalar(*scalar, "SUM", s))
     exact = math.fsum(x.tolist())
     tol = FULL_RANGE_RTOL * max(abs(exact), float(np.abs(x).max()))
     print(f"  dd full-range SUM n={N}: {value!r} vs fsum {exact!r}, "
@@ -637,7 +693,7 @@ def main() -> int:
           flush=True)
     print("[profile: k6 and the k7 chain]", flush=True)
     t0 = time.perf_counter()
-    profile_phase(kr, registry, host_data, dev)
+    profile_phase(kr, dd_reduce, registry, host_data, dev)
     print(f"[profile: k6 and the k7 chain] {time.perf_counter() - t0:.1f} s",
           flush=True)
     # the main path's shape: int32 SUM, n = 2^24 (k9: float32 SUM; dd:
@@ -684,6 +740,8 @@ def main() -> int:
                 "bound_by": main_shape[name]["bound_by"],
                 "library_ms": main_shape[name]["library_ms"]}
                for name in KERNELS]
+    for extra in ("reduce_ms", "tree_ms"):    # dd's fused finish
+        kernels[KERNELS.index("dd")][extra] = main_shape["dd"][extra]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

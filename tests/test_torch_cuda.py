@@ -12,7 +12,8 @@ int32 and MIN/MAX must be bit-equal; float SUM adds in another order and
 is held to rtol 1e-6 (float32), 1e-12 (float64), 1e-2 (bfloat16 data,
 float32 accumulator). k10 must give the same bits at every depth, and the
 same bits as k8. dd is held to the rule in csrc/pair.cu: MIN/MAX
-bit-equal, SUM per slot within 2 (d - 1) 4u^2 sum|x| of dd_plain.
+bit-equal, SUM per slot within 2 (d - 1) 4u^2 sum|x| of dd_plain; its
+fused pair finish bit-equal to the torch tree over its own accumulator.
 """
 
 import numpy as np
@@ -423,7 +424,8 @@ def test_dd_matches_plain(cuda_device, method, n, threads):
 def test_dd_full_range_on_card(cuda_device, method):
     """uniform(-1, 1) x 1e300: SUM within 1e-12 max(|exact|, max|x|) of
     math.fsum (tests/test_dd_reduce.py's rule), MIN/MAX exact, through the
-    device finish; the accumulator holds to the plain version's rule."""
+    route's core, one launch with the pair finish fused; the accumulator
+    holds to the plain version's rule."""
     import math
 
     from tpu_reductions_torch.ops import dd_reduce as dd
@@ -432,7 +434,9 @@ def test_dd_full_range_on_card(cuda_device, method):
     stage_fn, core, finish = dd.make_dd_device_reduce(method, n,
                                                       device=cuda_device)
     hi2d, lo2d, s = stage_fn(x)
+    before = dd.dd_call.launches
     got = float(finish(*core(hi2d, lo2d), scale_exp=s))
+    assert dd.dd_call.launches == before + 1   # the fused finish
     if method == "SUM":
         exact = math.fsum(x.tolist())
         assert abs(got - exact) <= 1e-12 * max(abs(exact),
@@ -454,6 +458,104 @@ def test_dd_refuses_what_it_cannot_take(cuda_device):
         dd.dd_call(f[:56], f[:56], "SUM", 16)
     with pytest.raises(ValueError, match="planes differ"):
         dd.dd_call(f, f[:56], "SUM", 8)
+    off = f.view(-1)[1:1 + 56 * 128].view(56, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        dd.dd_scalar_call(off, off, "SUM", 8)
+
+
+def _dd_planes(dev, method, n, threads, seed=0):
+    from tpu_reductions_torch.ops import dd_reduce as dd
+    x = f64_payload(n, method, seed=seed)
+    hi, lo, (tm, _, _), _ = dd.stage_split_padded(x, method, threads, 64)
+    return (torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)), tm
+
+
+def _pair_bits(pair) -> list:
+    return [bits(p.reshape(-1)).cpu().tolist() for p in pair]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, threads", [
+    (300_001, 8), ((1 << 20) + 37, 256), (1 << 22, 2048),
+    ((1 << 20) + 37, 200)])
+@pytest.mark.parametrize("method", METHODS)
+def test_dd_scalar_is_the_tree_of_its_accumulator(cuda_device, method, n,
+                                                   threads):
+    """The fused finish: one launch writes the accumulator and the scalar
+    pair, and the pair is device_finish_pairs (the torch tree, on the
+    card) of that same accumulator bit for bit, at TM 8, 256, 2048 and
+    200 (padded to a power of two), ragged n; the accumulator is
+    dd_call's and holds to the plain version's rule."""
+    from tpu_reductions_torch.ops import dd_reduce as dd
+    planes, tm = _dd_planes(cuda_device, method, n, threads, seed=n)
+    size = tm * 128
+    before = dd.dd_call.launches
+    out = dd._launch(*planes, method, tm, scalar=True)
+    scalar = dd.dd_scalar_call(*planes, method, tm)
+    acc = dd.dd_call(*planes, method, tm)
+    assert dd.dd_call.launches == before + 3
+    fused_acc = (out[:size].view(tm, 128), out[size:2 * size].view(tm, 128))
+    assert _pair_bits(fused_acc) == _pair_bits(acc)
+    tree = dd.device_finish_pairs(*fused_acc, method)
+    assert _pair_bits(scalar) == _pair_bits(tree)
+    assert _pair_bits((out[2 * size], out[2 * size + 1])) == _pair_bits(tree)
+    assert scalar[0].shape == () and scalar[0].device == planes[0].device
+    assert_pair_match(acc, dd.dd_plain(planes[0].cpu(), planes[1].cpu(),
+                                       method, tm), planes, method, tm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", METHODS)
+def test_dd_scalar_same_bits_back_to_back_and_on_two_streams(cuda_device,
+                                                             method):
+    """The ticket of the last CTA is the call's own: 16 calls queued back
+    to back on one stream, and 8 on each of two streams at once, give the
+    first call's bits."""
+    from tpu_reductions_torch.ops import dd_reduce as dd
+    planes, tm = _dd_planes(cuda_device, method, (1 << 21) + 5, 256, seed=3)
+    want = _pair_bits(dd.dd_scalar_call(*planes, method, tm))
+    queued = [dd.dd_scalar_call(*planes, method, tm) for _ in range(16)]
+    streams = (torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device))
+    on_streams = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    for _ in range(8):
+        for s in streams:
+            with torch.cuda.stream(s):
+                on_streams.append(dd.dd_scalar_call(*planes, method, tm))
+    torch.cuda.synchronize()
+    for got in queued + on_streams:
+        assert _pair_bits(got) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads", [8, 200, 256, 2048])
+@pytest.mark.parametrize("method", METHODS)
+def test_dd_scalar_same_bits_at_every_geometry(cuda_device, method,
+                                               threads):
+    """Every number of pass-2 threads gives the planned launch's scalar
+    bits (the tree's order does not depend on it), and every number of
+    splits does for MIN/MAX."""
+    from tpu_reductions_torch.ops import _cuda
+    from tpu_reductions_torch.ops import dd_reduce as dd
+    planes, tm = _dd_planes(cuda_device, method, (1 << 20) + 37, threads)
+    tiles = planes[0].shape[0] // tm
+    planned = dd.plan_dd(tiles, tm, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    want = _pair_bits(dd.dd_scalar_call(*planes, method, tm))
+    size = tm * 128
+    padded = dd._pow2_ceil(size)
+    plans = [dd.DdPlan(planned.splits, r) for r in (256, 1024, 2048, 8192)
+             if padded // dd.DD_MAX_LEAVES <= r <= padded]
+    if method != "SUM":
+        plans += [dd.DdPlan(s, planned.residues)
+                  for s in (1, 3, min(tiles, dd.DD_MAX_SPLITS))]
+    for plan in plans:
+        out = torch.empty(dd._out_words(tm, plan), dtype=planes[0].dtype,
+                          device=cuda_device)
+        _cuda.dd_reduce(*planes, out, dd._tickets(cuda_device), tm, plan,
+                        method, True)
+        assert _pair_bits((out[2 * size], out[2 * size + 1])) == want, plan
 
 
 @pytest.mark.gpu

@@ -136,6 +136,142 @@ def test_dd_call_bit_identical_to_pallas(method, n, threads, max_blocks):
 
 
 @pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("n, threads, max_blocks", [
+    (65541, 16, 8), (300_000, 16, 8), (20_001, 8, 64), (70_001, 24, 8)])
+def test_dd_scalar_call_bit_identical_to_jax_core(method, n, threads,
+                                                 max_blocks):
+    """dd_scalar_call's plain version (device_finish_pairs of dd_plain)
+    gives the scalar pair of the JAX package's jitted core (the Pallas
+    kernel in interpret mode and its halving tree), bit for bit, at TM 16
+    and 8 and at TM 24, whose 3072 pairs pad to 4096."""
+    x = payload(n, method, seed=n + 2)
+    j_stage, j_core, _ = jdd.make_dd_device_reduce(
+        method, n, threads=threads, max_blocks=max_blocks, interpret=True)
+    ref = j_core(*j_stage(x)[:2])
+    hi, lo, (tm, _, _), _ = dd.stage_split_padded(x, method, threads,
+                                                  max_blocks)
+    before = dd.dd_call.launches
+    got = dd.dd_scalar_call(torch.from_numpy(hi), torch.from_numpy(lo),
+                            method, tm)
+    assert dd.dd_call.launches == before       # the plain version
+    for g, r in zip(got, ref):
+        assert g.shape == ()
+        assert bits(g).tolist() == bits(r).tolist()
+
+
+def np_combine(method: str):
+    """dd_add or dd_select on numpy arrays: float32 additions, each
+    rounded to nearest, or int32 selections."""
+    if method == "SUM":
+        def add(h1, l1, h2, l2):
+            s = h1 + h2
+            bb = s - h1
+            e = ((h1 - (s - bb)) + (h2 - bb)) + (l1 + l2)
+            h = s + e
+            return h, e - (h - s)
+        return add
+    minimum = method == "MIN"
+
+    def select(h1, l1, h2, l2):
+        take2 = (((h2 < h1) | ((h2 == h1) & (l2 < l1))) if minimum
+                 else ((h2 > h1) | ((h2 == h1) & (l2 > l1))))
+        return np.where(take2, h2, h1), np.where(take2, l2, l1)
+    return select
+
+
+def fold_rows(h, l, combine):
+    """A halving tree over the first axis: row i takes row i + half."""
+    while h.shape[0] > 1:
+        half = h.shape[0] // 2
+        h, l = combine(h[:half], l[:half], h[half:], l[half:])
+    return h[0], l[0]
+
+
+def kernel_tree_walk(acc_hi, acc_lo, method, residues):
+    """csrc/pair.cu's pair finish walked on the host: the accumulator
+    flattened and padded to a power of two with the pad pair; pass-2
+    thread r of `residues` folds its leaves r + j residues in registers;
+    thread t of the last CTA folds the tree's pairs t + i DD_TEAM in
+    registers; shared memory folds t with t + half down to one warp; the
+    warp folds by shuffles, lane t taking lane t + half's pair."""
+    combine = np_combine(method)
+    pads = dd.pad_pair(method)
+    size = acc_hi.size
+    padded = 1 << (size - 1).bit_length()
+    h = np.full(padded, pads[0], dtype=acc_hi.dtype)
+    l = np.full(padded, pads[1], dtype=acc_lo.dtype)
+    h[:size], l[:size] = acc_hi.ravel(), acc_lo.ravel()
+    # pass 2: slot r + j residues is row j, column r
+    h, l = fold_rows(h.reshape(-1, residues), l.reshape(-1, residues),
+                     combine)
+    # the last CTA's registers: pair t + i DD_TEAM is row i, column t
+    h, l = fold_rows(h.reshape(-1, dd.DD_TEAM), l.reshape(-1, dd.DD_TEAM),
+                     combine)
+    half = dd.DD_TEAM // 2
+    while half >= 32:                       # shared memory
+        h, l = combine(h[:half], l[:half], h[half:2 * half],
+                       l[half:2 * half])
+        half //= 2
+    h, l = h.copy(), l.copy()
+    for half in (16, 8, 4, 2, 1):           # __shfl_down_sync
+        down = np.arange(32) + half
+        down[down >= 32] = np.arange(32)[down >= 32]
+        nh, nl = combine(h, l, h[down], l[down])
+        take = np.arange(32) < half
+        h, l = np.where(take, nh, h), np.where(take, nl, l)
+    return h[0], l[0]
+
+
+def pair_accumulator(method, tm, seed):
+    """A (TM, 128) pair accumulator whose tree sums depend on their
+    order: SUM pairs over 40 binades, hi + lo normalised; MIN/MAX keys
+    with hi ties that lo must break."""
+    rng = np.random.default_rng(seed)
+    if method == "SUM":
+        x = rng.standard_normal((tm, 128)) * 2.0 ** rng.integers(
+            -20, 20, (tm, 128))
+        hi, lo = dd.host_split(x)
+        return hi, lo
+    hi = rng.integers(-4, 4, (tm, 128)).astype(np.int32)
+    lo = rng.integers(-2**31, 2**31, (tm, 128)).astype(np.int32)
+    return hi, lo
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("tm, residues", [
+    (8, 256), (8, 1024), (24, 256), (24, 1024), (200, 1024), (200, 8192),
+    (256, 2048), (256, 4096), (256, 8192), (2048, 8192)])
+def test_kernel_tree_schedule_is_the_halving_tree(method, tm, residues):
+    """The kernel's schedule (residue classes in pass 2, in-register,
+    shared-memory and shuffle levels in the last CTA, the padding) gives
+    the pair of device_finish_pairs (halving_tree) bit for bit, at TMs of
+    2^10 to 2^18 pairs, padded or not, and several numbers of pass-2
+    threads, plan_dd's among them."""
+    hi, lo = pair_accumulator(method, tm, seed=tm + residues)
+    got = kernel_tree_walk(hi, lo, method, residues)
+    want = dd.device_finish_pairs(torch.from_numpy(hi), torch.from_numpy(lo),
+                                  method)
+    assert [bits(np.asarray(g)).tolist() for g in got] == \
+        [bits(w).tolist() for w in want]
+
+
+def test_tree_walk_tells_orders_apart():
+    """The SUM accumulators above are order-sensitive, so the walk's
+    equality is not vacuous: handing each pass-2 thread a contiguous
+    block of slots instead of a residue class gives other bits."""
+    combine = np_combine("SUM")
+    differ = []
+    for seed in range(5):
+        hi, lo = pair_accumulator("SUM", 256, seed)
+        want = fold_rows(hi.ravel(), lo.ravel(), combine)
+        blocks = [p.reshape(4096, -1).T.copy() for p in (hi, lo)]
+        got = fold_rows(*fold_rows(*blocks, combine), combine)
+        differ.append(bits(np.asarray(got)).tolist()
+                      != bits(np.asarray(want)).tolist())
+    assert any(differ)
+
+
+@pytest.mark.parametrize("method", METHODS)
 def test_entry_points_match_jax(method):
     """make_dd_device_reduce, make_dd_staged_reduce and the one-shot
     dd_reduce_f64 give the JAX values on the same payload."""

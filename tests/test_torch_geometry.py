@@ -1,6 +1,7 @@
 """The geometry of the port's k6 and k7 pass (csrc/reduce.cu fold_span),
 planned on the host by tpu_reductions_torch/ops/kernel_reduce.plan_k6 and
-plan_k7, and k7's plain version on partials that are not padded.
+plan_k7, and k7's plain version on partials that are not padded; k10's,
+k9's and dd's plans (plan_k10, plan_k9, dd_reduce.plan_dd) likewise.
 
 The planners are pure functions of the shape, the SM count and the
 device's cluster occupancy, so they are tested here for every shape
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from tpu_reductions_torch.bench.passes import bits
+from tpu_reductions_torch.ops import dd_reduce as dd
 from tpu_reductions_torch.ops import kernel_reduce as kr
 from tpu_reductions_torch.ops.registry import get_op
 
@@ -306,3 +308,68 @@ def test_k7_refuses_more_rows_than_its_tiling():
     for call in (kr.two_pass_call, kr.two_pass_plain):
         with pytest.raises(ValueError, match="rows for tiling"):
             call(x2d, get_op("SUM"), 8, 4, 1)
+
+
+# --- dd (csrc/pair.cu), planned by dd_reduce.plan_dd ------------------------
+
+# chip_smoke.py's two payload sizes; every TM --threads can give
+DD_SIZES = (1 << 24, (1 << 24) + 37)
+DD_TMS = range(8, 2049, 8)
+
+
+def dd_tile_walk(plan: dd.DdPlan, tiles: int) -> list:
+    """The tiles each split folds, as fold_tiles walks them: s, s +
+    splits, ... < tiles."""
+    return [list(range(s, tiles, plan.splits)) for s in range(plan.splits)]
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132])
+@pytest.mark.parametrize("n", DD_SIZES)
+def test_dd_plan_sound_for_every_tm(n, sms):
+    """For every TM of the two chip sizes: every tile folded by one
+    split, in increasing order, no split empty; pass 1 at most
+    DD_CTAS_PER_SM CTAs an SM (or one split) and at most DD_MAX_SPLITS
+    partials for the last CTA of a group to fold; pass 2 a power of two
+    of whole CTAs whose J leaves a thread cover the padded accumulator,
+    within the kernel's register arrays; the last CTA's share too; a
+    function of the shape and the SM count alone."""
+    for threads in DD_TMS:
+        tm, p, t = kr.choose_tiling(n, threads, 64)
+        tiles = p * t
+        plan = dd.plan_dd(tiles, tm, sms)
+        assert plan == dd.plan_dd(tiles, tm, sms)
+        walk = dd_tile_walk(plan, tiles)
+        assert sorted(k for split in walk for k in split) == \
+            list(range(tiles))
+        assert all(split and split == sorted(split) for split in walk)
+        assert 1 <= plan.splits <= min(tiles, dd.DD_MAX_SPLITS)
+        assert (tm // 8 * plan.splits <= dd.DD_CTAS_PER_SM * sms
+                or plan.splits == 1)
+        padded = 1 << (tm * 128 - 1).bit_length()
+        r = plan.residues
+        assert r & (r - 1) == 0 and r % dd.DD_TEAM == 0
+        assert padded % r == 0 and padded // r <= dd.DD_MAX_LEAVES
+        assert r // dd.DD_TEAM <= dd.DD_MAX_TAIL
+
+
+def test_dd_plan_at_the_main_path_shape():
+    """float64 n = 2^24 at TM 256: 512 tiles, 32 slot groups x 8 splits
+    (256 CTAs, two an SM); 8192 pass-2 threads of 4 leaves each over the
+    32768 pairs, 32 CTAs, whose 8192 pairs the last CTA folds 32 a
+    thread."""
+    assert dd.plan_dd(512, 256, SMS) == dd.DdPlan(splits=8, residues=8192)
+
+
+def test_dd_out_words_holds_every_piece():
+    """The launch's buffer: the accumulator's two planes, the scalar pair
+    and its padding, the partials (with splits) and the tree; the
+    partials start on a 16-byte boundary. The tickets hold one per slot
+    group of the largest TM, and pass 2's."""
+    for tm in (8, 200, 256, 2048):
+        for plan in (dd.DdPlan(1, 256), dd.DdPlan(4, 4096)):
+            size = tm * 128
+            parts = 2 * plan.splits * size if plan.splits > 1 else 0
+            assert dd._out_words(tm, plan) == \
+                2 * size + 4 + parts + 2 * plan.residues
+            assert (2 * size + 4) * 4 % 16 == 0
+        assert tm // 8 + 1 <= dd.DD_TICKETS

@@ -9,12 +9,16 @@ default tiling (--threads 256, --maxblocks 64), then:
 
 1. profiles, with torch.profiler, one k6 call and one k7 chain (its
    passes, the copies between them where the tree has any, and the
-   finish) at int32 SUM, one k10 call at depths 1 and 4 (int32 SUM) and
-   one k9 call (float32 SUM), ten times each with a synchronise after
-   every call: each CUDA kernel's name, launches and device time, and
-   the span of one call from its first kernel's start to its last
+   finish) at int32 SUM, one k10 call at depths 1 and 4 (int32 SUM), one
+   k9 call (float32 SUM), and on float64 SUM through the pair route one
+   `dd_call` (the accumulator: pass 1 and the fold of its splits) and
+   one reduce of the route, `make_dd_device_reduce`'s core (the
+   accumulator and the pair finish), ten times each with a synchronise
+   after every call: each CUDA kernel's name, launches and device time,
+   and the span of one call from its first kernel's start to its last
    kernel's end (span minus the kernels' time is the device idling
-   between launches);
+   between launches); beside each, `host_ms`, the host clock per call
+   over back-to-back calls ended by one synchronise;
 2. times with CUDA events k6, one k7 pass and the k7 chain with its
    finish (`reduce_ms`) on int32/float32/float64 SUM and bf16
    SUM/MIN/MAX, each beside one PyTorch reduction of the same staged
@@ -23,13 +27,15 @@ default tiling (--threads 256, --maxblocks 64), then:
    geometry of the two races chip_smoke.py drives (the default grid on
    float32 SUM 2^24, the hbm grid on int32 SUM 2^26);
 4. times k9 on float32/float64/bfloat16 SUM, k8 and k10 at depths 1, 2,
-   4 and 8 on int32 SUM, and dd on float64 SUM (the pair kernel alone),
-   at n = 2^24, and k8 and k10 at the hbm race's tiles and depths on
-   int32 SUM 2^26, each beside `library_ms`.
+   4 and 8 on int32 SUM, and dd on float64 SUM (`ms` the accumulator,
+   `reduce_ms` the route's core, `tree_ms` the torch halving tree over
+   the same accumulator), at n = 2^24, and k8 and k10 at the hbm race's
+   tiles and depths on int32 SUM 2^26, each beside `library_ms`.
 
 With --sweep it also times the kernels under geometries their planners
 did not pick (k6/k7 clusters and CTA counts; k10 stage sizes and
-splits; k9 runs per warp); that needs this tree's planners.
+splits; k9 runs per warp; dd's splits and pass-2 threads); that needs
+this tree's planners.
 
 It calls only the wrapper API that every tree of the port has, so
 `--package-root` can import `tpu_reductions_torch` from another checkout
@@ -157,6 +163,41 @@ def profile_k6_k7(kr, registry, host_data, dev) -> dict:
     }
 
 
+def host_ms(fn, calls: int = 50) -> float:
+    """Host clock per fn() call, in ms, over `calls` back-to-back calls
+    ended by one synchronise: the time a host-bound route takes."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def _dd_staged(host_data, dev):
+    """(dd_reduce, hi2d, lo2d, tm, core) of float64 SUM at n = N, default
+    tiling, through the pair route's own entry point."""
+    from tpu_reductions_torch.ops import dd_reduce as dd
+    x = host_data(N, "float64")
+    stage, core, _ = dd.make_dd_device_reduce("SUM", N, device=dev)
+    hi2d, lo2d, _ = stage(x)
+    tm = dd.choose_tiling(N)[0]
+    return dd, hi2d, lo2d, tm, core
+
+
+def profile_dd(host_data, dev) -> dict:
+    """kernel_profile and host_ms of one dd_call (the accumulator) and of
+    one reduce of the f64 pair route (its core: the accumulator and the
+    pair finish) at float64 SUM n = N."""
+    dd, hi2d, lo2d, tm, core = _dd_staged(host_data, dev)
+    out = {}
+    for what, fn in (("dd_call", lambda: dd.dd_call(hi2d, lo2d, "SUM", tm)),
+                     ("dd_route", lambda: core(hi2d, lo2d))):
+        out[what] = {**kernel_profile(fn), "host_ms": host_ms(fn)}
+    return out
+
+
 def profile_k9_k10(kr, registry, host_data, dev) -> dict:
     """kernel_profile of one k10 call at depths 1 and 4 (int32 SUM) and
     one k9 call (float32 SUM), at n = N, default tiling."""
@@ -174,9 +215,12 @@ def profile_k9_k10(kr, registry, host_data, dev) -> dict:
 
 def print_profile(profiles: dict) -> None:
     for what, prof in profiles.items():
+        host = (f", host {prof['host_ms']:.5f} ms a call" if "host_ms" in prof
+                else "")
         print(f"  profile {what}: span {prof['span_us']:.3f} us, kernels "
               f"{prof['busy_us']:.3f} us, idle between launches "
-              f"{prof['span_us'] - prof['busy_us']:.3f} us", flush=True)
+              f"{prof['span_us'] - prof['busy_us']:.3f} us, "
+              f"{len(prof['launch_us'])} launches{host}", flush=True)
         for k in prof["kernels"]:
             print(f"    {k['launches']:g} x {k['us']:9.3f} us  "
                   f"{k['name'][:100]}", flush=True)
@@ -247,10 +291,10 @@ def time_race_k7(kr, registry, host_data, dev) -> list:
 def time_k8_k10_k9_dd(kr, registry, host_data, dev) -> list:
     """CUDA-event times, each beside one PyTorch reduction of the same
     staged tensor: k9 on MXU_DTYPES SUM, k8 and k10 at DEPTHS on int32
-    SUM and dd (the pair kernel, f64 SUM; its library call sums the
-    native f64 payload) at n = N, default tiling; then k8 and k10 at
-    HBM_STREAM's tiles and depths on int32 SUM n = HBM_N."""
-    from tpu_reductions_torch.ops import dd_reduce as dd
+    SUM and dd (f64 SUM: the accumulator, the route's reduce and the
+    torch tree over the accumulator; its library call sums the native f64
+    payload) at n = N, default tiling; then k8 and k10 at HBM_STREAM's
+    tiles and depths on int32 SUM n = HBM_N."""
     op = registry.get_op("SUM")
     rows = []
     for dtype in MXU_DTYPES:
@@ -260,12 +304,14 @@ def time_k8_k10_k9_dd(kr, registry, host_data, dev) -> list:
                      "ms": device_ms(lambda: kr.mxu_call(x2d, op)),
                      "library_ms": device_ms(lambda: op.reduce(x2d))})
         _print_row(rows[-1])
-    x = host_data(N, "float64")
-    hi, lo, (tm, _, _), _ = dd.stage_split_padded(x.numpy(), "SUM", 256)
-    hi2d, lo2d = torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
-    f64 = x.to(dev)
+    dd, hi2d, lo2d, tm, core = _dd_staged(host_data, dev)
+    acc = dd.dd_call(hi2d, lo2d, "SUM", tm)
+    f64 = host_data(N, "float64").to(dev)
     rows.append({"kernel": "dd", "dtype": "float64", "n": N,
                  "ms": device_ms(lambda: dd.dd_call(hi2d, lo2d, "SUM", tm)),
+                 "reduce_ms": device_ms(lambda: core(hi2d, lo2d)),
+                 "tree_ms": device_ms(lambda: dd.device_finish_pairs(
+                     *acc, "SUM")),
                  "library_ms": device_ms(lambda: torch.sum(f64))})
     _print_row(rows[-1])
     cases = [(N, 256, DEPTHS)] + [(HBM_N, tm, depths)
@@ -399,6 +445,38 @@ def sweep_k9_k10(kr, registry, host_data, dev) -> list:
     return rows_out
 
 
+def sweep_dd(host_data, dev) -> list:
+    """CUDA-event times of dd on float64 SUM at n = N, default tiling,
+    under other geometries than plan_dd picks: the accumulator alone and
+    with the scalar pair, at 1 to 8 splits (other splits add in another
+    order: timed only) and 2048 to 8192 pass-2 threads, each with its
+    launches' device times (kernel_profile). Needs a tree with
+    dd_reduce.plan_dd."""
+    from tpu_reductions_torch.ops import _cuda
+    dd, hi2d, lo2d, tm, _ = _dd_staged(host_data, dev)
+    planned = dd.plan_dd(hi2d.shape[0] // tm, tm, dd._sm_count(dev))
+    rows_out = []
+    for splits in sorted({1, 2, 4, 8, planned.splits}):
+        for residues in (2048, 4096, 8192):
+            plan = dd.DdPlan(splits, residues)
+            out = torch.empty(dd._out_words(tm, plan), dtype=hi2d.dtype,
+                              device=dev)
+            row = {"what": "dd", "splits": splits, "residues": residues,
+                   "planned": plan == planned}
+            for form, scalar in (("scalar", True), ("acc", False)):
+                def call():
+                    _cuda.dd_reduce(hi2d, lo2d, out, dd._tickets(dev), tm,
+                                    plan, "SUM", scalar)
+                row[f"{form}_ms"] = device_ms(call)
+                row[f"{form}_launch_us"] = [
+                    round(us, 3) for us in kernel_profile(call)["launch_us"]]
+            print("  sweep " + " ".join(
+                f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in row.items()), flush=True)
+            rows_out.append(row)
+    return rows_out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package-root", default=str(Path(__file__)
@@ -426,10 +504,12 @@ def main(argv=None) -> int:
                          capture_output=True, text=True).stdout.strip()
     print(f"{kr.__file__} on {smi} (build {seconds:.1f} s)", flush=True)
     for part in log.split("== nvcc "):     # the register reports
-        if part.startswith(("reduce.cu", "accumulate.cu", "mxu.cu")):
+        if part.startswith(("reduce.cu", "accumulate.cu", "mxu.cu",
+                            "pair.cu")):
             print(part, flush=True)
     profiles = profile_k6_k7(kr, registry, host_data, dev)
     profiles.update(profile_k9_k10(kr, registry, host_data, dev))
+    profiles.update(profile_dd(host_data, dev))
     print_profile(profiles)
     result = {"package": kr.__file__, "card": smi, "profile": profiles,
               "times": time_cases(kr, registry, host_data, dev),
@@ -438,7 +518,8 @@ def main(argv=None) -> int:
                                                 dev)}
     if args.sweep:
         result["sweep"] = (sweep_plans(kr, registry, host_data, dev)
-                           + sweep_k9_k10(kr, registry, host_data, dev))
+                           + sweep_k9_k10(kr, registry, host_data, dev)
+                           + sweep_dd(host_data, dev))
     text = json.dumps(result)
     if args.out:
         Path(args.out).write_text(text + "\n")

@@ -129,6 +129,8 @@ class ReduceConfig:
         if self.f64 not in F64_ROUTES:
             raise ValueError(f"f64 must be one of {F64_ROUTES}, got "
                              f"{self.f64!r}")
+        if self.chunk_bytes is not None and self.chunk_bytes <= 0:
+            raise ValueError("chunk_bytes must be positive")
 
     @property
     def nbytes(self) -> int:
@@ -209,8 +211,9 @@ def build_single_chip_parser() -> argparse.ArgumentParser:
 
 
 def parse_single_chip(argv=None) -> ReduceConfig:
-    """Parse CLI args into a ReduceConfig; a missing --method or a value
-    ReduceConfig refuses exits through argparse with the reason."""
+    """Parse CLI args into a ReduceConfig. As in the JAX package, a
+    missing or unknown --method or --type is a usage error (exit 2), and a
+    value ReduceConfig refuses exits 1 with its reason."""
     p = build_single_chip_parser()
     ns = p.parse_args(argv)
     if ns.method is None:
@@ -218,6 +221,8 @@ def parse_single_chip(argv=None) -> ReduceConfig:
     if ns.dtype not in DTYPE_ALIASES:
         p.error(f"unknown --type {ns.dtype!r}; expected one of "
                 f"{sorted(set(DTYPE_ALIASES))}")
+    if ns.method.upper() not in METHODS:
+        p.error(f"--method must be one of {METHODS}, got {ns.method!r}")
     try:
         return ReduceConfig(
             method=ns.method, dtype=ns.dtype, n=ns.n, threads=ns.threads,
@@ -231,4 +236,4 @@ def parse_single_chip(argv=None) -> ReduceConfig:
             timing=ns.timing, chain_reps=ns.chain_reps, stat=ns.stat,
             f64=ns.f64, stream=ns.stream, chunk_bytes=ns.chunk_bytes)
     except ValueError as e:
-        p.error(str(e))
+        p.exit(1, f"{p.prog}: error: {e}\n")

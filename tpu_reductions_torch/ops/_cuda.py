@@ -66,10 +66,10 @@ _SIGNATURES = {
         "tr_k9_reduce": [_VP, _VP, _VP, _LL, _LL, _INT, _INT, _VP],
     },
     "pair": {
-        # tr_dd_reduce(hi, lo, part_hi, part_lo, out_hi, out_lo, tiles, tm,
-        #              splits, op, stream)
-        "tr_dd_reduce": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _INT, _INT,
-                         _VP],
+        # tr_dd_reduce(hi, lo, out, tickets, tiles, tm, splits, residues,
+        #              scalar, op, stream)
+        "tr_dd_reduce": [_VP, _VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT,
+                         _INT, _VP],
     },
 }
 
@@ -95,8 +95,8 @@ def _stale(source: Path, newest_header: float) -> bool:
 def build() -> tuple[float, str]:
     """Compile every stale source (older than its library, or than a
     header in csrc/), in parallel; return (seconds, the compilers' output,
-    which holds `-Xptxas -v`'s register report). Raises
-    CalledProcessError when a compile fails."""
+    which holds `-Xptxas -v`'s register report). Raises RuntimeError,
+    with the compiler's output, when a compile fails."""
     BUILD.mkdir(exist_ok=True)
     t0 = time.perf_counter()
     newest_header = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")),
@@ -115,7 +115,8 @@ def build() -> tuple[float, str]:
         out, _ = proc.communicate()
         logs.append(f"== nvcc {src.name}\n{out}")
         if proc.returncode != 0:
-            raise subprocess.CalledProcessError(proc.returncode, cmd, out)
+            raise RuntimeError(f"{' '.join(cmd)} failed with exit "
+                               f"{proc.returncode}:\n{out}")
         os.replace(tmp, _library_path(src))
     return time.perf_counter() - t0, "".join(logs)
 
@@ -227,17 +228,18 @@ def k9_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
     _check(lib, err, "k9")
 
 
-def dd_reduce(hi2d: torch.Tensor, lo2d: torch.Tensor, part_hi: torch.Tensor,
-              part_lo: torch.Tensor, out_hi: torch.Tensor,
-              out_lo: torch.Tensor, tm: int, splits: int,
-              op_name: str) -> None:
-    """Launch the pair kernel's two passes on hi2d's device and current
-    stream."""
+def dd_reduce(hi2d: torch.Tensor, lo2d: torch.Tensor, out: torch.Tensor,
+              tickets: torch.Tensor, tm: int, plan, op_name: str,
+              scalar: bool) -> None:
+    """Launch the pair kernel, laid out by `plan` (a dd_reduce.DdPlan), on
+    hi2d's device and current stream, with that stream's `tickets` (zero,
+    and left zero): pass 1, the accumulator into `out`, and with `scalar`
+    pass 2, the scalar pair, as a programmatic dependent launch."""
     lib = library("pair")
     with torch.cuda.device(hi2d.device):
         err = lib.tr_dd_reduce(hi2d.data_ptr(), lo2d.data_ptr(),
-                               part_hi.data_ptr(), part_lo.data_ptr(),
-                               out_hi.data_ptr(), out_lo.data_ptr(),
-                               hi2d.shape[0] // tm, tm, splits,
-                               OP_CODES[op_name], _stream(hi2d))
+                               out.data_ptr(), tickets.data_ptr(),
+                               hi2d.shape[0] // tm, tm, plan.splits,
+                               plan.residues, int(scalar), OP_CODES[op_name],
+                               _stream(hi2d))
     _check(lib, err, "dd")

@@ -16,8 +16,10 @@ streams float64 as pairs on every platform (ops/stream.py).
   card: `dd_call` folds both planes into a (TM, 128) pair accumulator with
         the error-free transformations (`dd_add` for SUM, `dd_select` for
         MIN/MAX): the hand-written kernel csrc/pair.cu, or its plain
-        version `dd_plain` for a CPU tensor; `device_finish_pairs` folds
-        the accumulator to one scalar pair by a halving tree;
+        version `dd_plain` for a CPU tensor; `dd_scalar_call` also folds
+        the accumulator to one scalar pair by the JAX package's halving
+        tree, in the same launch of csrc/pair.cu (its plain version:
+        `device_finish_pairs` of `dd_plain`, the torch tree);
   host: `decode_pair_scalar` turns the 8-byte pair back into a float64
         (SUM: hi + lo, times 2^s; MIN/MAX: the inverse key map), or
         `host_finish_pairs` finishes the whole accumulator (--cpufinal).
@@ -29,14 +31,15 @@ only, each rounded to nearest, nothing reassociated).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from tpu_reductions_torch.ops import _cuda
-from tpu_reductions_torch.ops.kernel_reduce import (LANES, _sm_count,
-                                                    choose_tiling,
+from tpu_reductions_torch.ops.kernel_reduce import (LANES, _pow2_ceil,
+                                                    _sm_count, choose_tiling,
                                                     target_device)
 
 SUBLANES = 8     # rows of one slot group of the pair accumulator
@@ -205,6 +208,76 @@ def dd_plain(hi2d: torch.Tensor, lo2d: torch.Tensor, method: str,
     return acc_hi, acc_lo
 
 
+# csrc/pair.cu: the threads of a CTA, the most slots a pass-2 thread
+# and a thread of the last CTA take, and the slots a pass-2 thread aims at
+DD_TEAM = 256
+DD_MAX_LEAVES = 32
+DD_MAX_TAIL = 32
+DD_LEAVES = 4
+# pass 1's CTAs per SM, and the most splits: the last CTA of a slot group
+# folds all of the group's partials alone
+DD_CTAS_PER_SM = 2
+DD_MAX_SPLITS = 32
+# the tickets of one stream: one per slot group of the largest TM (2048
+# rows, choose_tiling's cap), then pass 2's
+DD_TICKETS = 2048 // SUBLANES + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DdPlan:
+    """The geometry of one dd launch (csrc/pair.cu). Pass 1: CTA (g, s)
+    of the (TM / 8) x `splits` grid folds slot group g of the tiles s,
+    s + splits, ... in increasing order, and the last CTA of each group
+    folds the group's splits. Pass 2: `residues` (2^m) threads, thread r
+    running the top levels of the tree over the slots congruent to r
+    modulo 2^m; the last CTA to finish folds the 2^m pairs to the
+    scalar."""
+    splits: int
+    residues: int
+
+
+def plan_dd(tiles: int, tm: int, sm_count: int) -> DdPlan:
+    """dd's geometry, from the shape and the SM count alone, so one
+    shape always folds in one order. Pass 1 takes as many splits as keep
+    its grid at DD_CTAS_PER_SM CTAs an SM (each CTA keeps 64 KiB of
+    loads in flight), at most one per tile and DD_MAX_SPLITS. Pass 2
+    gives each thread DD_LEAVES slots of the padded accumulator, within
+    at least one CTA and at most DD_MAX_TAIL pairs a thread of the last
+    CTA. bench/passes.py --sweep times the other choices."""
+    splits = max(1, min(tiles, DD_MAX_SPLITS,
+                        DD_CTAS_PER_SM * sm_count // (tm // SUBLANES)))
+    residues = min(DD_TEAM * DD_MAX_TAIL,
+                   max(DD_TEAM, _pow2_ceil(tm * LANES) // DD_LEAVES))
+    return DdPlan(splits, residues)
+
+
+def _out_words(tm: int, plan: DdPlan) -> int:
+    """The 32-bit words of a launch's output buffer (csrc/pair.cu run):
+    the accumulator's two planes, the scalar pair and two words of
+    padding, the split partials' two planes (when there are splits) and
+    the tree's two planes."""
+    size = tm * LANES
+    parts = 2 * plan.splits * size if plan.splits > 1 else 0
+    return 2 * size + 4 + parts + 2 * plan.residues
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device) -> torch.Tensor:
+    """The dd kernel's tickets for the current stream of `device`: zeroed
+    once, when the stream first launches the kernel, and left at zero by
+    every launch (the last CTA of each ticket resets it). Launches in one
+    stream run one after the other; two streams never share tickets."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    tickets = _TICKETS.get(key)
+    if tickets is None:
+        tickets = _TICKETS[key] = torch.zeros(DD_TICKETS, dtype=torch.int32,
+                                              device=device)
+    return tickets
+
+
 def _check_planes(hi2d: torch.Tensor, lo2d: torch.Tensor, method: str,
                   tm: int) -> None:
     """Refuse what the pair kernel does not take."""
@@ -221,6 +294,8 @@ def _check_planes(hi2d: torch.Tensor, lo2d: torch.Tensor, method: str,
                 or not plane.is_contiguous()):
             raise ValueError(f"expected contiguous (rows, {LANES}) planes, "
                              f"got {tuple(plane.shape)}")
+        if plane.data_ptr() % 16:
+            raise ValueError("the planes must start on a 16-byte boundary")
     if hi2d.shape != lo2d.shape or hi2d.device != lo2d.device:
         raise ValueError(f"the two planes differ: {tuple(hi2d.shape)} on "
                          f"{hi2d.device}, {tuple(lo2d.shape)} on "
@@ -231,33 +306,55 @@ def _check_planes(hi2d: torch.Tensor, lo2d: torch.Tensor, method: str,
                          f"{hi2d.shape[0]} rows with tm={tm}")
 
 
+def _launch(hi2d: torch.Tensor, lo2d: torch.Tensor, method: str, tm: int,
+            scalar: bool) -> torch.Tensor:
+    """One launch of csrc/pair.cu on hi2d's device and current stream,
+    planned by plan_dd: pass 1 (the accumulator), and with `scalar` pass 2
+    (the pair finish). Returns its output buffer (_out_words). Counts one
+    dd launch in dd_call.launches."""
+    _check_planes(hi2d, lo2d, method, tm)
+    plan = plan_dd(hi2d.shape[0] // tm, tm, _sm_count(hi2d.device))
+    out = torch.empty(_out_words(tm, plan), dtype=hi2d.dtype,
+                      device=hi2d.device)
+    _cuda.dd_reduce(hi2d, lo2d, out, _tickets(hi2d.device), tm, plan, method,
+                    scalar)
+    dd_call.launches += 1
+    return out
+
+
 def dd_call(hi2d: torch.Tensor, lo2d: torch.Tensor, method: str,
             tm: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The (TM, 128) pair accumulator of two staged planes (float32 for
     SUM, int32 keys for MIN/MAX). A CPU tensor takes dd_plain; a CUDA
-    tensor launches csrc/pair.cu (its two passes, the split partials and
-    their fold, count as one launch) or raises."""
+    tensor launches csrc/pair.cu's pass 1, which folds its splits too (one
+    CUDA launch), or raises. `dd_call.launches` counts the launches of
+    the dd kernel, from this wrapper and from dd_scalar_call."""
     method = method.upper()
     if hi2d.device.type == "cpu" and lo2d.device.type == "cpu":
         return dd_plain(hi2d, lo2d, method, tm)
-    _check_planes(hi2d, lo2d, method, tm)
-    tiles = hi2d.shape[0] // tm
-    # as kernel_reduce._period_buffers: the tm/8 slot groups x splits
-    # blocks of 1024 threads fill one wave at two blocks per SM
-    splits = max(1, min(tiles, 2 * _sm_count(hi2d.device)
-                        // (tm // SUBLANES)))
-    out = [torch.empty((tm, LANES), dtype=hi2d.dtype, device=hi2d.device)
-           for _ in range(2)]
-    parts = ([torch.empty((splits * tm, LANES), dtype=hi2d.dtype,
-                          device=hi2d.device) for _ in range(2)]
-             if splits > 1 else out)
-    _cuda.dd_reduce(hi2d, lo2d, parts[0], parts[1], out[0], out[1], tm,
-                    splits, method)
-    dd_call.launches += 1
-    return out[0], out[1]
+    size = tm * LANES
+    out = _launch(hi2d, lo2d, method, tm, scalar=False)
+    return out[:size].view(tm, LANES), out[size:2 * size].view(tm, LANES)
 
 
 dd_call.launches = 0
+
+
+def dd_scalar_call(hi2d: torch.Tensor, lo2d: torch.Tensor, method: str,
+                   tm: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scalar pair (s_hi, s_lo), two 0-d tensors on the planes'
+    device: the accumulator folded by the JAX package's halving tree.
+    Equal bit for bit to device_finish_pairs(*dd_call(...)) of the same
+    planes. A CPU tensor takes exactly that composition of the plain
+    versions; a CUDA tensor launches csrc/pair.cu once, the finish fused
+    behind the accumulator with no torch op between (two CUDA launches,
+    the second a programmatic dependent of the first), or raises."""
+    method = method.upper()
+    if hi2d.device.type == "cpu" and lo2d.device.type == "cpu":
+        return device_finish_pairs(*dd_plain(hi2d, lo2d, method, tm), method)
+    size = tm * LANES
+    out = _launch(hi2d, lo2d, method, tm, scalar=True)
+    return out[2 * size], out[2 * size + 1]
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +446,7 @@ def make_dd_device_reduce(method: str, n: int, *, threads: int = 256,
     stage_fn = _make_stage_fn(method, threads, max_blocks, device)
 
     def core(hi2d, lo2d):
-        return device_finish_pairs(*dd_call(hi2d, lo2d, method, tm), method)
+        return dd_scalar_call(hi2d, lo2d, method, tm)
 
     def finish(s_hi, s_lo, scale_exp=0):
         return decode_pair_scalar(s_hi, s_lo, method, scale_exp=scale_exp)
