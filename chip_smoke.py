@@ -19,7 +19,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
    at the ragged size), on the benchmark payload and on a full-range SUM
    (uniform(-1, 1) x 1e300 against math.fsum), its fused pair finish
    bit-equal to the torch halving tree over its accumulator, and the
-   same bits twice in a row and on two streams at once.
+   same bits twice in a row and on two streams at once; k8 too must give
+   the same bits twice in a row and on two streams at once. After k8 and
+   k10, probes where the bf16 payload is read from (bench/passes.py
+   l2_probe).
    Times each kernel, its plain version and one PyTorch reduction of the
    same staged tensor with CUDA events, at int32 SUM n = 2^24 (k9: float32
    SUM; dd: float64 SUM, its library call torch.sum of the native f64
@@ -27,13 +30,15 @@ Run from the repository root on a machine with one NVIDIA GPU:
    replaced). k6, k7 and k9 must give the same bits when called again on
    the same tensor.
    Then profiles one k6 call, one k7 chain and one k10 call at depths 1
-   and 4 at int32 SUM n = 2^24, one k9 call at float32 SUM, and dd and
-   the f64 pair route at float64 SUM, with
+   and 4 at int32 SUM n = 2^24, one k8 call on int32/float32/float64/
+   bfloat16 SUM and bfloat16 MAX (at int32 SUM it must be one CUDA
+   launch), one k9 call at float32 SUM, and dd and the f64 pair route at
+   float64 SUM, with
    torch.profiler (tpu_reductions_torch/bench/passes.py): each CUDA
    kernel's name, launches and device time, each launch in order (k6's
    two passes, the chain's passes and finish), and the idle time between
-   them; and prints the cluster occupancy and the k6/k7/k10/k9/dd plans
-   there.
+   them; and prints the cluster occupancy and the k6/k7/k8/k10/k9/dd
+   plans there.
 3. Drives the port's main path, its CLI `main()`, for the benchmark rows
    below, each to a verified PASSED row (or the WAIVED it must give), and
    checks through the wrappers' launch counters that each row went
@@ -231,11 +236,17 @@ def profile_phase(kr, dd, registry, host_data, dev) -> None:
         k10 = kr.plan_k10(rows // tm, tm, sub, torch_dtype.itemsize, 4, sms)
         print(f"  {dtype}: {sms} SMs, {active} active clusters of "
               f"{kr.CLUSTER} CTAs; k6 {kr.plan_k6(rows, sub, sms, active)}; "
-              f"k7 {kr.plan_k7(rows, sub, p, t * tm, sms, active)}; k10 at "
-              f"depth 4 {k10}; k9 {k9}", flush=True)
+              f"k7 {kr.plan_k7(rows, sub, p, t * tm, sms, active)}; k8 "
+              f"{kr.plan_k8(rows // tm, tm, sub, sms)}; k10 at depth 4 "
+              f"{k10}; k9 {k9}", flush=True)
     tm, p, t = dd.choose_tiling(N)
     print(f"  float64 pairs: dd {dd.plan_dd(p * t, tm, sms)}", flush=True)
     passes.print_profile(passes.profile_k6_k7(kr, registry, host_data, dev))
+    k8 = passes.profile_k8(kr, registry, host_data, dev)
+    passes.print_profile(k8)
+    if len(k8["k8_int32_SUM"]["launch_us"]) != 1:
+        raise AssertionError("k8 at int32 SUM n = 2^24 is not one CUDA "
+                             "launch a call")
     passes.print_profile(passes.profile_k9_k10(kr, registry, host_data, dev))
     passes.print_profile(passes.profile_dd(host_data, dev))
 
@@ -309,10 +320,29 @@ def k6_k7_vs_plain(kr, registry, host_data, dev, worst, table):
                     lambda: op.reduce(x2d)))
 
 
+def check_k8_repeats(kr, name, x2d, op, tm, dev) -> None:
+    """Two k8 calls back to back, and two on two streams at once, give
+    the first call's bits: every launch leaves its stream's tickets at
+    zero, and each stream has its own."""
+    want = bits(kr.elementwise_call(x2d, op, tm)).clone()
+    got = [kr.elementwise_call(x2d, op, tm) for _ in range(2)]
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    for st in streams:
+        with torch.cuda.stream(st):
+            got.append(kr.elementwise_call(x2d, op, tm))
+    torch.cuda.synchronize()
+    if not all(torch.equal(bits(g), want) for g in got):
+        raise AssertionError(f"{name}: a second call, or one on another "
+                             f"stream, gave other bits")
+
+
 def k8_k10_vs_plain(kr, registry, host_data, dev, worst, table):
     """k8 and k10 on all 12 pairs at both sizes, at the default and the
     largest tile; k10 at every depth of DEPTHS must give the same bits,
-    and k8's (the two share their order of adds)."""
+    and k8's (the two share their order of adds); k8 the same bits on
+    repeat and on two streams at the default tile."""
     for dtype in DTYPES:
         for n in SIZES:
             x = host_data(n, dtype)
@@ -338,6 +368,8 @@ def k8_k10_vs_plain(kr, registry, host_data, dev, worst, table):
                     worst["k10"] = max(worst["k10"], err)
                     if n != N or threads != 256:
                         continue
+                    check_k8_repeats(kr, f"k8 {method} {dtype} n={n}", x2d,
+                                     op, tm, dev)
                     table.append(timing_row(
                         "k8", method, dtype, n, x2d, k8,
                         lambda: kr.elementwise_call(x2d, op, tm),
@@ -686,6 +718,9 @@ def main() -> int:
         phase(kr, registry, host_data, dev, worst, table)
         print(f"[kernels vs plain: {phase.__name__}] "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if phase is k8_k10_vs_plain:
+            # where the bf16 rows just timed read their payload from
+            passes.l2_probe(kr, registry, host_data, dev)
     print("[kernels vs plain: dd_vs_plain]", flush=True)
     t0 = time.perf_counter()
     dd_vs_plain(dd_reduce, registry, oracle, host_data, dev, worst, table)

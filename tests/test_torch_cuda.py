@@ -11,7 +11,7 @@ out:
 int32 and MIN/MAX must be bit-equal; float SUM adds in another order and
 is held to rtol 1e-6 (float32), 1e-12 (float64), 1e-2 (bfloat16 data,
 float32 accumulator). k10 must give the same bits at every depth, and the
-same bits as k8. dd is held to the rule in csrc/pair.cu: MIN/MAX
+same bits as k8; k8 the same bits on every call, on any stream. dd is held to the rule in csrc/pair.cu: MIN/MAX
 bit-equal, SUM per slot within 2 (d - 1) 4u^2 sum|x| of dd_plain; its
 fused pair finish bit-equal to the torch tree over its own accumulator.
 """
@@ -246,6 +246,101 @@ def test_stream_ragged_payloads_give_k8s_bits(cuda_device, dtype, threads):
                                bits(k8)), depth
         assert_acc_match(k8, kr.elementwise_plain(x2d.cpu(), op, tm),
                          method, dtype)
+
+
+# k8's three forms (csrc/accumulate.cu K8), each on an identity-padded,
+# ragged payload: (n, --threads) giving one split (one tile), splits that
+# the last CTA of each slot group folds (TM 256: 8, or 16 for bf16), and
+# more splits than K8_MAX_FUSED_SPLITS (TM 8, or 16 for bf16: a second
+# launch folds them)
+K8_FORMS = {"one split": (2048 * 128 - 37, 2048),
+            "fused": ((1 << 22) + 37, 256),
+            "two launches": (65536 * 8 + 5, 8)}
+
+
+def _k8_staged(cuda_device, method, dtype, form, seed=0):
+    """(op, x2d, tm, plan) of one of K8_FORMS, the plan checked to be of
+    that form."""
+    op = get_op(method)
+    n, threads = K8_FORMS[form]
+    x = payload(n, dtype, method, seed=seed)
+    tm, p, t = kr.choose_tiling(n, threads, 64, x.dtype)
+    x2d = kr.stage_padded(x, tm, p, t, op, cuda_device)
+    plan = kr.plan_k8(x2d.shape[0] // tm, tm, kr.sublanes_for(x2d.dtype),
+                      kr._sm_count(x2d.device))
+    assert {"one split": plan.splits == 1,
+            "fused": 1 < plan.splits and plan.fused,
+            "two launches": not plan.fused}[form], plan
+    return op, x2d, tm, plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", list(K8_FORMS))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("method", METHODS)
+def test_k8_matches_plain_in_every_form(cuda_device, method, dtype, form):
+    """k8 against the plain (TM, 128) accumulator in each of its forms,
+    one counted launch a call; k10 at depths 1, 4 and the deepest ring
+    gives k8's bits (the same splits, so the same order of adds)."""
+    op, x2d, tm, _ = _k8_staged(cuda_device, method, dtype, form)
+    before = kr.elementwise_call.launches
+    k8 = kr.elementwise_call(x2d, op, tm)
+    assert kr.elementwise_call.launches == before + 1
+    assert_acc_match(k8, kr.elementwise_plain(x2d.cpu(), op, tm), method,
+                     dtype)
+    for depth in (1, 4, kr.stream_max_depth(x2d.dtype)):
+        assert torch.equal(bits(kr.stream_call(x2d, op, tm, depth)),
+                           bits(k8)), depth
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["fused", "two launches"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k8_same_bits_back_to_back_and_on_two_streams(cuda_device, dtype,
+                                                      form):
+    """Each launch leaves its stream's tickets at zero, and each stream
+    has its own: 16 calls queued back to back on one stream, and 8 on
+    each of two streams at once, give the first call's bits, float SUM
+    included."""
+    op, x2d, tm, _ = _k8_staged(cuda_device, "SUM", dtype, form, seed=7)
+    want = bits(kr.elementwise_call(x2d, op, tm)).clone()
+    queued = [kr.elementwise_call(x2d, op, tm) for _ in range(16)]
+    streams = (torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device))
+    on_streams = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    for _ in range(8):
+        for s in streams:
+            with torch.cuda.stream(s):
+                on_streams.append(kr.elementwise_call(x2d, op, tm))
+    torch.cuda.synchronize()
+    for got in queued + on_streams:
+        assert torch.equal(bits(got), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads, cuda_launches", [(256, 1), (8, 2)])
+def test_k8_cuda_launches_per_call(cuda_device, threads, cuda_launches):
+    """torch.profiler sees one CUDA launch a call at the main path's
+    shape (int32 SUM n = 2^24, TM 256: 8 splits folded in the pass), and
+    two at TM 8 (264 splits, folded by a second launch)."""
+    from tpu_reductions_torch.bench.passes import kernel_profile
+    op = get_op("SUM")
+    n = 1 << 24
+    tm, p, t = kr.choose_tiling(n, threads, 64, "int32")
+    x2d = kr.stage_padded(payload(n, "int32", "SUM"), tm, p, t, op,
+                          cuda_device)
+    prof = kernel_profile(lambda: kr.elementwise_call(x2d, op, tm), calls=4)
+    assert len(prof["launch_us"]) == cuda_launches
+
+
+@pytest.mark.gpu
+def test_k8_refuses_a_misaligned_base(cuda_device):
+    """The 16-byte loads need a 16-byte aligned base."""
+    x2d = torch.zeros((64, 128), dtype=torch.int32, device=cuda_device)
+    skewed = x2d.view(-1)[1:1 + 56 * 128].view(56, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        kr.elementwise_call(skewed, get_op("SUM"), 8)
 
 
 @pytest.mark.gpu

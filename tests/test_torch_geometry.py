@@ -372,4 +372,4 @@ def test_dd_out_words_holds_every_piece():
             assert dd._out_words(tm, plan) == \
                 2 * size + 4 + parts + 2 * plan.residues
             assert (2 * size + 4) * 4 % 16 == 0
-        assert tm // 8 + 1 <= dd.DD_TICKETS
+        assert tm // 8 + 1 <= kr.TICKETS

@@ -7,22 +7,27 @@ or for two in turns.
 Stages the benchmark payload at the main path's n = 2^24 with the
 default tiling (--threads 256, --maxblocks 64), then:
 
+0. first, before any profiler run or other timing, probes where the
+   bf16 SUM payload (32 MiB, less than the L2) is read from through
+   k6-k10 and torch.sum (`l2_probe`): back-to-back calls, at four
+   addresses, against calls after 128 MiB of other data are read;
 1. profiles, with torch.profiler, one k6 call and one k7 chain (its
    passes, the copies between them where the tree has any, and the
-   finish) at int32 SUM, one k10 call at depths 1 and 4 (int32 SUM), one
-   k9 call (float32 SUM), and on float64 SUM through the pair route one
+   finish) at int32 SUM, one k8 call on int32/float32/float64/bf16 SUM
+   and bf16 MAX, one k10 call at depths 1 and 4 (int32 SUM), one k9 call
+   (float32 SUM), and on float64 SUM through the pair route one
    `dd_call` (the accumulator: pass 1 and the fold of its splits) and
    one reduce of the route, `make_dd_device_reduce`'s core (the
    accumulator and the pair finish), ten times each with a synchronise
    after every call: each CUDA kernel's name, launches and device time,
    and the span of one call from its first kernel's start to its last
    kernel's end (span minus the kernels' time is the device idling
-   between launches); beside each, `host_ms`, the host clock per call
-   over back-to-back calls ended by one synchronise;
-2. times with CUDA events k6, one k7 pass and the k7 chain with its
-   finish (`reduce_ms`) on int32/float32/float64 SUM and bf16
-   SUM/MIN/MAX, each beside one PyTorch reduction of the same staged
-   tensor (`library_ms`);
+   between launches); beside k8's and dd's, `host_ms`, the host clock
+   per call over back-to-back calls ended by one synchronise;
+2. times with CUDA events k6, one k7 pass, the k7 chain with its finish
+   (`reduce_ms`) and k8 with and without its finish on
+   int32/float32/float64 SUM and bf16 SUM/MIN/MAX, each beside one
+   PyTorch reduction of the same staged tensor (`library_ms`);
 3. times one k7 pass and the k7 chain with its finish at every k7
    geometry of the two races chip_smoke.py drives (the default grid on
    float32 SUM 2^24, the hbm grid on int32 SUM 2^26);
@@ -33,9 +38,10 @@ default tiling (--threads 256, --maxblocks 64), then:
    tiles and depths on int32 SUM 2^26, each beside `library_ms`.
 
 With --sweep it also times the kernels under geometries their planners
-did not pick (k6/k7 clusters and CTA counts; k10 stage sizes and
-splits; k9 runs per warp; dd's splits and pass-2 threads); that needs
-this tree's planners.
+did not pick (k6/k7 clusters and CTA counts; k8's unroll and its split
+fold in the pass or in a second launch; k10 stage sizes and splits; k9
+runs per warp; dd's splits and pass-2 threads); that needs this tree's
+planners.
 
 It calls only the wrapper API that every tree of the port has, so
 `--package-root` can import `tpu_reductions_torch` from another checkout
@@ -70,6 +76,12 @@ DEPTHS = (1, 2, 4, 8)
 HBM_N = 1 << 26
 HBM_STREAM = ((512, (2, 4, 8)), (1024, (2, 4, 8)), (256, (4,)))
 MXU_DTYPES = ("float32", "float64", "bfloat16")
+# k8's profiled cases: the main path's int32 SUM, every other dtype's SUM,
+# and bf16 MAX, whose accumulator is stored as bf16
+K8_CASES = (("int32", "SUM"), ("float32", "SUM"), ("float64", "SUM"),
+            ("bfloat16", "SUM"), ("bfloat16", "MAX"))
+# l2_probe: the bytes k6 reads between two calls to empty the 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -198,6 +210,88 @@ def profile_dd(host_data, dev) -> dict:
     return out
 
 
+def profile_k8(kr, registry, host_data, dev) -> dict:
+    """kernel_profile and host_ms of one k8 call on each of K8_CASES at
+    n = N, default tiling."""
+    out = {}
+    for dtype, method in K8_CASES:
+        op = registry.get_op(method)
+        tm, p, t = kr.choose_tiling(N, 256, 64, dtype)
+        x2d = kr.stage_padded(host_data(N, dtype), tm, p, t, op, dev)
+
+        def call():
+            return kr.elementwise_call(x2d, op, tm)
+        out[f"k8_{dtype}_{method}"] = {**kernel_profile(call),
+                                       "host_ms": host_ms(call)}
+    return out
+
+
+def _smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def flusher(kr, registry, dev):
+    """A call that reads L2_FLUSH_BYTES of other data through k6, leaving
+    L2 with none of a payload read before it and nothing dirty; its
+    `launches` are the CUDA launches of one call."""
+    data = torch.zeros((L2_FLUSH_BYTES // (4 * 128), 128), dtype=torch.int32,
+                       device=dev)
+    op = registry.get_op("SUM")
+
+    def flush():
+        kr.single_pass_call(data, op)
+    flush.launches = len(kernel_profile(flush)["launch_us"])
+    return flush
+
+
+def cold_us(call, flush) -> float:
+    """Device µs of call()'s launches right after flush()
+    (kernel_profile, flush()'s own launches left out)."""
+    def flushed():
+        flush()
+        call()
+    return sum(kernel_profile(flushed)["launch_us"][flush.launches:])
+
+
+def l2_probe(kr, registry, host_data, dev) -> dict:
+    """Where the bf16 SUM payload at n = N (32 MiB, less than the card's
+    50 MB of L2) is read from, through k6, one k7 pass, k8, k9, k10 at
+    depth 4 and torch.sum: `warm_ms`, device_ms of back-to-back calls,
+    which may find part of the payload in L2 from the call before, on the
+    staged payload and on three copies of it (other addresses);
+    `cold_us`, one call's kernels right after L2_FLUSH_BYTES of other
+    data are read (cold_us). Beside them the SM clock, temperature and
+    power."""
+    op = registry.get_op("SUM")
+    tm, p, t = kr.choose_tiling(N, 256, 64, "bfloat16")
+    staged = kr.stage_padded(host_data(N, "bfloat16"), tm, p, t, op, dev)
+    copies = [staged] + [staged.clone() for _ in range(3)]
+    flush = flusher(kr, registry, dev)
+    out = {"l2_bytes": torch.cuda.get_device_properties(dev).L2_cache_size,
+           "smi_before": _smi("clocks.sm,temperature.gpu,power.draw")}
+    calls = {"k6": lambda x: kr.single_pass_call(x, op),
+             "k7": lambda x: kr.two_pass_call(x, op, tm, p, t),
+             "k8": lambda x: kr.elementwise_call(x, op, tm),
+             "k9": lambda x: kr.mxu_call(x, op),
+             "k10": lambda x: kr.stream_call(x, op, tm, 4),
+             "torch_sum": op.reduce}
+    for name, call in calls.items():
+        out[name] = {
+            "warm_ms": [device_ms(lambda x=x: call(x)) for x in copies],
+            "cold_us": cold_us(lambda: call(staged), flush)}
+    out["smi_after"] = _smi("clocks.sm,temperature.gpu,power.draw")
+    print(f"  l2 probe, bf16 SUM n={N} ({staged.numel() * 2} B, L2 "
+          f"{out['l2_bytes']} B), sm MHz, C, W {out['smi_before']} -> "
+          f"{out['smi_after']}:", flush=True)
+    for name in calls:
+        print(f"    {name}: warm " + " ".join(
+            f"{ms:.5f}" for ms in out[name]["warm_ms"])
+              + f" ms, cold {out[name]['cold_us']:.3f} us", flush=True)
+    return out
+
+
 def profile_k9_k10(kr, registry, host_data, dev) -> dict:
     """kernel_profile of one k10 call at depths 1 and 4 (int32 SUM) and
     one k9 call (float32 SUM), at n = N, default tiling."""
@@ -250,6 +344,9 @@ def time_cases(kr, registry, host_data, dev) -> list:
                                                              t)),
             "k7_reduce_ms": device_ms(lambda: kr.finish(kr._multipass_finish(
                 kr.two_pass_call(x2d, op, tm, p, t), op, 256, 64, 1), op)),
+            "k8_ms": device_ms(lambda: kr.elementwise_call(x2d, op, tm)),
+            "k8_reduce_ms": device_ms(lambda: kr.finish(
+                kr.elementwise_call(x2d, op, tm), op)),
             "library_ms": device_ms(lambda: op.reduce(x2d)),
         }
         _print_row(row)
@@ -445,6 +542,63 @@ def sweep_k9_k10(kr, registry, host_data, dev) -> list:
     return rows_out
 
 
+# k8's sweep: the TMs whose plans give from 2 x 132 splits down to 8 (16
+# for bf16) at n = N on 132 SMs (the first is the dtype's sublane count),
+# for the dtypes swept across TMs
+K8_SWEEP_TMS = (None, 32, 64, 128, 256)
+K8_SWEEP_DTYPES = ("int32", "float64", "bfloat16")
+
+
+def sweep_k8(kr, registry, host_data, dev) -> list:
+    """Times of k8 at n = N under other geometries than plan_k8 picks,
+    each both warm (device_ms) and cold (cold_us: one call's kernels
+    after L2_FLUSH_BYTES of other data are read): for K8_SWEEP_DTYPES'
+    SUM at each of K8_SWEEP_TMS, the split fold in the pass (`fused`)
+    and in a second launch, at the default unroll; on int32, float32,
+    float64 and bfloat16 SUM at TM 256, every unroll of K8_UNROLLS. The
+    splits are plan_splits' (the same order of adds, so the same bits).
+    Needs a tree with kernel_reduce.plan_k8."""
+    from tpu_reductions_torch.ops import _cuda
+    op = registry.get_op("SUM")
+    sms = kr._sm_count(dev)
+    flush = flusher(kr, registry, dev)
+    rows_out = []
+
+    def record(x2d, tm, plan):
+        tiles = x2d.shape[0] // tm
+        out, parts = kr._period_buffers(x2d, op, tm, plan.splits)
+
+        def call():
+            _cuda.k8_reduce(x2d, parts, out, kr._tickets(dev), tm, plan,
+                            op.name)
+        row = {"what": "k8", "dtype": str(x2d.dtype).split(".")[-1],
+               "tm": tm, "splits": plan.splits, "unroll": plan.unroll,
+               "fused": plan.fused,
+               "planned": plan == kr.plan_k8(tiles, tm, kr.sublanes_for(
+                   x2d.dtype), sms),
+               "ms": device_ms(call), "cold_us": cold_us(call, flush)}
+        print("  sweep " + " ".join(f"{k}={v:.5f}" if isinstance(v, float)
+                                    else f"{k}={v}" for k, v in row.items()),
+              flush=True)
+        rows_out.append(row)
+
+    for dtype in ("int32", "float32", "float64", "bfloat16"):
+        tm, p, t = kr.choose_tiling(N, 256, 64, dtype)
+        x2d = kr.stage_padded(host_data(N, dtype), tm, p, t, op, dev)
+        sub = kr.sublanes_for(x2d.dtype)
+        for tm in (K8_SWEEP_TMS if dtype in K8_SWEEP_DTYPES else (256,)):
+            tm = tm or sub
+            plan = kr.plan_k8(x2d.shape[0] // tm, tm, sub, sms)
+            for unroll in kr.K8_UNROLLS:
+                for fused in ((True, False) if plan.splits > 1 else (True,)):
+                    if unroll != plan.unroll and (tm != 256
+                                                  or fused != plan.fused):
+                        continue
+                    record(x2d, tm, kr.PeriodPlan(plan.splits, unroll,
+                                                  fused))
+    return rows_out
+
+
 def sweep_dd(host_data, dev) -> list:
     """CUDA-event times of dd on float64 SUM at n = N, default tiling,
     under other geometries than plan_dd picks: the accumulator alone and
@@ -485,7 +639,7 @@ def main(argv=None) -> int:
                          "time (default: this checkout)")
     ap.add_argument("--out", default="", help="also write the JSON here")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time fold_span under other geometries")
+                    help="also time the kernels under other geometries")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("passes: no CUDA device is available", file=sys.stderr)
@@ -499,25 +653,28 @@ def main(argv=None) -> int:
 
     dev = device.resolve("gpu")
     seconds, log = _cuda.build()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True).stdout.strip()
+    smi = _smi("name,power.limit")
     print(f"{kr.__file__} on {smi} (build {seconds:.1f} s)", flush=True)
     for part in log.split("== nvcc "):     # the register reports
         if part.startswith(("reduce.cu", "accumulate.cu", "mxu.cu",
                             "pair.cu")):
             print(part, flush=True)
+    # first, before any profiler run and any other timing
+    probe = l2_probe(kr, registry, host_data, dev)
     profiles = profile_k6_k7(kr, registry, host_data, dev)
+    profiles.update(profile_k8(kr, registry, host_data, dev))
     profiles.update(profile_k9_k10(kr, registry, host_data, dev))
     profiles.update(profile_dd(host_data, dev))
     print_profile(profiles)
-    result = {"package": kr.__file__, "card": smi, "profile": profiles,
+    result = {"package": kr.__file__, "card": smi, "l2_probe": probe,
+              "profile": profiles,
               "times": time_cases(kr, registry, host_data, dev),
               "races": time_race_k7(kr, registry, host_data, dev),
               "k8_k10_k9_dd": time_k8_k10_k9_dd(kr, registry, host_data,
                                                 dev)}
     if args.sweep:
         result["sweep"] = (sweep_plans(kr, registry, host_data, dev)
+                           + sweep_k8(kr, registry, host_data, dev)
                            + sweep_k9_k10(kr, registry, host_data, dev)
                            + sweep_dd(host_data, dev))
     text = json.dumps(result)

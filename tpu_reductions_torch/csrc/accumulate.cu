@@ -18,20 +18,34 @@
 // hold it. So the slots are cut into slot groups of SUB rows x 128 columns
 // (SUB = 8; 16 for bf16), and the tiles into `splits` interleaved sets.
 // Block (g, s) folds slot group g over the tiles k = s, s + splits, ... in
-// increasing k into (splits, TM, 128) partials; a second pass folds the
-// partials over s, in order. The wrapper's planner
-// (ops/kernel_reduce.plan_splits) picks `splits` from the shape and the SM
-// count alone, and k8 and k10 take the same: they add in the same order
-// and give bit-identical accumulators, and k10's depth and stage size move
-// copies, never the order of the adds.
+// increasing k into (splits, TM, 128) partials, which are then folded over
+// s, in order, from the identity: by the last block of each slot group
+// (k8 up to the planner's split count) or by a second pass (k8 above it,
+// and k10). The wrapper's planner (ops/kernel_reduce.plan_splits) picks
+// `splits` from the shape and the SM count alone, and k8 and k10 take the
+// same: they add in the same order and give bit-identical accumulators,
+// and k10's depth and stage size and k8's unroll and choice of fold move
+// loads and launches, never the order of the adds.
 //
 // Bound: each kernel reads every staged byte once and writes the
 // (splits, TM, 128) partials and the accumulator: bound by device-memory
 // bytes, never by arithmetic. What the designs do about it:
-//   k8   plain coalesced loads into registers: a 1024-thread block holds
-//        one slot (two for bf16) per thread, a warp reads 32 neighbouring
-//        elements of one row, and the tile walk is unrolled so that several
-//        loads per thread are in flight. No shared memory.
+//   k8   16-byte ld.global.nc.L1::no_allocate loads, UNROLL tiles deep. A
+//        block is one team of TEAM = 256 threads over one slot group;
+//        thread t owns the 16-byte vectors t + j * TEAM of the group
+//        (Layout: one vector for int32, f32 and bf16, two for f64), so a
+//        warp load is 512 contiguous bytes. It issues the loads of UNROLL
+//        of its tiles before it combines them, in increasing tile order,
+//        then takes the rest one by one: at UNROLL 8 and the main path's
+//        256 blocks (about two an SM) 64 KiB a SM are in flight. With
+//        splits, each block writes its partial and takes its slot group's
+//        integer ticket (last_to_finish: no float atomics); the last block
+//        of the group folds the group's partials, in split order, from L2
+//        into the accumulator, so k8 is one launch. Above the planner's
+//        split count one block would fold too many partials alone, and
+//        the second pass (fold_splits) folds them instead. The parent
+//        design (1024-thread blocks of scalar loads, 4 deep, and always a
+//        second pass) read at 67% of the memory rate (PERF.md).
 //   k10  a warp-specialised ring of TMA bulk copies. A block is one
 //        producer warp and CONSUMERS warps. One lane of the producer warp
 //        alone issues the 1-D bulk copies (cp.async.bulk ...
@@ -73,13 +87,167 @@ constexpr int MAX_STAGES = 64;
 constexpr int CONSUMERS = TEAM / 32;
 constexpr int STREAM_THREADS = TEAM + 32;
 
-// Block (g, s) folds slot group g of tiles s, s + splits, ... < tiles of
-// `in` into slot group g of (TM, 128) block s of `out`.
-template <int OP, class T, class O, int SUB>
-__global__ void __launch_bounds__(THREADS)
-fold_period(const T* __restrict__ in, O* __restrict__ out, long long tiles,
-            long long tm, long long splits) {
+// k8's partials the last block of a slot group loads before it combines
+// them.
+constexpr int SPLIT_BATCH = 8;
+
+// The 32 bits of an accumulator value as it lies in memory.
+__device__ __forceinline__ unsigned bits32(int v) { return static_cast<unsigned>(v); }
+__device__ __forceinline__ unsigned bits32(float v) { return __float_as_uint(v); }
+
+// One 16-byte word of accumulator values of type O, from the 16 /
+// sizeof(O) register values v[0..] (store()'s conversion for bf16).
+template <class O, class R>
+__device__ __forceinline__ uint4 pack_word(const R* v) {
+  if constexpr (std::is_same<O, double>::value) {
+    return make_uint4(__double2loint(v[0]), __double2hiint(v[0]), __double2loint(v[1]),
+                      __double2hiint(v[1]));
+  } else if constexpr (std::is_same<O, __nv_bfloat16>::value) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = __bfloat16_as_ushort(__float2bfloat16(v[2 * i])) |
+             static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(v[2 * i + 1]))) << 16;
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    return make_uint4(bits32(v[0]), bits32(v[1]), bits32(v[2]), bits32(v[3]));
+  }
+}
+
+// Where thread t keeps its slots of a slot group in a (TM, 128) block of
+// O: the VEC slots of its vector j (Layout) are VEC consecutive O values,
+// WORDS_PER 16-byte words from word (t + j * TEAM) * WORDS_PER of the
+// group (two words for bf16 SUM's float accumulator, one otherwise).
+template <class T, class O, int SUB>
+struct Slots {
+  using L = Layout<T, SUB>;
+  static constexpr int PER = 16 / sizeof(O);    // O values in a word
+  static constexpr int WORDS_PER = L::VEC / PER;
+  static constexpr int WORDS = L::LOADS * WORDS_PER;
+  static constexpr long long GROUP_WORDS = SUB * LANES / PER;
+  static_assert(WORDS_PER * PER == L::VEC, "a vector's slots fill whole words");
+  __device__ static long long word(int t, int w) {
+    return static_cast<long long>(t + w / WORDS_PER * TEAM) * WORDS_PER + w % WORDS_PER;
+  }
+};
+
+// Combine the thread's slots with a vector of the input (or of a
+// partial): slot s takes element s % VEC of vector s / VEC.
+template <int OP, class T, int SUB, class R>
+__device__ __forceinline__ void fold_in(R (&acc)[Layout<T, SUB>::SLOTS],
+                                        const uint4 (&v)[Layout<T, SUB>::LOADS]) {
+  using L = Layout<T, SUB>;
+#pragma unroll
+  for (int s = 0; s < L::SLOTS; ++s) {
+    acc[s] = combine<OP>(acc[s], lane(v[s / L::VEC], s % L::VEC, T()));
+  }
+}
+
+// Write the thread's slots into the slot group that starts at word dst
+// of a (TM, 128) block of O.
+template <class T, class O, int SUB, class R>
+__device__ __forceinline__ void put_slots(uint4* dst, const R (&acc)[Layout<T, SUB>::SLOTS]) {
+  using S = Slots<T, O, SUB>;
+#pragma unroll
+  for (int w = 0; w < S::WORDS; ++w) {
+    dst[S::word(threadIdx.x, w)] = pack_word<O>(acc + w * S::PER);
+  }
+}
+
+// Issue the loads of UNROLL tiles k, k + splits, ... of the thread's
+// vectors.
+template <int UNROLL, int LOADS>
+__device__ __forceinline__ void load_tiles(uint4 (&v)[UNROLL][LOADS], const uint4* in,
+                                           long long k, long long splits,
+                                           long long tile_vecs, long long off) {
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+    for (int j = 0; j < LOADS; ++j) {
+      v[u][j] = ld_stream(in + (k + u * splits) * tile_vecs + off + j * TEAM);
+    }
+  }
+}
+
+// k8's pass: block (g, s), one team of TEAM threads, folds slot group g
+// of tiles s, s + splits, ... < tiles, in increasing order: UNROLL tiles'
+// loads issued, then combined in order, then the rest one at a time.
+// With one split it writes slot group g of `out`; with more, slot group g
+// of partial s, and with `fused` the last block of group g (tickets[g])
+// folds the group's partials, in split order from the identity, into
+// `out`. Without `fused` fold_splits does that in a second launch.
+template <int OP, class T, class O, int SUB, int UNROLL>
+__global__ void __launch_bounds__(TEAM)
+fold_period(const uint4* __restrict__ in, uint4* out, uint4* partials, unsigned* tickets,
+            long long tiles, long long tm, long long splits, int fused) {
   using R = decltype(widen(T()));
+  using L = Layout<T, SUB>;
+  using S = Slots<T, O, SUB>;
+  const long long tile_vecs = tm * LANES / L::VEC;
+  const long long off = static_cast<long long>(blockIdx.x) * L::GROUP + threadIdx.x;
+  const long long split = blockIdx.y;
+  R acc[L::SLOTS];
+#pragma unroll
+  for (int s = 0; s < L::SLOTS; ++s) acc[s] = identity<OP, R>();
+  long long k = split;
+  for (; k + (UNROLL - 1) * splits < tiles; k += UNROLL * splits) {
+    uint4 v[UNROLL][L::LOADS];
+    load_tiles(v, in, k, splits, tile_vecs, off);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) fold_in<OP, T, SUB>(acc, v[u]);
+  }
+  for (; k < tiles; k += splits) {
+    uint4 v[L::LOADS];
+#pragma unroll
+    for (int j = 0; j < L::LOADS; ++j) v[j] = ld_stream(in + k * tile_vecs + off + j * TEAM);
+    fold_in<OP, T, SUB>(acc, v);
+  }
+  const long long tile_words = tm * LANES / S::PER;
+  const long long group = static_cast<long long>(blockIdx.x) * S::GROUP_WORDS;
+  if (splits == 1) {
+    put_slots<T, O, SUB>(out + group, acc);
+    return;
+  }
+  put_slots<T, O, SUB>(partials + split * tile_words + group, acc);
+  if (!fused || !last_to_finish(tickets + blockIdx.x, static_cast<unsigned>(splits))) return;
+  // the group's partials, SPLIT_BATCH at a time, from L2 (other blocks
+  // wrote them), each batch loaded before its combines
+#pragma unroll
+  for (int s = 0; s < L::SLOTS; ++s) acc[s] = identity<OP, R>();
+  const uint4* part = partials + group;
+  for (long long s0 = 0; s0 < splits; s0 += SPLIT_BATCH) {
+    uint4 w[SPLIT_BATCH][S::WORDS];
+#pragma unroll
+    for (int b = 0; b < SPLIT_BATCH; ++b) {
+      if (s0 + b < splits) {
+#pragma unroll
+        for (int i = 0; i < S::WORDS; ++i) {
+          w[b][i] = __ldcg(part + (s0 + b) * tile_words + S::word(threadIdx.x, i));
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < SPLIT_BATCH; ++b) {
+      if (s0 + b < splits) {
+#pragma unroll
+        for (int s = 0; s < L::SLOTS; ++s) {
+          acc[s] = combine<OP>(acc[s], lane(w[b][s / S::PER], s % S::PER, O()));
+        }
+      }
+    }
+  }
+  put_slots<T, O, SUB>(out + group, acc);
+}
+
+// The second pass of k10 and of k8 above its fused split count: block g
+// of 1024 threads folds slot group g of the (splits, TM, 128) partials
+// over the splits, in order, from the identity, into `out`.
+template <int OP, class O, int SUB>
+__global__ void __launch_bounds__(THREADS)
+fold_splits(const O* __restrict__ in, O* __restrict__ out, long long tiles, long long tm,
+            long long splits) {
+  using R = decltype(widen(O()));
   constexpr int SLOTS = SUB * LANES / THREADS;  // 1, or 2 for bf16
   static_assert(SLOTS * THREADS == SUB * LANES, "a block owns whole slots");
   const long long group = static_cast<long long>(blockIdx.x) * SUB * LANES;
@@ -89,7 +257,7 @@ fold_period(const T* __restrict__ in, O* __restrict__ out, long long tiles,
   for (int j = 0; j < SLOTS; ++j) acc[j] = identity<OP, R>();
 #pragma unroll 4
   for (long long k = blockIdx.y; k < tiles; k += splits) {
-    const T* chunk = in + k * tile_elems + group;
+    const O* chunk = in + k * tile_elems + group;
 #pragma unroll
     for (int j = 0; j < SLOTS; ++j) {
       acc[j] = combine<OP>(acc[j], widen(chunk[threadIdx.x + j * THREADS]));
@@ -244,36 +412,55 @@ stream_period(const T* __restrict__ in, O* __restrict__ out, long long tiles,
   for (int s = 0; s < L::SLOTS; ++s) store(dst + L::slot(t, s), acc[s]);
 }
 
-// Pass 2 of both kernels: fold the (splits, TM, 128) partials over splits.
+// The second pass: fold the (splits, TM, 128) partials over splits.
 template <int OP, class O, int SUB>
 cudaError_t fold_partials(const void* partials, void* out, long long tm,
                           int splits, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(tm / SUB), 1);
-  fold_period<OP, O, O, SUB><<<grid, THREADS, 0, stream>>>(
+  fold_splits<OP, O, SUB><<<grid, THREADS, 0, stream>>>(
       static_cast<const O*>(partials), static_cast<O*>(out), splits, tm, 1);
   return cudaGetLastError();
 }
 
-// k8: pass 1 into `partials` (or straight into `out` when splits == 1),
-// then pass 2.
+// k8: pass 1 into `out` (one split), or into `partials` with the last
+// block of each slot group folding them (`fused`), or into `partials`
+// and then the second pass. `tickets` holds tm / SUB words, zero.
 struct K8 {
   const void* in;
   void* partials;
   void* out;
+  unsigned* tickets;
   long long tiles;
   long long tm;
   int splits;
+  int unroll;
+  int fused;
   cudaStream_t stream;
+
+  template <int OP, class T, class O, int SUB, int UNROLL>
+  cudaError_t launch() const {
+    const dim3 grid(static_cast<unsigned>(tm / SUB), static_cast<unsigned>(splits));
+    fold_period<OP, T, O, SUB, UNROLL><<<grid, TEAM, 0, stream>>>(
+        static_cast<const uint4*>(in), static_cast<uint4*>(out),
+        static_cast<uint4*>(partials), tickets, tiles, tm, splits, fused);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1 || fused) return err;
+    return fold_partials<OP, O, SUB>(partials, out, tm, splits, stream);
+  }
 
   template <int OP, class T, class O, int SUB>
   cudaError_t run() const {
-    const dim3 grid(static_cast<unsigned>(tm / SUB), static_cast<unsigned>(splits));
-    fold_period<OP, T, O, SUB><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(in), static_cast<O*>(splits > 1 ? partials : out),
-        tiles, tm, splits);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || splits == 1) return err;
-    return fold_partials<OP, O, SUB>(partials, out, tm, splits, stream);
+    if (tm % SUB != 0 || splits < 1 || splits > 65535) return cudaErrorInvalidValue;
+    switch (unroll) {
+      case 4:
+        return launch<OP, T, O, SUB, 4>();
+      case 8:
+        return launch<OP, T, O, SUB, 8>();
+      case 16:
+        return launch<OP, T, O, SUB, 16>();
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 };
 
@@ -310,11 +497,14 @@ struct K10 {
 }  // namespace
 
 // Each returns cudaGetLastError() after its launches: 0 on success.
+// `unroll` is k8's UNROLL: 4, 8 or 16.
 extern "C" int tr_k8_reduce(const void* in, void* partials, void* out,
-                            long long tiles, long long tm, int splits, int op,
+                            void* tickets, long long tiles, long long tm,
+                            int splits, int unroll, int fused, int op,
                             int dtype, void* stream) {
-  const K8 launch{in, partials, out, tiles, tm, splits,
-                  static_cast<cudaStream_t>(stream)};
+  const K8 launch{in,     partials, out,   static_cast<unsigned*>(tickets),
+                  tiles,  tm,       splits, unroll,
+                  fused,  static_cast<cudaStream_t>(stream)};
   return static_cast<int>(tr::by_op(op, dtype, launch));
 }
 

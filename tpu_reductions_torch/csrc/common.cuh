@@ -114,6 +114,23 @@ __device__ __forceinline__ uint4 ld_stream(const uint4* p) {
   return v;
 }
 
+// Whether this block is the last of `total` to take the ticket; the last
+// sets it back to zero. Every thread's writes before the call are visible
+// to the last block after it. (k8 and dd: each block of a slot group
+// takes the group's integer ticket; no float atomics.)
+__device__ __forceinline__ bool last_to_finish(unsigned* ticket, unsigned total) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == total - 1;
+    if (last) *ticket = 0;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
 // Calls launch.run<OP, T, O, SUB>(): T the element type, O the accumulator
 // type, SUB the accumulator rows of one slot group (8; 16 for bf16). bf16
 // SUM accumulates in float (the JAX package's accum_dtype); every other

@@ -47,8 +47,9 @@
 //     a third launch of one CTA for the last levels, instead of the
 //     ticket, was slower still (PERF.md). bench/passes.py --sweep times
 //     other geometries than the planner's.
-//   - The tickets live in a buffer of the stream's own (ops/dd_reduce
-//     keeps one per device and stream), zero when a launch starts: the
+//   - The tickets live in a buffer of the stream's own, which k8 shares
+//     (ops/kernel_reduce._tickets, one per device and stream), zero when
+//     a launch starts (last_to_finish, csrc/common.cuh): the
 //     last CTA of each ticket sets it back to zero. Launches in one stream
 //     run one after the other, and two streams never share a buffer.
 //
@@ -148,22 +149,6 @@ __device__ __forceinline__ void fold_vec(T (&hi)[VEC], T (&lo)[VEC], const uint4
                                          const uint4& l) {
 #pragma unroll
   for (int j = 0; j < VEC; ++j) Op::combine(hi[j], lo[j], lane(h, j, T()), lane(l, j, T()));
-}
-
-// Whether this CTA is the last of `total` to take the ticket; the last
-// sets it back to zero. Every thread's writes before the call are visible
-// to the last CTA after it.
-__device__ __forceinline__ bool last_to_finish(unsigned* ticket, unsigned total) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomicAdd(ticket, 1u) == total - 1;
-    if (last) *ticket = 0;
-  }
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
 }
 
 // Pass 1: CTA (g, s) folds slot group g of tiles s, s + splits, ... <

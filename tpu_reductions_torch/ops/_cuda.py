@@ -54,8 +54,10 @@ _SIGNATURES = {
         "tr_span_active_clusters": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
     },
     "accumulate": {
-        # tr_k8_reduce(in, partials, out, tiles, tm, splits, op, dtype, stream)
-        "tr_k8_reduce": [_VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT, _VP],
+        # tr_k8_reduce(in, partials, out, tickets, tiles, tm, splits, unroll,
+        #              fused, op, dtype, stream)
+        "tr_k8_reduce": [_VP, _VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT,
+                         _INT, _INT, _VP],
         # tr_k10_reduce(in, partials, out, tiles, tm, splits, depth, chunks,
         #               op, dtype, stream)
         "tr_k10_reduce": [_VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT, _INT,
@@ -188,12 +190,17 @@ def span_active_clusters(device: torch.device, cluster: int, op_name: str,
 
 
 def k8_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
-              tm: int, splits: int, op_name: str) -> None:
-    """Launch k8's two passes on x2d's device and current stream."""
+              tickets: torch.Tensor, tm: int, plan, op_name: str) -> None:
+    """Launch k8, laid out by `plan` (a kernel_reduce.PeriodPlan), on
+    x2d's device and current stream, with that stream's `tickets` (zero,
+    and left zero): its pass, whose last CTA of each slot group folds the
+    splits with `plan.fused`, and otherwise the fold of its partials."""
     lib = library("accumulate")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k8_reduce(x2d.data_ptr(), partials.data_ptr(),
-                               out.data_ptr(), x2d.shape[0] // tm, tm, splits,
+                               out.data_ptr(), tickets.data_ptr(),
+                               x2d.shape[0] // tm, tm, plan.splits,
+                               plan.unroll, int(plan.fused),
                                OP_CODES[op_name], DTYPE_CODES[x2d.dtype],
                                _stream(x2d))
     _check(lib, err, "k8")

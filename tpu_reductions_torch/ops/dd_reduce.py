@@ -39,7 +39,8 @@ import torch
 
 from tpu_reductions_torch.ops import _cuda
 from tpu_reductions_torch.ops.kernel_reduce import (LANES, _pow2_ceil,
-                                                    _sm_count, choose_tiling,
+                                                    _sm_count, _tickets,
+                                                    choose_tiling,
                                                     target_device)
 
 SUBLANES = 8     # rows of one slot group of the pair accumulator
@@ -218,9 +219,6 @@ DD_LEAVES = 4
 # folds all of the group's partials alone
 DD_CTAS_PER_SM = 2
 DD_MAX_SPLITS = 32
-# the tickets of one stream: one per slot group of the largest TM (2048
-# rows, choose_tiling's cap), then pass 2's
-DD_TICKETS = 2048 // SUBLANES + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,23 +257,6 @@ def _out_words(tm: int, plan: DdPlan) -> int:
     size = tm * LANES
     parts = 2 * plan.splits * size if plan.splits > 1 else 0
     return 2 * size + 4 + parts + 2 * plan.residues
-
-
-_TICKETS: dict = {}
-
-
-def _tickets(device: torch.device) -> torch.Tensor:
-    """The dd kernel's tickets for the current stream of `device`: zeroed
-    once, when the stream first launches the kernel, and left at zero by
-    every launch (the last CTA of each ticket resets it). Launches in one
-    stream run one after the other; two streams never share tickets."""
-    stream = torch.cuda.current_stream(device)
-    key = (stream.device_index, stream.cuda_stream)
-    tickets = _TICKETS.get(key)
-    if tickets is None:
-        tickets = _TICKETS[key] = torch.zeros(DD_TICKETS, dtype=torch.int32,
-                                              device=device)
-    return tickets
 
 
 def _check_planes(hi2d: torch.Tensor, lo2d: torch.Tensor, method: str,

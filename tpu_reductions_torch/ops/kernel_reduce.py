@@ -12,7 +12,7 @@ device (`choose_tiling`, `stage_padded`: --threads sets the TM tile rows,
                           _multipass_finish while more than --cputhresh
                           rows remain, then finished on the device or,
                           with --cpufinal, on the host;
-  k8  elementwise_call -> one (TM, 128) accumulator;
+  k8  elementwise_call -> one (TM, 128) accumulator, in one launch;
   k9  mxu_call         -> (8, 128): row 0 the column sums (SUM over float
                           dtypes only, on the tensor cores), rows 1-7 zero;
   k10 stream_call      -> k8's (TM, 128) accumulator, its input streamed
@@ -344,12 +344,43 @@ def _check_period(x2d: torch.Tensor, tm: int) -> None:
 def plan_splits(tiles: int, tm: int, sub: int, sm_count: int) -> int:
     """k8's and k10's splits: block (g, s) of the tm/sub slot groups x
     splits grid folds slot group g of the tiles s, s + splits, ... in
-    increasing order, and a second pass folds the splits in order. As
-    many splits as keep the grid within one wave of k8's 1024-thread
-    blocks (two per SM), at most one per tile. A function of the shape
-    and the SM count alone: k8 and k10 take the same, so they add in the
-    same order."""
+    increasing order, and the splits are then folded in order. As many
+    splits as keep the grid at two blocks per SM, at most one per tile. A
+    function of the shape and the SM count alone: k8 and k10 take the
+    same, so they add in the same order."""
     return max(1, min(tiles, 2 * sm_count // (tm // sub)))
+
+
+# k8 (csrc/accumulate.cu fold_period): the tiles a block loads before it
+# combines them (16 bytes a thread each; the kernel has 4, 8 and 16), and
+# the most splits whose partials the last block of each slot group folds
+# in the same launch; above it a second launch folds them. On an H100
+# (bench/passes.py --sweep, PERF.md) 4, 8 and 16 read within 0.5 us of
+# each other (at 16 ptxas combines before its last loads are issued), and
+# one launch was no slower than two at 33 splits for any dtype, but
+# slower for f64 and bf16 at 66 and above.
+K8_UNROLL = 8
+K8_UNROLLS = (4, 8, 16)
+K8_MAX_FUSED_SPLITS = 33
+
+
+@dataclasses.dataclass(frozen=True)
+class PeriodPlan:
+    """k8's launch: plan_splits' grid, `unroll` tiles loaded before they
+    are combined, and `fused`: whether the last block of each slot group
+    folds the splits (one launch) or a second launch does. Both fold the
+    splits in order from the identity, so both give the same bits."""
+    splits: int
+    unroll: int
+    fused: bool
+
+
+def plan_k8(tiles: int, tm: int, sub: int, sm_count: int) -> PeriodPlan:
+    """k8's geometry: plan_splits' grid, so the order of adds is k10's,
+    K8_UNROLL, and one launch up to K8_MAX_FUSED_SPLITS splits. A
+    function of the shape and the SM count alone."""
+    splits = plan_splits(tiles, tm, sub, sm_count)
+    return PeriodPlan(splits, K8_UNROLL, splits <= K8_MAX_FUSED_SPLITS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -408,24 +439,52 @@ def plan_k9(slabs: int, sm_count: int) -> MxuPlan:
     return MxuPlan(run, max(1, -(-slabs // (run * MXU_WARPS))))
 
 
-def _period_buffers(x2d: torch.Tensor, op: ReduceOpSpec, tm: int):
-    """(out, partials, plan_splits' splits) of a k8 or k10 launch. With
-    one split, pass 1 writes `out`."""
+def _period_sub(x2d: torch.Tensor, tm: int) -> int:
+    """The rows of a slot group of a staged tensor that k8 or k10 take;
+    raises on what they do not."""
     sub = sublanes_for(x2d.dtype)
     _check_staged(x2d, sub)
+    _check_aligned(x2d)
     if tm % sub:
         raise ValueError(f"tm={tm} is not a multiple of {sub} rows")
-    splits = plan_splits(x2d.shape[0] // tm, tm, sub, _sm_count(x2d.device))
+    return sub
+
+
+def _period_buffers(x2d: torch.Tensor, op: ReduceOpSpec, tm: int,
+                    splits: int):
+    """(out, partials) of a k8 or k10 launch of `splits` splits. With one
+    split, pass 1 writes `out`."""
     acc = _acc_dtype(x2d.dtype, op)
     out = torch.empty((tm, LANES), dtype=acc, device=x2d.device)
     partials = (torch.empty((splits * tm, LANES), dtype=acc,
                             device=x2d.device) if splits > 1 else out)
-    return out, partials, splits
+    return out, partials
+
+
+# The tickets of one stream (csrc/common.cuh last_to_finish), which k8
+# and dd share: one per slot group of the largest TM (2048 rows,
+# choose_tiling's cap, in groups of 8 rows), then dd's pass 2's
+TICKETS = 2048 // 8 + 1
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device) -> torch.Tensor:
+    """The tickets of the current stream of `device`: zeroed once, when
+    the stream first launches k8 or dd, and left at zero by every launch
+    (the last CTA of each ticket resets it). Launches in one stream run
+    one after the other; two streams never share tickets."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    tickets = _TICKETS.get(key)
+    if tickets is None:
+        tickets = _TICKETS[key] = torch.zeros(TICKETS, dtype=torch.int32,
+                                              device=device)
+    return tickets
 
 
 def _check_aligned(x2d: torch.Tensor) -> None:
-    """The 16-byte loads of k6, k7 and k9 and k10's bulk copies need a
-    16-byte aligned base (rows are 256 bytes or more, so every row is
+    """The 16-byte loads of k6-k9 and k10's bulk copies need a 16-byte
+    aligned base (rows are 256 bytes or more, so every row is
     then aligned)."""
     if x2d.data_ptr() % 16:
         raise ValueError("the staged tensor must start on a 16-byte "
@@ -434,14 +493,20 @@ def _check_aligned(x2d: torch.Tensor) -> None:
 
 def elementwise_call(x2d: torch.Tensor, op: ReduceOpSpec,
                      tm: int) -> torch.Tensor:
-    """k8: the (TM, 128) accumulator of a staged tensor, by plain loads
-    into registers. Its two CUDA passes (the split partials, then their
-    fold) count as one launch."""
+    """k8: the (TM, 128) accumulator of a staged tensor. Blocks of 256
+    threads fold their tiles with 16-byte loads, K8_UNROLL deep, and the
+    last block of each slot group folds the group's splits in the same
+    launch (plan_k8; above K8_MAX_FUSED_SPLITS a second CUDA launch does).
+    No float atomics: a tensor gives the same bits on every call, and
+    k10's. Counts one launch a call."""
     _check_period(x2d, tm)
     if x2d.device.type == "cpu":
         return elementwise_plain(x2d, op, tm)
-    out, partials, splits = _period_buffers(x2d, op, tm)
-    _cuda.k8_reduce(x2d, partials, out, tm, splits, op.name)
+    sub = _period_sub(x2d, tm)
+    plan = plan_k8(x2d.shape[0] // tm, tm, sub, _sm_count(x2d.device))
+    out, partials = _period_buffers(x2d, op, tm, plan.splits)
+    _cuda.k8_reduce(x2d, partials, out, _tickets(x2d.device), tm, plan,
+                    op.name)
     elementwise_call.launches += 1
     return out
 
@@ -467,11 +532,10 @@ def stream_call(x2d: torch.Tensor, op: ReduceOpSpec, tm: int,
         raise ValueError("stream_buffers must be positive")
     if x2d.device.type == "cpu":
         return stream_plain(x2d, op, tm)
-    out, partials, _ = _period_buffers(x2d, op, tm)
-    plan = plan_k10(x2d.shape[0] // tm, tm, sublanes_for(x2d.dtype),
+    plan = plan_k10(x2d.shape[0] // tm, tm, _period_sub(x2d, tm),
                     x2d.element_size(), stream_buffers,
                     _sm_count(x2d.device))
-    _check_aligned(x2d)
+    out, partials = _period_buffers(x2d, op, tm, plan.splits)
     _cuda.k10_reduce(x2d, partials, out, tm, plan, op.name)
     stream_call.launches += 1
     return out
