@@ -52,7 +52,19 @@ Run from the repository root on a machine with one NVIDIA GPU:
    up to 2 GiB, and `tpu_reductions_torch.bench.stream --serial-baseline`,
    each to PASSED, beside the rate of one pinned 256 MiB host-to-device
    copy (a stream is bound by the host link, not by device memory).
-6. Prints the card's name and power limit, a `kernels` JSON line, and as
+6. The native oracle: the library must build on the card's host; prints
+   the host time of its filler and Kahan oracle beside the numpy route's
+   at n = 2^24 (int32, float32), and each main-path row's payload and
+   oracle route. (bench/host.py compares the routes at 2^30.)
+7. The rest of the CLI, each path with the counters set to 0 just before
+   it: `--shmoo` over 2^10..2^28 on int32 SUM and chained float32 SUM,
+   every row PASSED; `--check` on k6-k10 and `--f64=dd` at n = 2^24, each
+   OK, and once with k6's plain version on a wrong op, which must FAIL
+   its row; `--trace` of k6 into out/smoke_trace_k6, whose trace must name
+   k6's launches; int32 SUM at n = 2^30 (4 GiB), staged in chunks, and
+   float32 SUM at 2^30 under TPU_REDUCTIONS_STAGE_CHUNK_BYTES=64 MiB,
+   each with the host time of its native fill, staging and oracle.
+8. Prints the card's name and power limit, a `kernels` JSON line, and as
    the last line `{"ok": true, "device": {...}}`.
 
 Any disagreement, failed row or missing launch raises, and the script
@@ -66,6 +78,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -79,14 +92,16 @@ import torch
 from tpu_reductions_torch.bench import passes
 from tpu_reductions_torch.bench.passes import (DEPTHS, MXU_DTYPES, N, bits,
                                                device_ms)
+from tpu_reductions_torch.ops.chain import CARD_BYTES_PER_S
 
 SIZES = (N, N + 37)
 DTYPES = ("int32", "float32", "float64", "bfloat16")
 METHODS = ("SUM", "MIN", "MAX")
-# H100 SXM published peaks at 700 W: the device-memory rate, and the
-# float32 rate outside the tensor cores (the one CUDA-core rate NVIDIA's
-# data sheet gives; a reduction does one combine per element on them)
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM published peaks at 700 W: the device-memory rate (the one
+# ops/chain.py sizes chained spans from), and the float32 rate outside the
+# tensor cores (the one CUDA-core rate NVIDIA's data sheet gives; a
+# reduction does one combine per element on them)
+HBM_BYTES_PER_S = CARD_BYTES_PER_S
 CORE_OPS_PER_S = 67e12
 # float32 additions of one dd_add (two-sum 6, renormalisation 5)
 DD_ADD_OPS = 11
@@ -164,6 +179,31 @@ RACES = (
     (["--method=SUM", "--type=int", f"--n={1 << 26}", "--grid=hbm",
       "--comparator"], ("k6", "k7", "k8", "k10")),
 )
+
+# The size sweeps over n = 2^10..2^28: (argv, the kernel every cell
+# launches); every row must PASS.
+SHMOO_RANGE = (10, 28)
+SHMOOS = ((["--method=SUM", "--type=int"], "k6"),
+          (["--method=SUM", "--type=float", "--timing=chained"], "k6"))
+# the oracle phase's payload size
+ORACLE_N = 1 << 24
+# --check rows at n = 2^24 and the kernel each must launch
+CHECK_ROWS = (
+    [(["--method=SUM", "--type=int", f"--kernel={k}"], f"k{k}")
+     for k in (6, 7, 8, 10)]
+    + [(["--method=SUM", "--type=float", "--kernel=9"], "k9"),
+       (["--method=SUM", "--type=double", "--f64=dd"], "dd")])
+TRACE_DIR = Path("out") / "smoke_trace_k6"
+# 4 GiB rows, over the 512 MiB staging threshold: (argv, environment)
+STAGING_N = 1 << 30
+STAGING_ROWS = (
+    (["--method=SUM", "--type=int", f"--n={STAGING_N}"], {}),
+    (["--method=SUM", "--type=float", f"--n={STAGING_N}"],
+     {"TPU_REDUCTIONS_STAGE_CHUNK_BYTES": str(64 << 20)}),
+)
+ROUTE_LINE = re.compile(r"payload and oracle: (\w+)")
+SHMOO_LINE = re.compile(r"shmoo (\w+) (\w+) n=(\d+) -> ([\d.]+) GB/s "
+                        r"\[(\w+)\]")
 
 
 def bound_of(nbytes: int, ops: int) -> dict:
@@ -587,10 +627,11 @@ def run_cli(entry, argv) -> tuple[int, str, float]:
     return rc, out.getvalue(), time.perf_counter() - t0
 
 
-def drive_main_path(driver, counted) -> dict:
+def drive_main_path(driver, counted, routes) -> dict:
     """Phase 3: every MAIN_ROWS row through the CLI to its status, each
-    launching its own kernel and no other. Returns each kernel's
-    launches over the whole main path."""
+    launching its own kernel and no other; each verified row's payload and
+    oracle route goes into `routes`. Returns each kernel's launches over
+    the whole main path."""
     for w in counted.values():
         w.launches = 0
     for argv, kernel, want_rc in MAIN_ROWS:
@@ -608,6 +649,9 @@ def drive_main_path(driver, counted) -> dict:
         if rose != ([kernel] if kernel else []):
             raise AssertionError(f"row {argv} launched {rose}, expected "
                                  f"{kernel}")
+        found = ROUTE_LINE.search(text)
+        if found:
+            routes.append((" ".join(argv), found[1]))
     return {k: w.launches for k, w in counted.items()}
 
 
@@ -691,6 +735,162 @@ def drive_stream(driver, stream_cli, counted, dev) -> dict:
     return {k: w.launches for k, w in counted.items()}
 
 
+def host_s(fn) -> tuple:
+    """(fn's result, its host seconds)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def oracle_phase(oracle, host_data, routes) -> None:
+    """Phase 6: the native library is in use; the host time of its filler
+    and Kahan oracle beside the numpy route's at n = 2^24 (at 2^30 the
+    [staging] rows time the native route; bench/host.py times both);
+    each main-path row's route (bfloat16 rows are numpy in both
+    packages)."""
+    if not oracle.native_available():
+        raise AssertionError("the native oracle did not build on this host")
+    for dtype in ("int32", "float32"):
+        native, fill_s = host_s(lambda: oracle.native_fill(ORACLE_N, dtype))
+        numpy_x, numpy_fill_s = host_s(lambda: host_data(ORACLE_N, dtype))
+        value, sum_s = host_s(lambda: oracle.host_reduce(native, "SUM"))
+        real = oracle._load
+        oracle._load = lambda: None      # the numpy route
+        try:
+            numpy_value, numpy_sum_s = host_s(
+                lambda: oracle.host_reduce(numpy_x, "SUM"))
+        finally:
+            oracle._load = real
+        print(f"  {dtype} n={ORACLE_N}: fill native {fill_s:.4f} s, numpy "
+              f"{numpy_fill_s:.4f} s; SUM oracle native {sum_s:.4f} s "
+              f"({value!r}), numpy {numpy_sum_s:.4f} s ({numpy_value!r})",
+              flush=True)
+    for argv, route in routes:
+        print(f"  {route:6s} {argv}")
+    wrong = [(argv, r) for argv, r in routes
+             if r != ("numpy" if "bfloat16" in argv else "native")]
+    if wrong:
+        raise AssertionError(f"rows off the native route: {wrong}")
+
+
+def run_row(driver, argv, want_rc=0) -> str:
+    """One CLI row to PASSED (or FAILED, exit 1); returns its output."""
+    rc, text, seconds = run_cli(driver.main, argv + ["--logfile="])
+    print(text, end="")
+    print(f"  ({seconds:.1f} s)", flush=True)
+    status = {0: "PASSED", 1: "FAILED"}[want_rc]
+    if rc != want_rc or f"&&&& tpu_reductions_torch {status}" not in text:
+        raise AssertionError(f"row {argv}: exit {rc}, expected {status}")
+    return text
+
+
+def shmoo_path(driver, counted, kr, registry, config, staging) -> None:
+    """Each SHMOOS sweep: 19 rows, every one PASSED, through its kernel."""
+    lo, hi = SHMOO_RANGE
+    for argv, kernel in SHMOOS:
+        before = counted[kernel].launches
+        cells = SHMOO_LINE.findall(run_row(
+            driver, argv + ["--shmoo", f"--shmoo-min={lo}",
+                            f"--shmoo-max={hi}"]))
+        if len(cells) != hi - lo + 1 or any(c[4] != "PASSED" for c in cells):
+            raise AssertionError(f"shmoo {argv}: rows {cells}")
+        print("  shmoo GB/s by n: " + ", ".join(
+            f"2^{int(c[2]).bit_length() - 1} {c[3]}" for c in cells))
+        if counted[kernel].launches == before:
+            raise AssertionError(f"shmoo {argv} never launched {kernel}")
+
+
+def check_path(driver, counted, kr, registry, config, staging) -> None:
+    """Each CHECK_ROWS row with --check: OK, PASSED, through its kernel
+    alone; then k6's plain version on a wrong op must FAIL the row."""
+    for argv, kernel in CHECK_ROWS:
+        before = {k: w.launches for k, w in counted.items()}
+        if "[OK]" not in run_row(driver, argv + ["--check"]):
+            raise AssertionError(f"--check {argv} did not report OK")
+        rose = [k for k, w in counted.items() if w.launches > before[k]]
+        if rose != [kernel]:
+            raise AssertionError(f"--check {argv} launched {rose}")
+    real = kr.single_pass_plain
+    kr.single_pass_plain = lambda x2d, op: real(x2d, registry.get_op("MAX"))
+    try:
+        text = run_row(driver, CHECK_ROWS[0][0] + ["--check"], want_rc=1)
+    finally:
+        kr.single_pass_plain = real
+    if "[MISMATCH]" not in text:
+        raise AssertionError("the perturbed --check row did not MISMATCH")
+
+
+def trace_path(driver, counted, kr, registry, config, staging) -> None:
+    """A k6 row with --trace: the trace must name k6's launches."""
+    run_row(driver, ["--method=SUM", "--type=int", "--kernel=6",
+                     f"--trace={TRACE_DIR}"])
+    trace = TRACE_DIR / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    k6 = [e for e in events if "fold_span" in str(e.get("name", ""))]
+    print(f"  {trace}: {len(events)} events, {len(k6)} of k6's pass "
+          "(fold_span)", flush=True)
+    if len(k6) < 3:
+        raise AssertionError(f"{trace} names {len(k6)} k6 launches")
+
+
+@contextlib.contextmanager
+def timed(module, name: str, calls: list, dev=None):
+    """Replace module.name, for the block, by a wrapper that appends each
+    call's host seconds to `calls` (to the card's end of its work when
+    `dev` is given)."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        if dev is not None:
+            torch.cuda.synchronize(dev)
+        calls.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def staging_path(driver, counted, kr, registry, config, staging) -> None:
+    """Each STAGING_ROWS row, under its environment, PASSED and staged in
+    chunks (device_put_chunked called once), with the host time of its
+    native fill, its staging (and rate) and its SUM oracle."""
+    fills, puts, sums = [], [], []
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with timed(driver.oracle, "native_fill", fills), \
+            timed(staging, "device_put_chunked", puts, dev), \
+            timed(driver, "host_reduce", sums):
+        for argv, env in STAGING_ROWS:
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                bound = config.stage_chunk_bytes()
+                for calls in (fills, puts, sums):
+                    del calls[:]
+                run_row(driver, argv)
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k)
+                    else:
+                        os.environ[k] = v
+            if len(puts) != 1:
+                raise AssertionError(f"{argv} {env}: not staged in chunks")
+            nbytes = STAGING_N * 4
+            print(f"  native fill {sum(fills):.4f} s; staged {nbytes} B in "
+                  f"{-(-nbytes // bound)} chunks of at most {bound} B: "
+                  f"{puts[0]:.4f} s, {nbytes / puts[0] / 1e9:.4f} GB/s; "
+                  f"SUM oracle {sum(sums):.4f} s", flush=True)
+
+
+CLI_PATHS = {"shmoo": shmoo_path, "check": check_path, "trace": trace_path,
+             "staging": staging_path}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -700,7 +900,9 @@ def main() -> int:
     from tpu_reductions_torch.bench import stream as stream_cli
     from tpu_reductions_torch.ops import _cuda, dd_reduce, oracle
     from tpu_reductions_torch.ops import kernel_reduce as kr
+    from tpu_reductions_torch import config
     from tpu_reductions_torch.ops import registry
+    from tpu_reductions_torch.utils import staging
     from tpu_reductions_torch.utils.rng import host_data
 
     t_all = time.perf_counter()
@@ -741,7 +943,8 @@ def main() -> int:
     counted = wrappers(kr, dd_reduce)
     print("[main path]", flush=True)
     t0 = time.perf_counter()
-    paths = {"main_path": drive_main_path(driver, counted)}
+    routes = []
+    paths = {"main_path": drive_main_path(driver, counted, routes)}
     print(f"[main path] {time.perf_counter() - t0:.1f} s, launches "
           f"{paths['main_path']}", flush=True)
     print("[races]", flush=True)
@@ -754,6 +957,19 @@ def main() -> int:
     paths["stream"] = drive_stream(driver, stream_cli, counted, dev)
     print(f"[stream] {time.perf_counter() - t0:.1f} s, launches "
           f"{paths['stream']}", flush=True)
+    print("[oracle]", flush=True)
+    t0 = time.perf_counter()
+    oracle_phase(oracle, host_data, routes)
+    print(f"[oracle] {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, path in CLI_PATHS.items():
+        print(f"[{name}]", flush=True)
+        t0 = time.perf_counter()
+        for w in counted.values():
+            w.launches = 0
+        path(driver, counted, kr, registry, config, staging)
+        paths[name] = {k: w.launches for k, w in counted.items()}
+        print(f"[{name}] {time.perf_counter() - t0:.1f} s, launches "
+              f"{paths[name]}", flush=True)
     for name in KERNELS:
         if paths["main_path"][name] == 0:
             raise AssertionError(f"the main path never launched {name}")

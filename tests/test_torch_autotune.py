@@ -14,6 +14,7 @@ from tpu_reductions.ops import oracle as jax_oracle
 from tpu_reductions.utils import logging as jax_logging
 from tpu_reductions_torch.bench import autotune
 from tpu_reductions_torch.config import ReduceConfig
+from tpu_reductions_torch.ops import oracle
 from tpu_reductions_torch.utils import logging as port_logging
 
 N = 16384
@@ -42,9 +43,10 @@ def test_grids_expand_like_the_jax_race(grid):
     ("SUM", "bfloat16", "mxu")])
 def test_candidates_get_the_jax_verdicts(monkeypatch, method, dtype, grid):
     """Each candidate PASSES or WAIVES in the port's race exactly when it
-    does in the JAX race (JAX's native filler off: both use the numpy
+    does in the JAX race (both native libraries off: both use the numpy
     payload)."""
     monkeypatch.setattr(jax_oracle, "_load", lambda: None)
+    monkeypatch.setattr(oracle, "_load", lambda: None)
     fields = dict(method=method, dtype=dtype, n=N, iterations=2, warmup=1,
                   timing="fetch", log_file=None)
     port = autotune.autotune(

@@ -674,3 +674,62 @@ def test_stream_pipelined_equals_serial_on_card(cuda_device, method, dtype):
     assert float(np.asarray(res.value, np.float64)) == serial["value"]
     ok, diff = verify(res.value, host_reduce(x, method), method, dtype, n)
     assert ok, diff
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chunked_stage_on_card_is_bit_identical(cuda_device, monkeypatch,
+                                                dtype):
+    """Staging through pinned slots in chunks gives the one-shot stage's
+    bits on the card, a ragged tail included, at every depth."""
+    from tpu_reductions_torch.utils.staging import (device_put_chunked,
+                                                    maybe_chunked_stage)
+    x = payload((1 << 20) + 37, dtype, "MIN")
+    op = get_op("MIN")
+    tm, p, t = kr.choose_tiling(x.numel(), 256, 64, dtype)
+    want = kr.stage_padded(x, tm, p, t, op, cuda_device)
+    monkeypatch.setenv("TPU_REDUCTIONS_STAGE_THRESHOLD_BYTES", "1")
+    for chunk in (4096, 1 << 16, 3 << 20):
+        monkeypatch.setenv("TPU_REDUCTIONS_STAGE_CHUNK_BYTES", str(chunk))
+        got = maybe_chunked_stage(x, *want.shape, op.identity(x.dtype),
+                                  cuda_device)
+        assert got.device.type == "cuda"
+        assert torch.equal(bits(got), bits(want))
+        for slots in (1, 3):
+            got = device_put_chunked(x, *want.shape, op.identity(x.dtype),
+                                     cuda_device, slots=slots)
+            assert torch.equal(bits(got), bits(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel, method, dtype, f64", [
+    (6, "SUM", "int32", "native"), (7, "MAX", "float32", "native"),
+    (8, "SUM", "float64", "native"), (9, "SUM", "float32", "native"),
+    (10, "MIN", "int32", "native"), (6, "SUM", "float64", "dd")])
+def test_consistency_check_on_card(cuda_device, kernel, method, dtype, f64):
+    from tpu_reductions_torch.utils.debug import consistency_check
+    rep = consistency_check(method, dtype, 1 << 20, kernel=kernel, f64=f64)
+    assert rep.ok, rep.describe()
+
+
+@pytest.mark.gpu
+def test_trace_names_the_kernel_launches(cuda_device, tmp_path):
+    import json
+
+    from tpu_reductions_torch.utils.debug import TRACE_FILE, trace_benchmark
+    op = get_op("SUM")
+    x2d = kr.stage_padded(payload(1 << 20, "int32", "SUM"),
+                          *kr.choose_tiling(1 << 20), op, cuda_device)
+    _, device_events, launches = trace_benchmark(
+        lambda t: kr.single_pass_call(t, op), x2d, trace_dir=str(tmp_path),
+        device=cuda_device)
+    assert device_events >= 3 and launches >= 3
+    names = [e.get("name", "") for e in json.loads(
+        (tmp_path / TRACE_FILE).read_text())["traceEvents"]]
+    assert sum("fold_span" in name for name in names) >= 3
+
+
+@pytest.mark.gpu
+def test_native_oracle_on_the_card_host(cuda_device):
+    from tpu_reductions_torch.ops import oracle
+    assert oracle.native_available()

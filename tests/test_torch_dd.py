@@ -31,7 +31,7 @@ from tpu_reductions.utils import logging as jax_logging
 from tpu_reductions.utils.rng import host_data as jax_host_data
 from tpu_reductions_torch.bench import driver
 from tpu_reductions_torch.config import ReduceConfig, parse_single_chip
-from tpu_reductions_torch.ops import chain, dd_reduce as dd
+from tpu_reductions_torch.ops import chain, dd_reduce as dd, oracle
 from tpu_reductions_torch.ops.registry import get_op
 from tpu_reductions_torch.utils import logging as port_logging
 from tpu_reductions_torch.utils.qa import QAStatus
@@ -44,9 +44,10 @@ CPU = torch.device("cpu")
 
 @pytest.fixture
 def numpy_oracle(monkeypatch):
-    """The JAX package with its native filler/oracle off (numpy route),
-    which is the only one the port has."""
+    """Both packages on their numpy payload and oracle (their native
+    fillers give other data for the same seed)."""
     monkeypatch.setattr(jax_oracle, "_load", lambda: None)
+    monkeypatch.setattr(oracle, "_load", lambda: None)
 
 
 def bits(a) -> np.ndarray:
@@ -422,7 +423,7 @@ def test_f64_flag_ignored_by_other_dtypes_and_native_default():
                      platform="cpu", iterations=2, log_file=None),
         logger=_logger())
     assert res.status == QAStatus.PASSED and res.kernel == 6
-    assert parse_single_chip(["--method=SUM"]).f64 == "native"
+    assert parse_single_chip(["--method=SUM"])[0].f64 == "native"
     res = driver.run_benchmark(
         ReduceConfig(method="SUM", dtype="float64", n=4096, kernel=9,
                      platform="cpu", iterations=2, log_file=None),

@@ -30,13 +30,6 @@ DIFFERENT = {
     "--platform": "gpu|cpu (default gpu) against the JAX cpu|tpu",
     "--backend": "auto|cuda|torch against the JAX auto|pallas|xla",
     "--f64": "the port only: float64's native or pair route",
-    "--iterations": "100 against None, which the JAX parser turns into "
-                    "100 with iterations_explicit",
-    "--shmoo": "the JAX package only, until the port has the sweep",
-    "--shmoo-min": "the JAX package only, until the port has the sweep",
-    "--shmoo-max": "the JAX package only, until the port has the sweep",
-    "--check": "the JAX package only: the interpret/XLA consistency check",
-    "--trace": "the JAX package only: jax.profiler capture",
 }
 
 
@@ -112,6 +105,9 @@ REFUSALS = [
     (["--n=many"], 2, "invalid int value: 'many'"),
     (["--kernel=six"], 2, "invalid int value: 'six'"),
     (["--bogus"], 2, "unrecognized arguments: --bogus"),
+    (["--shmoo", "--shmoo-min=0"], 2, "must satisfy 0 < min <= max"),
+    (["--shmoo", "--shmoo-min=12", "--shmoo-max=11"], 2,
+     "must satisfy 0 < min <= max"),
 ]
 
 
@@ -135,17 +131,21 @@ def test_valid_flags_parse_to_the_reference_values():
             "--streambuffers=2", "--cpufinal", "--cputhresh=4",
             "--warmup=2", "--device=0", "--logfile=", "--masterlog=m.txt",
             "--timing=bulk", "--chainreps=3", "--stat=median", "--stream",
-            "--chunk-bytes=65536", "--qatest", "--no-verify",
-            "--platform=cpu"]
-    port = port_config.parse_single_chip(argv)
-    ref, shmoo = jax_config.parse_single_chip(argv)
-    assert shmoo is None
-    for field in ("method", "dtype", "n", "seed", "threads", "kernel",
-                  "max_blocks", "stream_buffers", "cpu_final", "cpu_thresh",
-                  "warmup", "device", "log_file", "master_log", "timing",
-                  "chain_reps", "stat", "stream", "chunk_bytes", "qatest",
-                  "verify"):
-        assert getattr(port, field) == getattr(ref, field), field
+            "--chunk-bytes=65536", "--qatest", "--no-verify", "--check",
+            "--trace=tr", "--platform=cpu"]
+    fields = ("method", "dtype", "n", "seed", "threads", "kernel",
+              "max_blocks", "stream_buffers", "cpu_final", "cpu_thresh",
+              "iterations", "iterations_explicit", "warmup", "device",
+              "log_file", "master_log", "timing", "chain_reps", "stat",
+              "stream", "chunk_bytes", "qatest", "verify", "check",
+              "trace_dir")
+    for extra in ([], ["--iterations=7", "--shmoo", "--shmoo-min=3",
+                       "--shmoo-max=5"]):
+        port, port_shmoo = port_config.parse_single_chip(argv + extra)
+        ref, shmoo = jax_config.parse_single_chip(argv + extra)
+        assert port_shmoo == shmoo == ((3, 5) if extra else None)
+        for field in fields:
+            assert getattr(port, field) == getattr(ref, field), field
 
 
 def test_cli_refuses_chunk_bytes_zero_with_exit_1():

@@ -2,11 +2,13 @@
 the CPU: payload, op table, oracle, output rows, the driver's results and
 QA verdicts, the CLI, and chained timing.
 
-The JAX driver prefers the native C filler/oracle when csrc/liboracle.so
-is built (TPU_REDUCTIONS_NO_NATIVE turns that off), and the native filler
-gives different data for the same seed. The port has only the numpy
-payload and oracle, so the JAX side is compared with its native library
-switched off, which is what TPU_REDUCTIONS_NO_NATIVE=1 does.
+Both packages fill and verify the payload with their native library
+(csrc/oracle.cpp, built by g++ at first use) where it builds, and with
+numpy otherwise; the two routes give different data for the same seed.
+So a comparison puts both packages on the same route (tests/
+torch_routes.py): the `numpy_oracle` fixture switches both native
+libraries off, `use_route(..., "native")` holds both on, and the driver
+comparison runs on each.
 """
 
 import contextlib
@@ -40,6 +42,7 @@ from tpu_reductions_torch.utils import qa as port_qa
 from tpu_reductions_torch.utils.qa import QAStatus
 from tpu_reductions_torch.utils.rng import host_data
 from tpu_reductions_torch.utils.timing import Stopwatch
+from torch_routes import numpy_oracle, use_route  # noqa: F401 (fixtures)
 
 REPO = Path(__file__).resolve().parents[1]
 DTYPES = ("int32", "float32", "float64", "bfloat16")
@@ -49,12 +52,6 @@ def _bits(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy()
     return t.numpy()
-
-
-@pytest.fixture
-def numpy_oracle(monkeypatch):
-    """The JAX package with its native filler/oracle off (numpy route)."""
-    monkeypatch.setattr(jax_oracle, "_load", lambda: None)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -142,8 +139,11 @@ def _assert_run_matches_jax(method, dtype, kernel, cpu_final=False,
     jax_res = jax_driver.run_benchmark(
         JaxConfig(**fields),
         logger=jax_logging.BenchLogger(console=io.StringIO()))
+    x = jax_oracle.native_fill(fields["n"], dtype)   # the JAX driver's
+    if x is None:
+        x = jax_host_data(fields["n"], dtype)
     want = float(np.asarray(pallas_reduce(
-        jnp.asarray(jax_host_data(fields["n"], dtype)), method,
+        jnp.asarray(x), method,
         threads=16, max_blocks=8, kernel=kernel, cpu_final=cpu_final,
         stream_buffers=stream_buffers, interpret=True), dtype=np.float64))
     tol = registry.tolerance(method, dtype, fields["n"])
@@ -156,9 +156,19 @@ def _assert_run_matches_jax(method, dtype, kernel, cpu_final=False,
         (jax_res.n, jax_res.kernel, jax_res.iterations)
 
 
-@pytest.mark.parametrize("method, dtype, kernel, cpu_final", CASES)
-def test_run_benchmark_matches_jax(numpy_oracle, method, dtype, kernel,
-                                   cpu_final):
+ROUTED_CASES = [  # numpy keeps the ids the cases had before native ones
+    pytest.param(route, *case, id="-".join(
+        ([route] if route == "native" else []) + [str(v) for v in case]))
+    for route in ("numpy", "native") for case in CASES]
+
+
+@pytest.mark.parametrize("route, method, dtype, kernel, cpu_final",
+                         ROUTED_CASES)
+def test_run_benchmark_matches_jax(monkeypatch, route, method, dtype,
+                                   kernel, cpu_final):
+    """Both drivers on the same payload route give the same device value,
+    oracle value and verdict."""
+    use_route(monkeypatch, route)
     _assert_run_matches_jax(method, dtype, kernel, cpu_final)
 
 
@@ -203,9 +213,9 @@ def test_cli_waives_emptied_kernel(tmp_path):
 def test_kernels_8_to_10_run(kernel, tmp_path):
     """The parser takes --kernel=8|9|10 (and k10's --streambuffers), the
     one-shot entry point reduces with it, and the CLI PASSES."""
-    cfg = parse_single_chip(["--method=SUM", f"--kernel={kernel}",
-                             "--type=float", "--streambuffers=2",
-                             "--platform=cpu"])
+    cfg, _ = parse_single_chip(["--method=SUM", f"--kernel={kernel}",
+                                "--type=float", "--streambuffers=2",
+                                "--platform=cpu"])
     assert (cfg.kernel, cfg.stream_buffers) == (kernel, 2)
     x = torch.arange(1000, dtype=torch.float32)
     assert kr.kernel_reduce(x, "SUM", kernel=kernel, threads=16,

@@ -2,8 +2,9 @@
 bench/stream.py, ops/oracle.IncrementalOracle, utils/staging.py) held
 against the JAX package's, on the CPU.
 
-The same payload (both packages' numpy MT19937 filler) streams through
-both at the same small chunk bound. int32, MIN/MAX and the float64 pair
+The same payload streams through both at the same small chunk bound: both
+packages' numpy MT19937 filler, or, in the native cases, both packages'
+native filler (csrc/oracle.cpp). int32, MIN/MAX and the float64 pair
 path must give the same value bit for bit: wrapping adds, selections and
 the error-free pair folds do not depend on how XLA or torch orders a
 reduction. float32/bfloat16 SUM fold a chunk with each framework's own
@@ -31,17 +32,12 @@ from tpu_reductions_torch.ops.stream import (StreamReducer, iter_chunks,
                                              plan_chunks, run_stream)
 from tpu_reductions_torch.utils.rng import host_data
 from tpu_reductions_torch.utils.staging import ChunkStager
+from torch_routes import numpy_oracle, use_route  # noqa: F401 (fixtures)
 
 REPO = Path(__file__).resolve().parents[1]
 DTYPES = ("int32", "float32", "float64", "bfloat16")
 METHODS = ("SUM", "MIN", "MAX")
 CPU = torch.device("cpu")
-
-
-@pytest.fixture
-def numpy_oracle(monkeypatch):
-    """The JAX package with its native filler/oracle off (numpy route)."""
-    monkeypatch.setattr(jax_oracle, "_load", lambda: None)
 
 
 def as_float(v) -> float:
@@ -63,16 +59,29 @@ def test_plan_chunks_matches_jax(dtype):
         plan_chunks(0, dtype)
 
 
-@pytest.mark.parametrize("method", METHODS)
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_run_stream_matches_jax(numpy_oracle, method, dtype):
-    """Multi-chunk with a ragged tail: the value against the JAX stream's
-    and against the one-shot oracle."""
+# numpy keeps the ids the cases had before native ones
+ROUTED = [pytest.param(route, dtype, method, id="-".join(
+    ([route] if route == "native" else []) + [dtype, method]))
+    for route in ("numpy", "native") for dtype in DTYPES
+    for method in METHODS]
+
+
+@pytest.mark.parametrize("route, dtype, method", ROUTED)
+def test_run_stream_matches_jax(monkeypatch, route, dtype, method):
+    """Multi-chunk with a ragged tail, on the payload each package's CLI
+    takes on the route: the value against the JAX stream's and against
+    the one-shot oracle."""
+    use_route(monkeypatch, route)
     n = 4999
-    got = run_stream(host_data(n, dtype), method, chunk_bytes=4096,
-                     sync_every=2, device=CPU)
-    want = jax_stream.run_stream(jax_host_data(n, dtype), method,
-                                 chunk_bytes=4096, sync_every=2)
+    x = oracle.payload(n, dtype)
+    x_jax = jax_oracle.native_fill(n, dtype)
+    if x_jax is None:
+        x_jax = jax_host_data(n, dtype)
+    if dtype != "bfloat16":
+        np.testing.assert_array_equal(x.numpy(), x_jax)
+    got = run_stream(x, method, chunk_bytes=4096, sync_every=2, device=CPU)
+    want = jax_stream.run_stream(x_jax, method, chunk_bytes=4096,
+                                 sync_every=2)
     assert got.num_chunks == want.num_chunks > 2
     assert got.syncs == want.syncs and got.nbytes == want.nbytes
     tol = registry.tolerance(method, dtype, n)
@@ -80,8 +89,7 @@ def test_run_stream_matches_jax(numpy_oracle, method, dtype):
         assert as_float(got.value) == as_float(want.value)
     else:
         assert abs(as_float(got.value) - as_float(want.value)) <= tol
-    ok, diff = oracle.verify(got.value,
-                             oracle.host_reduce(host_data(n, dtype), method),
+    ok, diff = oracle.verify(got.value, oracle.host_reduce(x, method),
                              method, dtype, n)
     assert ok, diff
 

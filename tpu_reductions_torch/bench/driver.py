@@ -14,8 +14,15 @@ kernel (ops/dd_reduce.py), finished on the device to a scalar pair. That
 route has the JAX driver's gates too (its :444-446, 459-475, 485-493):
 kernel 9 WAIVEs float64, kernels 7, 8 and 10 WAIVE (the pair kernel has
 kernel 6's structure, so their label would misname the measurement), and
-so does --backend=torch. `--stream` runs the streaming pipeline instead
-(bench/stream.py).
+so does --backend=torch.
+
+The payload is the native filler's where the native oracle is in use, as
+in the JAX driver (its :497-500), else utils/rng's (ops/oracle.payload).
+`--check` holds the kernel, its plain version and the torch comparator to
+the host oracle before staging, and a disagreement FAILS the row
+(utils/debug.py); `--trace` captures the timed call with torch.profiler
+after staging. `--stream` runs the streaming pipeline instead
+(bench/stream.py), and `--shmoo` the size sweep (bench/sweep.py).
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from tpu_reductions_torch import device as device_mod
 from tpu_reductions_torch.config import (KERNEL_MXU, KERNEL_SINGLE_PASS,
                                          LIVE_KERNELS, ReduceConfig,
                                          parse_single_chip)
-from tpu_reductions_torch.ops import dd_reduce
+from tpu_reductions_torch.ops import dd_reduce, oracle
 from tpu_reductions_torch.ops.chain import make_chained_reduce
 from tpu_reductions_torch.ops.kernel_reduce import (choose_tiling,
                                                     make_staged_core,
@@ -42,9 +49,10 @@ from tpu_reductions_torch.ops.kernel_reduce import (choose_tiling,
 from tpu_reductions_torch.ops.oracle import host_reduce, host_value, verify
 from tpu_reductions_torch.ops.registry import get_op, tolerance
 from tpu_reductions_torch.ops.torch_reduce import make_torch_reduce
+from tpu_reductions_torch.utils.debug import (consistency_check,
+                                              trace_benchmark)
 from tpu_reductions_torch.utils.logging import BenchLogger, throughput_line
 from tpu_reductions_torch.utils.qa import QAStatus, qa_finish, qa_start
-from tpu_reductions_torch.utils.rng import host_data
 from tpu_reductions_torch.utils.timing import time_chained, time_fn
 
 NAME = "tpu_reductions_torch"
@@ -236,6 +244,7 @@ class _PendingResult:
             tol = tolerance(cfg.method, cfg.dtype, cfg.n)
             self.logger.log(f"GPU result = {dev_val!r}")
             self.logger.log(f"CPU result = {host_val!r} (tolerance {tol:g})")
+            self.logger.log(f"payload and oracle: {oracle.route(cfg.dtype)}")
         return BenchResult(cfg.method, cfg.dtype, cfg.n, self.backend,
                            cfg.kernel, self.gbps, self.avg_s,
                            cfg.iterations, status, dev_val, host_val, diff,
@@ -307,11 +316,40 @@ def _run_benchmark_inner(cfg: ReduceConfig, logger: BenchLogger,
         return _unrun(cfg, QAStatus.WAIVED,
                       "no native f64 on the dd route; use backend=cuda",
                       backend=backend)
-    x_host = host_data(cfg.n, cfg.dtype, rank=0, seed=cfg.seed)
+    x_host = oracle.payload(cfg.n, cfg.dtype, rank=0, seed=cfg.seed)
+
+    if cfg.check:
+        # refuse to time a kernel that disagrees with its plain version,
+        # the comparator or the oracle (the JAX driver's :502-518), at the
+        # row's own finish and depth
+        report = consistency_check(
+            cfg.method, cfg.dtype, min(cfg.n, 1 << 20), threads=cfg.threads,
+            max_blocks=cfg.max_blocks, kernel=cfg.kernel,
+            cpu_final=cfg.cpu_final, cpu_thresh=cfg.cpu_thresh,
+            stream_buffers=cfg.stream_buffers, seed=cfg.seed, f64=cfg.f64,
+            platform=cfg.platform, device_index=cfg.device)
+        logger.log(report.describe())
+        if not report.ok:
+            return _unrun(cfg, QAStatus.FAILED,
+                          "consistency check: " + report.describe(),
+                          backend=backend, device_result=report.kernel,
+                          oracle_result=report.oracle,
+                          abs_diff=abs(report.kernel - report.oracle))
 
     stage_fn, reduce_fn = _make_device_fn(cfg, backend, device)
     x_dev = stage_fn(x_host)             # host-to-device copy + pad, untimed
     device_mod.synchronize(device)
+
+    if cfg.trace_dir:
+        _, device_events, launches = trace_benchmark(
+            reduce_fn, x_dev, trace_dir=cfg.trace_dir, device=device)
+        logger.log(f"profiler trace written to {cfg.trace_dir} "
+                   f"({device_events} device events, {launches} kernel "
+                   "launches)")
+        if device_events < launches:
+            logger.log(f"WARNING: the trace in {cfg.trace_dir} misses "
+                       f"kernels: {device_events} device events for "
+                       f"{launches} launches")
 
     timing_mode = cfg.timing
     chained = (_make_chained_fn(cfg, backend, device)
@@ -357,7 +395,7 @@ def main(argv=None) -> int:
     """CLI entry: RUNNING marker, parse, run, terminal marker; returns the
     QA exit code."""
     qa_start(NAME, list(argv) if argv else sys.argv[1:])
-    cfg = parse_single_chip(argv)
+    cfg, shmoo = parse_single_chip(argv)
     logger = _make_logger(cfg)
     if cfg.stream:
         # the streaming pipeline replaces stage-then-reduce; the probe
@@ -375,5 +413,12 @@ def main(argv=None) -> int:
                    f"{row['gbps_sustained']} GB/s sustained, "
                    f"{row['chunks_per_s']} chunks/s")
         return qa_finish(NAME, QAStatus[row["status"]])
+    if shmoo:
+        # imported here: bench/sweep.py imports this module
+        from tpu_reductions_torch.bench.sweep import run_shmoo
+        results = run_shmoo(cfg, min_pow=shmoo[0], max_pow=shmoo[1],
+                            logger=logger)
+        ok = all(r.passed or r.status == QAStatus.WAIVED for r in results)
+        return qa_finish(NAME, QAStatus.PASSED if ok else QAStatus.FAILED)
     res = run_benchmark(cfg, logger=logger)
     return qa_finish(NAME, res.status)

@@ -37,13 +37,12 @@ import torch
 from tpu_reductions_torch import device as device_mod
 from tpu_reductions_torch.bench.resume import Checkpoint
 from tpu_reductions_torch.config import DTYPE_ALIASES, METHODS, PLATFORMS
-from tpu_reductions_torch.ops.oracle import IncrementalOracle
+from tpu_reductions_torch.ops.oracle import IncrementalOracle, payload
 from tpu_reductions_torch.ops.oracle import verify as verify_fn
 from tpu_reductions_torch.ops.stream import (StreamReducer, dtype_name,
                                              iter_chunks, partial_from_jsonable,
                                              partial_to_jsonable, plan_chunks,
                                              run_stream)
-from tpu_reductions_torch.utils.rng import host_data
 
 
 def run_serial_baseline(flat: torch.Tensor, method: str, *,
@@ -123,7 +122,8 @@ def run_stream_benchmark(method: str, dtype: str, n: int, *,
             f"{plan.num_chunks} (interrupted run; partial reused, "
             "chunks before it never re-staged)")
 
-    x = host_data(n, dtype, rank=0, seed=seed)
+    # the native filler's payload where it is in use, as the JAX CLI's
+    x = payload(n, dtype, rank=0, seed=seed)
 
     oracle_s = [0.0]             # host verification time, carved out of
     last_done = [start_chunk]    # the pipeline's wall clock

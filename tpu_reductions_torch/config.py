@@ -21,17 +21,36 @@ package's spelling and defaults:
                                ignore it
   --stream, --chunk-bytes      the streaming pipeline (ops/stream.py):
                                chunks of at most --chunk-bytes (default
-                               256 MiB, `stage_chunk_bytes`) copied to the
-                               card while the previous one is folded
+                               `stage_chunk_bytes`) copied to the card
+                               while the previous one is folded
+  --shmoo, --shmoo-min/-max    the size sweep 2^min..2^max (default 10,
+                               24; bench/sweep.run_shmoo)
+  --check                      the kernel (at the row's --cpufinal,
+                               --cputhresh and --streambuffers), its plain
+                               version and the torch comparator against
+                               the host oracle before the run
+                               (utils/debug.consistency_check); with
+                               --backend=torch the comparator is the timed
+                               one
+  --trace DIR                  a torch.profiler trace of the timed call
   --platform={gpu|cpu}         the card by default
-  --iterations --warmup --device --logfile --masterlog --qatest
-  --no-verify --timing --chainreps --stat
+  --iterations                 default 100; an explicit value also bounds
+                               a chained shmoo's span
+  --warmup --device --logfile --masterlog --qatest --no-verify --timing
+  --chainreps --stat
+
+Staging (utils/staging.py) reads two environment knobs, as the JAX
+package does: TPU_REDUCTIONS_STAGE_CHUNK_BYTES, the per-copy bound
+(default 256 MiB; --chunk-bytes overrides it for --stream), and
+TPU_REDUCTIONS_STAGE_THRESHOLD_BYTES, above which a payload stages in
+chunks (default twice the chunk bound).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Optional
 
 DTYPE_ALIASES = {
@@ -60,16 +79,36 @@ KERNEL_MXU = 9          # SUM over float dtypes, on the tensor cores
 KERNEL_STREAM = 10      # fed by a `stream_buffers`-deep copy pipeline
 STREAM_BUFFERS = 4      # k10's default depth
 
-# The streaming pipeline's per-chunk bound on a host-to-device copy.
+# The per-copy bound of a host-to-device copy (staging and the stream).
 DEFAULT_STAGE_CHUNK_BYTES = 256 << 20
 
 
+def _env_bytes(name: str) -> Optional[int]:
+    """A positive integer from the environment, else None."""
+    try:
+        v = int(os.environ[name])
+    except (KeyError, ValueError):
+        return None
+    return v if v > 0 else None
+
+
 def stage_chunk_bytes(override: Optional[int] = None) -> int:
-    """The per-chunk bound: `override` (the --chunk-bytes flag) when
-    positive, else 256 MiB."""
+    """The per-copy bound: `override` (the --chunk-bytes flag) when
+    positive, else TPU_REDUCTIONS_STAGE_CHUNK_BYTES, else 256 MiB."""
     if override is not None and override > 0:
         return int(override)
-    return DEFAULT_STAGE_CHUNK_BYTES
+    return _env_bytes("TPU_REDUCTIONS_STAGE_CHUNK_BYTES") \
+        or DEFAULT_STAGE_CHUNK_BYTES
+
+
+def stage_threshold_bytes(override: Optional[int] = None) -> int:
+    """The payload size above which staging goes in chunks: `override`
+    when positive, else TPU_REDUCTIONS_STAGE_THRESHOLD_BYTES, else twice
+    the effective chunk bound."""
+    if override is not None and override > 0:
+        return int(override)
+    return _env_bytes("TPU_REDUCTIONS_STAGE_THRESHOLD_BYTES") \
+        or 2 * stage_chunk_bytes()
 
 
 @dataclasses.dataclass
@@ -88,6 +127,8 @@ class ReduceConfig:
     backend: str = "auto"
     platform: str = "gpu"
     iterations: int = 100
+    iterations_explicit: bool = False   # --iterations given (bounds a
+                                        # chained shmoo's span)
     warmup: int = 1
     seed: int = 0
     device: Optional[int] = None     # --device index
@@ -95,6 +136,8 @@ class ReduceConfig:
     master_log: Optional[str] = None
     qatest: bool = False
     verify: bool = True
+    trace_dir: Optional[str] = None  # --trace: torch.profiler trace dir
+    check: bool = False              # --check: the consistency gate
     timing: str = "periter"
     chain_reps: int = 5
     stat: str = "mean"
@@ -177,14 +220,29 @@ def build_single_chip_parser() -> argparse.ArgumentParser:
                    help="Host-finish threshold on partial rows")
     p.add_argument("--backend", type=str, default="auto",
                    choices=list(BACKENDS))
-    p.add_argument("--iterations", type=int, default=100,
+    p.add_argument("--iterations", type=int, default=None,
                    help="Timed iterations (default 100)")
     p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--device", type=int, default=None,
                    help="CUDA device index")
+    p.add_argument("--shmoo", action="store_true",
+                   help="Run the size sweep 2^shmoo-min..2^shmoo-max")
+    p.add_argument("--shmoo-min", dest="shmoo_min", type=int, default=10,
+                   help="Smallest shmoo size as a power of two (default 10)")
+    p.add_argument("--shmoo-max", dest="shmoo_max", type=int, default=24,
+                   help="Largest shmoo size as a power of two (default 24)")
     p.add_argument("--logfile", dest="log_file", type=str,
                    default="reduction.txt")
     p.add_argument("--masterlog", dest="master_log", type=str, default=None)
+    p.add_argument("--trace", dest="trace_dir", type=str, default=None,
+                   help="Write a torch.profiler trace of the timed call "
+                        "into this directory")
+    p.add_argument("--check", action="store_true",
+                   help="Hold the kernel (at this row's --cpufinal, "
+                        "--cputhresh and --streambuffers), its plain "
+                        "version and the torch comparator against the host "
+                        "oracle before the run; the row FAILS when one "
+                        "disagrees")
     p.add_argument("--timing", type=str, default="periter", choices=TIMINGS,
                    help="periter=sync around every call; bulk=one synced "
                         "span; fetch=host round trip each call; chained="
@@ -206,14 +264,17 @@ def build_single_chip_parser() -> argparse.ArgumentParser:
                         "folded; sustained-GB/s and chunks/s metrics")
     p.add_argument("--chunk-bytes", dest="chunk_bytes", type=int,
                    default=None,
-                   help="Per-chunk bound of --stream (default 256 MiB)")
+                   help="Per-chunk bound of --stream (default: "
+                        "TPU_REDUCTIONS_STAGE_CHUNK_BYTES, else 256 MiB)")
     return p
 
 
-def parse_single_chip(argv=None) -> ReduceConfig:
-    """Parse CLI args into a ReduceConfig. As in the JAX package, a
-    missing or unknown --method or --type is a usage error (exit 2), and a
-    value ReduceConfig refuses exits 1 with its reason."""
+def parse_single_chip(argv=None):
+    """Parse CLI args into (ReduceConfig, shmoo): shmoo is None, or with
+    --shmoo the (min_pow, max_pow) size range. As in the JAX package, a
+    missing or unknown --method or --type is a usage error (exit 2), as is
+    a --shmoo range outside 0 < min <= max; a value ReduceConfig refuses
+    exits 1 with its reason."""
     p = build_single_chip_parser()
     ns = p.parse_args(argv)
     if ns.method is None:
@@ -224,16 +285,24 @@ def parse_single_chip(argv=None) -> ReduceConfig:
     if ns.method.upper() not in METHODS:
         p.error(f"--method must be one of {METHODS}, got {ns.method!r}")
     try:
-        return ReduceConfig(
+        cfg = ReduceConfig(
             method=ns.method, dtype=ns.dtype, n=ns.n, threads=ns.threads,
             kernel=ns.kernel, max_blocks=ns.max_blocks,
             stream_buffers=ns.stream_buffers, cpu_final=ns.cpu_final,
             cpu_thresh=ns.cpu_thresh,
             backend=ns.backend, platform=ns.platform,
-            iterations=ns.iterations, warmup=ns.warmup, seed=ns.seed,
+            iterations=(ns.iterations if ns.iterations is not None
+                        else 100),
+            iterations_explicit=ns.iterations is not None,
+            warmup=ns.warmup, seed=ns.seed,
             device=ns.device, log_file=ns.log_file,
             master_log=ns.master_log, qatest=ns.qatest, verify=ns.verify,
+            trace_dir=ns.trace_dir, check=ns.check,
             timing=ns.timing, chain_reps=ns.chain_reps, stat=ns.stat,
             f64=ns.f64, stream=ns.stream, chunk_bytes=ns.chunk_bytes)
     except ValueError as e:
         p.exit(1, f"{p.prog}: error: {e}\n")
+    if ns.shmoo and not 0 < ns.shmoo_min <= ns.shmoo_max:
+        p.error(f"--shmoo-min/--shmoo-max must satisfy 0 < min <= max, "
+                f"got {ns.shmoo_min}/{ns.shmoo_max}")
+    return cfg, ((ns.shmoo_min, ns.shmoo_max) if ns.shmoo else None)

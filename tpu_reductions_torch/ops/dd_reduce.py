@@ -42,6 +42,7 @@ from tpu_reductions_torch.ops.kernel_reduce import (LANES, _pow2_ceil,
                                                     _sm_count, _tickets,
                                                     choose_tiling,
                                                     target_device)
+from tpu_reductions_torch.utils.staging import maybe_chunked_stage
 
 SUBLANES = 8     # rows of one slot group of the pair accumulator
 _I32_MAX = np.int32(2**31 - 1)
@@ -406,11 +407,16 @@ def _make_stage_fn(method: str, threads: int, max_blocks: int,
     """stage_fn(payload) -> (hi2d, lo2d, s): both planes on `device`, and
     the scale the finish undoes."""
 
+    def put(plane: np.ndarray, pad) -> torch.Tensor:
+        host = torch.from_numpy(plane)
+        staged = maybe_chunked_stage(host, *plane.shape, pad, device)
+        return host.to(device) if staged is None else staged
+
     def stage_fn(x):
         x = x.numpy() if isinstance(x, torch.Tensor) else x
         hi, lo, _, s = stage_split_padded(x, method, threads, max_blocks)
-        return (torch.from_numpy(hi).to(device),
-                torch.from_numpy(lo).to(device), s)
+        pads = pad_pair(method)
+        return put(hi, pads[0].item()), put(lo, pads[1].item()), s
 
     return stage_fn
 

@@ -47,6 +47,7 @@ from tpu_reductions_torch.ops import _cuda
 from tpu_reductions_torch.ops.oracle import host_value
 from tpu_reductions_torch.ops.registry import (ReduceOpSpec, accum_dtype,
                                                get_op, torch_dtype)
+from tpu_reductions_torch.utils.staging import maybe_chunked_stage
 
 LANES = 128      # row width of the staged layout (the TPU's lane count)
 MXU_ACC_ROWS = 8    # k9's accumulator rows (the JAX kernel's, bf16 too)
@@ -101,10 +102,16 @@ def padded_2d_shape(n: int, tm: int, p: int, t: int) -> tuple[int, int]:
 def stage_padded(x: torch.Tensor, tm: int, p: int, t: int, op: ReduceOpSpec,
                  device: Optional[torch.device] = None) -> torch.Tensor:
     """Copy a flat payload into a (P*T*TM, 128) tensor on `device` (x's
-    own by default), padded with the op's identity."""
+    own by default), padded with the op's identity. A host payload above
+    the staging threshold goes in bounded chunks
+    (utils/staging.maybe_chunked_stage), with the same result."""
     flat = x.reshape(-1)
     device = flat.device if device is None else device
     rows, lanes = padded_2d_shape(flat.numel(), tm, p, t)
+    staged = maybe_chunked_stage(flat, rows, lanes, op.identity(flat.dtype),
+                                 device)
+    if staged is not None:
+        return staged
     out = torch.full((rows * lanes,), op.identity(flat.dtype),
                      dtype=flat.dtype, device=device)
     out[:flat.numel()].copy_(flat)

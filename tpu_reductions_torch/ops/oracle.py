@@ -1,23 +1,81 @@
-"""Host oracle: the CPU reference every device result is checked against.
+"""Host oracle: the CPU reference every device result is checked against,
+and the benchmark payload.
 
-The numpy route of tpu_reductions/ops/oracle.py (`host_reduce`, `verify`,
-`IncrementalOracle`): exact int64-then-wrap for int32 SUM, float64
-accumulation for reals (`math.fsum` for float64 below 2^22 elements),
-linear scans for MIN/MAX; and the same oracle fed one chunk at a time, for
-the streaming pipeline.
-The JAX package's native C++ oracle and filler (csrc/oracle.cpp) are not
-ported yet, so the port always uses this route and utils/rng's payload.
+The counterpart of tpu_reductions/ops/oracle.py, with its two routes:
+- native: csrc/oracle.cpp, built by g++ at first use and loaded with
+  ctypes (ops/_native.py): Kahan-compensated sums for reals (threaded from
+  2^22 elements), a wrapping int32 sum, linear min/max scans, and the
+  std::mt19937 payload filler;
+- numpy, when the library does not build or TPU_REDUCTIONS_NO_NATIVE is
+  set (read once, at the first load): exact int64-then-wrap for int32 SUM,
+  float64 accumulation for reals (`math.fsum` for float64 below 2^22
+  elements), numpy scans for MIN/MAX, and utils/rng's payload.
+bfloat16 has no native route: its payload and oracle are numpy on both.
+`IncrementalOracle` is the same oracle fed one chunk at a time, for the
+streaming pipeline.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+import os
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
+from tpu_reductions_torch.ops import _native
 from tpu_reductions_torch.ops.registry import get_op, tolerance
+from tpu_reductions_torch.utils.rng import host_data
+
+_SUFFIX = {"int32": "i32", "float32": "f32", "float64": "f64"}
+# from this many elements, real SUM runs the threaded Kahan sum
+_MT_THRESHOLD = 1 << 22
+
+
+@functools.cache
+def _load():
+    """The native library, or None: TPU_REDUCTIONS_NO_NATIVE is set, or it
+    did not build or load. Tried once per process."""
+    if os.environ.get("TPU_REDUCTIONS_NO_NATIVE"):
+        return None
+    try:
+        return _native.load()
+    except (RuntimeError, OSError):
+        return None
+
+
+def native_available() -> bool:
+    """Whether the native oracle and filler are in use."""
+    return _load() is not None
+
+
+def route(dtype: str) -> str:
+    """`native` or `numpy`: the route of a dtype's payload and oracle."""
+    return "native" if native_available() and dtype in _SUFFIX else "numpy"
+
+
+def native_fill(n: int, dtype: str, rank: int = 0, seed: int = 0
+                ) -> Optional[np.ndarray]:
+    """The payload from the native MT19937 filler, or None when the library
+    is not in use or the dtype has no native filler (bfloat16)."""
+    lib = _load()
+    if lib is None or dtype not in _SUFFIX:
+        return None
+    out = np.empty(n, dtype=dtype)
+    getattr(lib, f"oracle_fill_{_SUFFIX[dtype]}")(out, n, rank, seed)
+    return out
+
+
+def payload(n: int, dtype: str, rank: int = 0, seed: int = 0
+            ) -> torch.Tensor:
+    """The benchmark payload as a CPU tensor: the native filler's where it
+    is in use, as the JAX CLI's, else utils/rng's."""
+    x = native_fill(n, dtype, rank=rank, seed=seed)
+    if x is None:
+        return host_data(n, dtype, rank=rank, seed=seed)
+    return torch.from_numpy(x)
 
 
 def host_value(x: torch.Tensor) -> np.ndarray:
@@ -29,24 +87,45 @@ def host_value(x: torch.Tensor) -> np.ndarray:
     return x.numpy()
 
 
-def host_reduce(x: torch.Tensor, method: str) -> np.ndarray:
-    """The oracle reduction of the payload `x`. SUM of int32 wraps modulo
-    2^32 (the device accumulator's width); SUM of reals is float64;
+def host_reduce(x: Union[torch.Tensor, np.ndarray], method: str
+                ) -> np.ndarray:
+    """The oracle reduction of the payload `x` (a CPU tensor or a numpy
+    array). SUM of int32 wraps modulo 2^32 (the device accumulator's
+    width); SUM of reals is float64, Kahan-compensated on the native route;
     MIN/MAX return the input's value."""
     method = method.upper()
-    if method == "SUM":
-        if x.dtype == torch.bfloat16:
-            return np.float64(host_value(x).astype(np.float64).sum())
-        a = x.numpy()
-        if a.dtype == np.int32:
-            return np.int64(a.sum(dtype=np.int64)).astype(np.int32)
-        if a.dtype == np.float32:
-            return np.float64(a.sum(dtype=np.float64))
-        return np.float64(math.fsum(a.tolist()) if a.size < (1 << 22)
-                          else a.sum(dtype=np.float64))
-    if method in ("MIN", "MAX"):
-        return get_op(method).np_reduce(host_value(x))
-    raise ValueError(f"unknown method {method!r}")
+    if method not in ("SUM", "MIN", "MAX"):
+        raise ValueError(f"unknown method {method!r}")
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        a = host_value(x)
+        if method == "SUM":
+            return np.float64(a.astype(np.float64).sum())
+        return get_op(method).np_reduce(a)
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    x = np.ascontiguousarray(x)
+    dtype = str(x.dtype)
+    lib = _load() if dtype in _SUFFIX else None
+    if method != "SUM":
+        if lib is not None:
+            fn = getattr(lib, f"oracle_{method.lower()}_{_SUFFIX[dtype]}")
+            return x.dtype.type(fn(x, x.size))
+        return get_op(method).np_reduce(x)
+    if dtype == "int32":
+        if lib is not None:
+            return np.int32(lib.oracle_sum_i32(x, x.size))
+        return np.int64(x.sum(dtype=np.int64)).astype(np.int32)
+    if lib is not None:
+        suffix = _SUFFIX[dtype]
+        if x.size >= _MT_THRESHOLD:
+            fn = getattr(lib, f"oracle_kahan_sum_{suffix}_mt")
+            return np.float64(fn(x, x.size, min(8, lib.oracle_hw_threads())))
+        return np.float64(getattr(lib, f"oracle_kahan_sum_{suffix}")(
+            x, x.size))
+    if dtype == "float64":
+        return np.float64(math.fsum(x.tolist()) if x.size < _MT_THRESHOLD
+                          else x.sum(dtype=np.float64))
+    return np.float64(x.sum(dtype=np.float64))
 
 
 class IncrementalOracle:
@@ -54,8 +133,8 @@ class IncrementalOracle:
     (ops/stream.py), so that a streamed payload is verified without a
     second whole copy. SUM/MIN/MAX; SCAN and ARG* are not ported.
 
-    Each update runs host_reduce on the chunk and folds its value into the
-    running state: int32 SUM wraps modulo 2^32 like the device
+    Each update runs host_reduce on the chunk (native when the library is
+    in use) and folds its value into the running state: int32 SUM wraps modulo 2^32 like the device
     accumulator; real SUM carries a Kahan pair (total, compensation)
     across chunk boundaries; MIN/MAX keep the running extreme. state() and
     from_state() round-trip through JSON, so a resumed stream verifies
