@@ -64,6 +64,15 @@ Run from the repository root on a machine with one NVIDIA GPU:
    k6's launches; int32 SUM at n = 2^30 (4 GiB), staged in chunks, and
    float32 SUM at 2^30 under TPU_REDUCTIONS_STAGE_CHUNK_BYTES=64 MiB,
    each with the host time of its native fill, staging and oracle.
+   Then the flagship experiment, `tpu_reductions_torch.bench.experiment`,
+   into out/smoke_experiment: the n = 2^24 grid (float64 and int32 x
+   SUM/MIN/MAX, 3 repeats, 18 cells through k6), the chained SUM curves
+   (bfloat16 2^10..2^30, float64 ..2^28, int32 ..2^30), the roofline, the
+   report and the PDF (or its skip note). Every cell must be PASSED and
+   cached, averages.json must hold the 6 (dtype, op) averages, no
+   HBM-bound row may read above 1.05 of the roof; prints the averages
+   beside the reference GPU's, each curve's peak, N_1/2 and L2->HBM
+   cliff, and the experiment's host seconds.
 8. Prints the card's name and power limit, a `kernels` JSON line, and as
    the last line `{"ok": true, "device": {...}}`.
 
@@ -80,6 +89,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -887,8 +897,73 @@ def staging_path(driver, counted, kr, registry, config, staging) -> None:
                   f"SUM oracle {sum(sums):.4f} s", flush=True)
 
 
+EXPERIMENT_DIR = Path("out") / "smoke_experiment"
+EXPERIMENT_LINE = re.compile(r"^(sweep |shmoo |experiment|hazard cell|report:|"
+                             r"writeup)")
+
+
+def experiment_path(driver, counted, kr, registry, config, staging) -> None:
+    """The flagship experiment into EXPERIMENT_DIR, afresh: exit 0, every
+    grid and curve cell PASSED and cached, through k6; its artifacts; no
+    HBM fraction above 1.05; the averages, each curve's peak, N_1/2 and
+    cliff."""
+    from tpu_reductions_torch.bench import experiment, findings, sweep
+    from tpu_reductions_torch.bench.report import REFERENCE_SINGLE_GPU
+    shutil.rmtree(EXPERIMENT_DIR, ignore_errors=True)
+    rc, text, seconds = run_cli(experiment.main, [str(EXPERIMENT_DIR)])
+    (EXPERIMENT_DIR / "experiment.log").write_text(text)
+    print("".join(line for line in text.splitlines(keepends=True)
+                  if EXPERIMENT_LINE.match(line)), end="", flush=True)
+    grid = sweep.FLAGSHIP_GRID
+    cells = [json.loads(f.read_text()) for f in sorted(
+        (EXPERIMENT_DIR / "single_chip" / "raw_output").glob("run-*.json"))]
+    want = len(grid["dtypes"]) * len(grid["methods"]) * grid["repeats"]
+    if rc != 0 or len(cells) != want \
+            or any(c["status"] != "PASSED" for c in cells):
+        raise AssertionError(f"experiment: exit {rc}, {len(cells)} of "
+                             f"{want} grid cells cached")
+    if counted["k6"].launches == 0:
+        raise AssertionError("the experiment never launched k6")
+    avgs = json.loads((EXPERIMENT_DIR / "single_chip"
+                       / "averages.json").read_text())
+    if len(avgs) != 6:
+        raise AssertionError(f"averages.json: {sorted(avgs)}")
+    for key, gbps in avgs.items():
+        ref = REFERENCE_SINGLE_GPU[tuple(key.split())]
+        print(f"  {key:10s} {gbps:.4f} GB/s (reference GPU {ref}, "
+              f"{gbps / ref:.2f}x)")
+    rows = json.loads((EXPERIMENT_DIR / "shmoo.json").read_text())
+    expected = {(dt, 1 << p) for dt, top in experiment.CURVES
+                for p in range(experiment.CURVE_MIN_POW, top + 1)}
+    expected.add(("int32", 1 << experiment.HAZARD_POW))
+    got = {(r["dtype"], r["n"]) for r in rows if r["status"] == "PASSED"}
+    if got != expected:
+        raise AssertionError(f"curve cells missing: {expected - got}")
+    ann = json.loads((EXPERIMENT_DIR / "roofline.json").read_text())
+    over = [(r["dtype"], r["n"], r["hbm_fraction"]) for r in ann
+            if r.get("hbm_fraction", 0.0) > 1.05]
+    if over:
+        raise AssertionError(f"HBM fractions above 1.05: {over}")
+    for dtype, _ in experiment.CURVES:
+        peak = max((r for r in ann if r["dtype"] == dtype),
+                   key=lambda r: r["gbps"])
+        print(f"  {dtype} SUM curve: peak {peak['gbps']:.4f} GB/s at "
+              f"n=2^{peak['n'].bit_length() - 1} ({peak['regime']})")
+    for line in findings.half_power_points(ann) + findings.l2_cliff(ann):
+        print(f"  {line}")
+    figures = [f.name for f in EXPERIMENT_DIR.glob("bandwidth_vs_n.*")]
+    if not ((EXPERIMENT_DIR / "report.md").exists()
+            and (EXPERIMENT_DIR / "report.tex").exists()
+            and ({"bandwidth_vs_n.png", "bandwidth_vs_n.eps"} <= set(figures)
+                 or "bandwidth_vs_n.dat" in figures)
+            and ((EXPERIMENT_DIR / "writeup.pdf").exists()
+                 or "writeup skipped (no matplotlib)" in text)):
+        raise AssertionError(f"experiment artifacts missing: {figures}")
+    print(f"  ({seconds:.1f} s) figures {sorted(figures)}", flush=True)
+
+
 CLI_PATHS = {"shmoo": shmoo_path, "check": check_path, "trace": trace_path,
-             "staging": staging_path}
+             "staging": staging_path, "experiment": experiment_path}
 
 
 def main() -> int:

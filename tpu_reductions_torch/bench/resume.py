@@ -5,7 +5,8 @@ kernel race and the streaming probe (bench/stream.py) use: `Checkpoint`
 (one artifact `{**meta, "complete": bool, <rows_key>: [...]}`, written
 atomically after every row; a re-invocation against an artifact left
 `complete: false` by an interrupted run reuses its rows instead of
-measuring them again), `default_reusable` and `result_from_row`. A
+measuring them again), `default_reusable` and `result_from_row`; and the
+experiment sweep's per-cell cache files (`load_cell`, `store_cell`). A
 `complete: true` artifact is a finished run: running again measures
 afresh, since resume is interruption-proofing, not a cache.
 """
@@ -92,6 +93,23 @@ class Checkpoint:
         atomic_json_dump(self.path, {**self.meta, **(extra or {}),
                                      "complete": complete,
                                      self.rows_key: rows})
+
+
+def load_cell(path: str | os.PathLike) -> dict:
+    """One sweep-grid cell file as a dict; {} when it is absent, truncated
+    or not an object, so the caller measures the cell again (the read
+    half of sweep_all's resume, shared with seed_cache)."""
+    try:
+        data = json.loads(Path(path).read_text())
+    except (OSError, ValueError):
+        return {}
+    return data if isinstance(data, dict) else {}
+
+
+def store_cell(path: str | os.PathLike, row: dict) -> None:
+    """Persist one sweep-grid cell atomically, as one compact JSON line
+    (the write half of sweep_all's resume and of seed_cache)."""
+    atomic_json_dump(path, row, indent=None)
 
 
 def result_from_row(cfg, row: dict) -> BenchResult:

@@ -14,6 +14,8 @@ against an incomplete artifact restores the latest one and folds only the
 remaining chunks; since the folds cross the same chunk boundaries, its
 value equals an uninterrupted run's, bit for bit.
 
+`stream_markdown` formats finished probe artifacts as report.md's table.
+
 `--serial-baseline` stages every chunk first, each copy forced to
 completion with a device synchronize, then folds them all, then fetches:
 the serial shape on the same chunks and folds. It reports
@@ -190,6 +192,40 @@ def run_stream_benchmark(method: str, dtype: str, n: int, *,
     ck.add(final)
     ck.finalize()
     return final
+
+
+def stream_markdown(probes: dict) -> str:
+    """The streaming-pipeline table of report.md: pure formatting over
+    probe artifacts, {label: parsed artifact}, one row from each one's
+    final row (bench/regen.py folds stream_probe.json and
+    stream_hazard.json from the experiment dir)."""
+    lines = ["## streaming pipeline (committed probes)", "",
+             "| probe | method/dtype | n | chunks | GB/s sustained "
+             "| chunks/s | overlap | status |",
+             "|---|---|---|---|---|---|---|---|"]
+    any_row = False
+    for label in sorted(probes):
+        data = probes[label]
+        if not isinstance(data, dict):
+            continue
+        final = next((r for r in reversed(data.get("rows", []))
+                      if isinstance(r, dict) and r.get("final")), None)
+        if final is None:
+            continue
+        any_row = True
+        eff = final.get("overlap_efficiency")
+        lines.append(
+            f"| {label} | {data.get('method', '?')}/"
+            f"{data.get('dtype', '?')} | {data.get('n', '?')} "
+            f"| {final.get('num_chunks', '?')} "
+            f"| {final.get('gbps_sustained', '-')} "
+            f"| {final.get('chunks_per_s', '-')} "
+            f"| {f'x{eff}' if eff is not None else '-'} "
+            f"| {final.get('status', '?')} |")
+    if not any_row:
+        lines.append("| (no completed probes) | - | - | - | - | - "
+                     "| - | - |")
+    return "\n".join(lines)
 
 
 def main(argv=None) -> int:

@@ -1,22 +1,68 @@
-"""The size sweep (`--shmoo`): one verified row per n = 2^min..2^max.
+"""The size sweep (`--shmoo`) and the experiment sweep (`sweep_all`).
 
-The counterpart of `run_shmoo` and `_run_cells` in
-tpu_reductions/bench/sweep.py, with the same sizes, iteration counts and
-per-cell chained spans. The experiment sweep (`sweep_all`) and the rest of
-that module are not ported yet.
+The counterpart of `FLAGSHIP_GRID`, `cell_matches`, `run_shmoo`,
+`_run_cells` and `sweep_all` in tpu_reductions/bench/sweep.py, with the
+same sizes, iteration counts, per-cell chained spans, cache files and
+resume rules. `run_shmoo` gives one verified row per n = 2^min..2^max;
+`sweep_all` runs {dtypes} x {methods} x `repeats` cells at one n and
+caches each verified cell as `raw_output/run-{dtype}-{method}-{rep}.json`
+(the reference's per-job stdout files, which its getAvgs.sh averaged;
+bench/aggregate.py and bench/regen.py read them). The collective sweeps
+(`sweep_collective`, `shmoo_collective`) and the module's CLI wait for
+the port of the collectives.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import List, Optional
 
-from tpu_reductions_torch.bench.driver import (BenchResult, crash_result,
+from tpu_reductions_torch.bench.driver import (BenchResult,
+                                               _resolve_backend,
+                                               crash_result,
                                                resolved_timing, run_benchmark,
                                                run_benchmark_batch)
-from tpu_reductions_torch.config import ReduceConfig
+from tpu_reductions_torch.bench.resume import load_cell, store_cell
+from tpu_reductions_torch.config import KERNEL_SINGLE_PASS, ReduceConfig
 from tpu_reductions_torch.ops.chain import auto_chain_span
 from tpu_reductions_torch.utils.logging import BenchLogger
+
+# The flagship single-chip grid (the JAX package's FLAGSHIP_GRID): the
+# reference's n = 2^24 headline configuration (reduction.cpp:665), kernel
+# 6, chained timing; float64 first, so its rows land first when a run is
+# cut short. threads = 512 is the JAX package's crowned TPU tile, kept so
+# that both packages' grids are the same cells; it is no H100 tuning. One
+# definition, shared by bench/experiment.py, seed_cache.py and regen.py.
+FLAGSHIP_GRID = dict(
+    dtypes=("float64", "int32"), methods=("SUM", "MIN", "MAX"),
+    n=1 << 24, repeats=3, iterations=256, backend="cuda",
+    kernel=6, threads=512, timing="chained", chain_reps=5)
+
+
+def cell_matches(row: dict, *, method: str, dtype: str, n: int,
+                 backend: str, kernel: int, threads: int,
+                 iterations: int, timing: str, chain_reps: int) -> bool:
+    """Whether a cached cell is a verified measurement of exactly this
+    sweep configuration: sweep_all's resume test, shared with seed_cache
+    and regen. A cached row holds what ran (the resolved backend, never
+    "auto"; the resolved discipline), so the probe is resolved the same
+    way. Touches no device."""
+    probe = ReduceConfig(method=method, dtype=dtype, backend=backend,
+                         timing=timing, chain_reps=chain_reps,
+                         threads=threads, kernel=kernel)
+    want_timing = resolved_timing(probe)
+    return (row.get("status") == "PASSED"
+            and row.get("method", method) == method
+            and row.get("dtype", dtype) == dtype
+            and row.get("n") == n
+            and row.get("backend") == _resolve_backend(probe)
+            and row.get("kernel") == probe.kernel
+            and row.get("threads", 256) == threads
+            and row.get("iterations") == iterations
+            and row.get("timing", "periter") == want_timing
+            and (want_timing != "chained"
+                 or row.get("chain_reps") == chain_reps))
 
 
 def run_shmoo(cfg: ReduceConfig, *, min_pow: int = 10, max_pow: int = 24,
@@ -64,7 +110,8 @@ def run_shmoo(cfg: ReduceConfig, *, min_pow: int = 10, max_pow: int = 24,
     return results
 
 
-def _run_cells(cfgs, logger, on_result, log_row) -> List[BenchResult]:
+def _run_cells(cfgs, logger, on_result,
+               log_row=None) -> List[BenchResult]:
     """One cell at a time, a cell that raises becoming a FAILED row; so
     on_result fires, and can persist the row, after every cell.
 
@@ -77,8 +124,86 @@ def _run_cells(cfgs, logger, on_result, log_row) -> List[BenchResult]:
             res = run_benchmark(sub, logger=logger)
         except Exception as e:  # contained to this cell's row
             res = crash_result(sub, e, logger)
-        log_row(sub, res)
+        if log_row is not None:
+            log_row(sub, res)
         if on_result is not None:
             on_result(sub, res)
         results.append(res)
     return results
+
+
+def sweep_all(*, methods=("SUM", "MIN", "MAX"),
+              dtypes=("int32", "float64"), n: int = 1 << 24,
+              repeats: int = 5, iterations: int = 20,
+              backend: str = "auto", threads: int = 256,
+              kernel: int = KERNEL_SINGLE_PASS, timing: str = "periter",
+              chain_reps: int = 5, platform: str = "gpu",
+              out_dir: Optional[str] = None, resume: bool = True,
+              logger: Optional[BenchLogger] = None) -> List[dict]:
+    """The experiment grid: {dtypes} x {methods}, `repeats` runs each
+    (the reference's RETRY_COUNT, mpi/constants.h:5), seed = the repeat,
+    on `platform` (the card unless "cpu"). Each verified cell is cached in
+    out_dir/raw_output as run-{dtype}-{method}-{rep}.json.
+
+    With resume, a cached cell that cell_matches this configuration is
+    reused; a truncated, failed or other-configuration one runs again, and
+    a failure is never cached. An all-chained grid runs and caches one
+    cell at a time, so a run cut short keeps every finished cell; other
+    disciplines time the whole queue first (driver.run_benchmark_batch)
+    and cache at the end. Returns the rows in grid order."""
+    logger = logger or BenchLogger(None, None)
+    raw_dir = Path(out_dir) / "raw_output" if out_dir else None
+    if raw_dir:
+        raw_dir.mkdir(parents=True, exist_ok=True)
+    rows: List[Optional[dict]] = []
+    queued = []  # (row index, rep, cache file, cfg)
+    for dtype in dtypes:
+        for method in methods:
+            for rep in range(repeats):
+                fname = (raw_dir / f"run-{dtype}-{method}-{rep}.json"
+                         if raw_dir else None)
+                if resume and fname and fname.exists():
+                    row = load_cell(fname)
+                    if cell_matches(row, method=method, dtype=dtype, n=n,
+                                    backend=backend, kernel=kernel,
+                                    threads=threads, iterations=iterations,
+                                    timing=timing, chain_reps=chain_reps):
+                        rows.append(row)
+                        logger.log(f"sweep {dtype} {method} rep={rep} "
+                                   f"-> resumed ({row['gbps']:.4f} GB/s "
+                                   f"[{row['status']}])")
+                        continue
+                cfg = ReduceConfig(method=method, dtype=dtype, n=n,
+                                   iterations=iterations, backend=backend,
+                                   timing=timing, chain_reps=chain_reps,
+                                   threads=threads, kernel=kernel,
+                                   stat="median" if timing == "chained"
+                                   else "mean",
+                                   seed=rep, platform=platform,
+                                   log_file=None)
+                queued.append((len(rows), rep, fname, cfg))
+                rows.append(None)   # filled as its cell finishes
+    cells = iter(queued)
+
+    def on_result(cfg, res):
+        idx, rep, fname, _ = next(cells)
+        row = res.to_dict()
+        row["repeat"] = rep
+        row["threads"] = cfg.threads     # resume key; not in BenchResult
+        # the discipline that ran (chained may fall back to fetch), so a
+        # cached row can never pass for another discipline's
+        if row.get("timing") == "chained":
+            row["chain_reps"] = cfg.chain_reps
+        rows[idx] = row
+        logger.log(f"sweep {cfg.dtype} {cfg.method} rep={rep} "
+                   f"-> {res.gbps:.4f} GB/s [{res.status.name}]")
+        if fname and res.passed:
+            store_cell(fname, row)
+
+    queued_cfgs = [cfg for _, _, _, cfg in queued]
+    if queued_cfgs and all(resolved_timing(c) == "chained"
+                           for c in queued_cfgs):
+        _run_cells(queued_cfgs, logger, on_result)
+    else:
+        run_benchmark_batch(queued_cfgs, logger=logger, on_result=on_result)
+    return rows

@@ -1,6 +1,7 @@
-"""Log fan-out (console, per-app file, master file) and the canonical
-throughput row, byte-identical to the JAX package's
-(tpu_reductions/utils/logging.py; template from its lint/grammar.py)."""
+"""Log fan-out (console, per-app file, master file), the canonical
+throughput row and the averaged `DATATYPE OP NODES GB/sec` row, each
+byte-identical to the JAX package's (tpu_reductions/utils/logging.py;
+templates from its lint/grammar.py)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,12 @@ THROUGHPUT_TEMPLATE = (
     "{name}, Throughput = {gbps:.4f} GB/s, Time = {secs:.5f} s, "
     "Size = {n} Elements, NumDevsUsed = {devices}, "
     "Workgroup = {workgroup}")
+
+# The reference's collective rows (reduce.c:67-69), which its getAvgs.sh
+# averages: the files bench/aggregate.py reads and writes.
+COLLECTIVE_COLUMNS = ("DATATYPE", "OP", "NODES", "GB/sec")
+COLLECTIVE_HEADER = " ".join(COLLECTIVE_COLUMNS)
+COLLECTIVE_ROW_TEMPLATE = "{dtype} {op} {ranks} {gbps:.3f}"
 
 
 def throughput_line(gbps: float, secs: float, n: int, *,
