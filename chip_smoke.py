@@ -57,10 +57,23 @@ Run from the repository root on a machine with one NVIDIA GPU:
    at n = 2^24 (int32, float32), and each main-path row's payload and
    oracle route. (bench/host.py compares the routes at 2^30.)
 7. The rest of the CLI, each path with the counters set to 0 just before
-   it: `--shmoo` over 2^10..2^28 on int32 SUM and chained float32 SUM,
+   it: `[chain]`, the chain as one CUDA graph (ops/chain.py): k6, k8 and
+   the f64 pair route give the plain loop's bits at k = 1 and 17 and
+   count 1 + k launches, and the chained int32 SUM row at n = 2^24
+   through k6 takes at most 1.2 x (k6's reduce + the fold) an iteration,
+   both timed with CUDA events in the phase; `[spot]`, the spot CLI on
+   int32 and on the f64 pair route, SUM/MIN/MAX at 2^24, every row
+   PASSED; `[smoke]`, the smoke CLI, every case PASSED or WAIVED, its k8,
+   k9, k10 and dd cases launching their kernels; `[family]`, the
+   family-spot CLI at 2^24 with 64 segments, every cell verified and
+   PASSED; `[firstrow]` into out/smoke_firstrow, its row, snapshot and
+   three doubles PASSED; `[warm]`, the build cold and warm and every
+   surface's first call against a warm one, none failed;
+   `--shmoo` over 2^10..2^28 on int32 SUM and chained float32 SUM,
    every row PASSED; `--check` on k6-k10 and `--f64=dd` at n = 2^24, each
    OK, and once with k6's plain version on a wrong op, which must FAIL
-   its row; `--trace` of k6 into out/smoke_trace_k6, whose trace must name
+   its row; `--trace` of k6 into out/smoke_trace_k6 and of a chained k6
+   row (its chain's graph) into out/smoke_trace_chain, each trace naming
    k6's launches; int32 SUM at n = 2^30 (4 GiB), staged in chunks, and
    float32 SUM at 2^30 under TPU_REDUCTIONS_STAGE_CHUNK_BYTES=64 MiB,
    each with the host time of its native fill, staging and oracle.
@@ -204,6 +217,21 @@ CHECK_ROWS = (
     + [(["--method=SUM", "--type=float", "--kernel=9"], "k9"),
        (["--method=SUM", "--type=double", "--f64=dd"], "dd")])
 TRACE_DIR = Path("out") / "smoke_trace_k6"
+CHAIN_TRACE_DIR = Path("out") / "smoke_trace_chain"
+# [chain]: the graph chain's bits against the plain loop's at these k, and
+# the chained int32 SUM row at n = 2^24 through k6 (the grid's span and
+# reps), whose slope must stay within CHAIN_RATIO of k6's reduce plus the
+# fold, both timed with CUDA events in the same phase
+CHAIN_KS = (1, 17)
+CHAIN_ROW = dict(method="SUM", dtype="int32", n=N, kernel=6, iterations=256,
+                 chain_reps=5, timing="chained", stat="median",
+                 log_file=None)
+CHAIN_RATIO = 1.2
+# [spot]: int32 and the f64 scoreboard (through the pair kernel) at 2^24
+SPOT_ROWS = ((["--type=int"], "k6"), (["--type=double", "--f64=dd"], "dd"))
+# [family]: the grid at n = 2^24 with 64 segments
+FAMILY_N = N
+OUT = Path("out")
 # 4 GiB rows, over the 512 MiB staging threshold: (argv, environment)
 STAGING_N = 1 << 30
 STAGING_ROWS = (
@@ -831,16 +859,20 @@ def check_path(driver, counted, kr, registry, config, staging) -> None:
 
 
 def trace_path(driver, counted, kr, registry, config, staging) -> None:
-    """A k6 row with --trace: the trace must name k6's launches."""
-    run_row(driver, ["--method=SUM", "--type=int", "--kernel=6",
-                     f"--trace={TRACE_DIR}"])
-    trace = TRACE_DIR / "trace.json"
-    events = json.loads(trace.read_text())["traceEvents"]
-    k6 = [e for e in events if "fold_span" in str(e.get("name", ""))]
-    print(f"  {trace}: {len(events)} events, {len(k6)} of k6's pass "
-          "(fold_span)", flush=True)
-    if len(k6) < 3:
-        raise AssertionError(f"{trace} names {len(k6)} k6 launches")
+    """A k6 row with --trace, and a chained one, whose trace holds its
+    chain's graph: each trace must name k6's launches."""
+    for extra, trace_dir in (([], TRACE_DIR),
+                             (["--timing=chained", "--iterations=16"],
+                              CHAIN_TRACE_DIR)):
+        run_row(driver, ["--method=SUM", "--type=int", "--kernel=6",
+                         f"--trace={trace_dir}", *extra])
+        trace = trace_dir / "trace.json"
+        events = json.loads(trace.read_text())["traceEvents"]
+        k6 = [e for e in events if "fold_span" in str(e.get("name", ""))]
+        print(f"  {trace}: {len(events)} events, {len(k6)} of k6's pass "
+              "(fold_span)", flush=True)
+        if len(k6) < 3:
+            raise AssertionError(f"{trace} names {len(k6)} k6 launches")
 
 
 @contextlib.contextmanager
@@ -962,8 +994,176 @@ def experiment_path(driver, counted, kr, registry, config, staging) -> None:
     print(f"  ({seconds:.1f} s) figures {sorted(figures)}", flush=True)
 
 
-CLI_PATHS = {"shmoo": shmoo_path, "check": check_path, "trace": trace_path,
-             "staging": staging_path, "experiment": experiment_path}
+def _eager_chain(core, op, planes, k):
+    """The chain's plain loop on the card: the bits its graph must give."""
+    from tpu_reductions_torch.ops.chain import fold_into
+    planes = tuple(p.clone() for p in planes)
+    for _ in range(k):
+        last = core(*planes)
+        last = last[0] if isinstance(last, tuple) else last
+        fold_into(planes[0], last, op)
+    return last
+
+
+def chain_path(driver, counted, kr, registry, config, staging) -> None:
+    """The chain as one CUDA graph: k6, k8 and the pair route give the
+    plain loop's bits at every CHAIN_KS, each replay counted; then the
+    chained CHAIN_ROW, whose slope must stay within CHAIN_RATIO of k6's
+    reduce plus the fold."""
+    from tpu_reductions_torch.ops import dd_reduce as dd
+    from tpu_reductions_torch.ops.chain import fold_into, make_chained_reduce
+    from tpu_reductions_torch.utils.rng import host_data
+    dev = torch.device("cuda", torch.cuda.current_device())
+    op = registry.get_op("SUM")
+    stage, dd_core, _ = dd.make_dd_device_reduce("SUM", N, device=dev)
+    hi2d, lo2d, _ = stage(host_data(N, "float64").numpy())
+    cases = {"dd": (dd_core, (hi2d, lo2d))}
+    for name, kernel in (("k6", 6), ("k8", 8)):
+        _, stage_fn, core = kr.make_staged_core("SUM", N, "int32",
+                                                kernel=kernel, device=dev)
+        cases[name] = (core, (stage_fn(host_data(N, "int32")),))
+    for name, (core, planes) in cases.items():
+        for k in CHAIN_KS:
+            want = _eager_chain(core, op, planes, k)
+            chained = make_chained_reduce(core, op)
+            before = counted[name].launches
+            got = chained(planes if len(planes) > 1 else planes[0], k)
+            if not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"[chain] {name} k={k}: the graph's "
+                                     f"bits differ from the plain loop's")
+            if counted[name].launches - before != 1 + k:
+                raise AssertionError(f"[chain] {name} k={k}: counted "
+                                     f"{counted[name].launches - before} "
+                                     f"launches, not 1 + {k}")
+            chained.close()
+        print(f"  {name}: the graph gives the plain loop's bits at k = "
+              f"{CHAIN_KS}", flush=True)
+    x2d = cases["k6"][1][0]
+    reduce_ms = device_ms(lambda: kr.finish(kr.single_pass_call(x2d, op), op))
+    head = x2d[:8].clone()
+    last = torch.ones((), dtype=torch.int32, device=dev)
+    fold_ms = device_ms(lambda: fold_into(head, last, op))
+    res = driver.run_benchmark(config.ReduceConfig(**CHAIN_ROW))
+    slope_ms = res.avg_s * 1e3
+    bound_ms = CHAIN_RATIO * (reduce_ms + fold_ms)
+    print(f"  chained int32 SUM n={N} through k6: {slope_ms:.5f} ms an "
+          f"iteration ({res.gbps:.4f} GB/s) against reduce_ms "
+          f"{reduce_ms:.5f} + fold_ms {fold_ms:.5f} "
+          f"(ratio {slope_ms / (reduce_ms + fold_ms):.3f}, limit "
+          f"{CHAIN_RATIO}) [{res.status.name}]", flush=True)
+    if not res.passed or slope_ms > bound_ms:
+        raise AssertionError(f"[chain] slope {slope_ms:.5f} ms over "
+                             f"{bound_ms:.5f}, or the row did not PASS")
+
+
+def spot_path(driver, counted, kr, registry, config, staging) -> None:
+    """The spot CLI on SPOT_ROWS at n = 2^24: every row PASSED, each
+    through its kernel."""
+    from tpu_reductions_torch.bench import spot
+    shutil.rmtree(OUT / "smoke_spot", ignore_errors=True)
+    (OUT / "smoke_spot").mkdir(parents=True)
+    for argv, kernel in SPOT_ROWS:
+        out = OUT / "smoke_spot" / f"{argv[0][7:]}.json"
+        before = counted[kernel].launches
+        rc, text, seconds = run_cli(spot.main, argv + [f"--n={N}",
+                                                       f"--out={out}"])
+        print(text, end="")
+        rows = json.loads(out.read_text())["rows"]
+        print(f"  ({seconds:.1f} s)", flush=True)
+        if rc != 0 or [r["status"] for r in rows] != ["PASSED"] * 3:
+            raise AssertionError(f"spot {argv}: exit {rc}")
+        if counted[kernel].launches == before:
+            raise AssertionError(f"spot {argv} never launched {kernel}")
+
+
+def smoke_path(driver, counted, kr, registry, config, staging) -> None:
+    """The smoke CLI: every case PASSED or WAIVED; its dd cases launch
+    the pair kernel, its k8, k9 and k10 cases theirs."""
+    from tpu_reductions_torch.bench import smoke
+    out = OUT / "smoke_smoke" / "smoke.json"
+    shutil.rmtree(out.parent, ignore_errors=True)
+    out.parent.mkdir(parents=True)
+    rc, text, seconds = run_cli(smoke.main, [f"--out={out}"])
+    print(text, end="")
+    print(f"  ({seconds:.1f} s)", flush=True)
+    cases = json.loads(out.read_text())["cases"]
+    bad = [c["name"] for c in cases
+           if c["status"] not in ("PASSED", "WAIVED")]
+    if rc != 0 or bad or len(cases) != len(smoke.CASES) + len(
+            smoke.FAMILY_CASES):
+        raise AssertionError(f"smoke: exit {rc}, not verified: {bad}")
+    missing = [k for k in ("k8", "k9", "k10", "dd")
+               if counted[k].launches == 0]
+    if missing:
+        raise AssertionError(f"smoke never launched {missing}")
+
+
+def family_path(driver, counted, kr, registry, config, staging) -> None:
+    """The family-spot CLI at n = 2^24 with 64 segments: every cell
+    verified and PASSED."""
+    from tpu_reductions_torch.bench import family_spot
+    out = OUT / "smoke_family" / "family_spot.json"
+    shutil.rmtree(out.parent, ignore_errors=True)
+    out.parent.mkdir(parents=True)
+    rc, text, seconds = run_cli(family_spot.main, [
+        f"--n={FAMILY_N}", "--segments=64", f"--out={out}"])
+    print(text, end="")
+    print(f"  ({seconds:.1f} s)", flush=True)
+    rows = json.loads(out.read_text())["rows"]
+    if rc != 0 or len(rows) != len(family_spot.family_cells()) \
+            or any(r["status"] != "PASSED" for r in rows):
+        raise AssertionError(f"family_spot: exit {rc}")
+
+
+def firstrow_path(driver, counted, kr, registry, config, staging) -> None:
+    """The firstrow CLI into out/: the headline row PASSED, its snapshot
+    beside it, the three doubles PASSED through the pair kernel."""
+    from tpu_reductions_torch.bench import firstrow, headline
+    out = OUT / "smoke_firstrow" / "FIRSTROW.json"
+    shutil.rmtree(out.parent, ignore_errors=True)
+    out.parent.mkdir(parents=True)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, text, seconds = run_cli(firstrow.main, [f"--out={out}"])
+    print(text + "".join(line for line in err.getvalue().splitlines(True)
+                         if line.startswith(("firstrow:", "# doubles:"))),
+          end="")
+    print(f"  ({seconds:.1f} s) candidate {headline.CANDIDATES[0]}",
+          flush=True)
+    data = json.loads(out.read_text())
+    doubles = json.loads(Path(f"{out}.doubles.json").read_text())["rows"]
+    if rc != 0 or not data["complete"] or data["row"]["status"] != "PASSED" \
+            or not Path(f"{out}.snapshot.json").exists() \
+            or [r["status"] for r in doubles] != ["PASSED"] * 3:
+        raise AssertionError(f"firstrow: exit {rc}")
+    if counted["dd"].launches == 0:
+        raise AssertionError("firstrow's doubles never launched dd")
+
+
+def warm_path(driver, counted, kr, registry, config, staging) -> None:
+    """The warm CLI: the build cold and warm, every surface's first call
+    against a warm one, none failed."""
+    from tpu_reductions_torch.bench import warm
+    out = OUT / "smoke_warm" / "compile_ledger.json"
+    shutil.rmtree(out.parent, ignore_errors=True)
+    out.parent.mkdir(parents=True)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, text, seconds = run_cli(warm.main, [f"--out={out}"])
+    print(err.getvalue() + text, end="")
+    print(f"  ({seconds:.1f} s)", flush=True)
+    rows = json.loads(out.read_text())["surfaces"]
+    want = {(s, v) for s in [warm.BUILD_SURFACE]
+            + [s for s, _ in warm.surfaces()] for v in ("cold", "warm")}
+    if rc != 0 or {(r["surface"], r["verdict"]) for r in rows} != want:
+        raise AssertionError(f"warm: exit {rc}")
+
+
+CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
+             "family": family_path, "firstrow": firstrow_path,
+             "warm": warm_path, "shmoo": shmoo_path, "check": check_path,
+             "trace": trace_path, "staging": staging_path,
+             "experiment": experiment_path}
 
 
 def main() -> int:

@@ -733,3 +733,110 @@ def test_trace_names_the_kernel_launches(cuda_device, tmp_path):
 def test_native_oracle_on_the_card_host(cuda_device):
     from tpu_reductions_torch.ops import oracle
     assert oracle.native_available()
+
+
+def _eager_chain(core, op, planes, k):
+    """The chain's plain loop on the card: the bits the graph must give."""
+    from tpu_reductions_torch.ops.chain import fold_into
+    planes = tuple(p.clone() for p in planes)
+    last = None
+    for _ in range(k):
+        last = core(*planes)
+        last = last[0] if isinstance(last, tuple) else last
+        fold_into(planes[0], last, op)
+    return last
+
+
+def _chain_case(name, device):
+    """(core, op, planes, counted wrapper) of a chained int32/f64 SUM at a
+    ragged n through k6, k8 or the pair route."""
+    from tpu_reductions_torch.ops import dd_reduce as dd
+    n = (1 << 20) + 37
+    if name == "dd":
+        stage, core, _ = dd.make_dd_device_reduce("SUM", n, device=device)
+        hi2d, lo2d, _ = stage(payload(n, "float64", "SUM").numpy())
+        return core, get_op("SUM"), (hi2d, lo2d), dd.dd_call
+    kernel = {"k6": 6, "k8": 8}[name]
+    op, stage_fn, core = kr.make_staged_core("SUM", n, "int32",
+                                             kernel=kernel, device=device)
+    wrapper = kr.single_pass_call if kernel == 6 else kr.elementwise_call
+    return core, op, (stage_fn(payload(n, "int32", "SUM")),), wrapper
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 17])
+@pytest.mark.parametrize("name", ["k6", "k8", "dd"])
+def test_graph_chain_gives_the_eager_chains_bits(cuda_device, name, k):
+    """On the card a chain is one CUDA graph a trip: its scalar has the
+    plain loop's bits, the staged tensors stay as staged, and the
+    counter reads the warm-up step's launch, then the captured launches
+    (one an iteration) times the replays."""
+    from tpu_reductions_torch.ops.chain import make_chained_reduce
+    core, op, planes, wrapper = _chain_case(name, cuda_device)
+    before = tuple(p.clone() for p in planes)
+    want = _eager_chain(core, op, planes, k)
+    chained = make_chained_reduce(core, op)
+    arg = planes if len(planes) > 1 else planes[0]
+    start = wrapper.launches
+    got = [chained(arg, k) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert wrapper.launches - start == 1 + 2 * k
+    for g in got:
+        assert torch.equal(bits(g), bits(want))
+    assert all(torch.equal(p, b) for p, b in zip(planes, before))
+    chained.close()
+
+
+@pytest.mark.gpu
+def test_chained_row_trace_names_the_graphs_kernels(cuda_device, tmp_path):
+    """--trace of a chained row traces its chain's graph replays, and the
+    trace names k6's launches inside the graph."""
+    import io
+    import json
+
+    from tpu_reductions_torch.bench import driver
+    from tpu_reductions_torch.config import ReduceConfig
+    from tpu_reductions_torch.utils.debug import TRACE_FILE
+    from tpu_reductions_torch.utils.logging import BenchLogger
+    res = driver.run_benchmark(
+        ReduceConfig(method="SUM", dtype="int32", n=1 << 22,
+                     timing="chained", iterations=16, chain_reps=2,
+                     trace_dir=str(tmp_path), log_file=None),
+        logger=BenchLogger(console=io.StringIO()))
+    assert res.passed
+    names = [e.get("name", "") for e in json.loads(
+        (tmp_path / TRACE_FILE).read_text())["traceEvents"]]
+    assert sum("fold_span" in name for name in names) >= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method, dtype, impl", [
+    ("SCAN", "int32", "xla-cumsum"), ("SCAN", "float32", "xla-cumsum"),
+    ("SCAN", "float32", "mxu-scan"), ("SEGSUM", "int32", "seg"),
+    ("SEGMIN", "float32", "seg"), ("SEGMAX", "int32", "seg"),
+    ("ARGMIN", "float32", "argk"), ("ARGMAX", "int32", "argk")])
+def test_family_cells_verify_on_card(cuda_device, method, dtype, impl):
+    """Each family cell verifies against the host oracle on the card, and
+    its chained digest through the graph gives the plain loop's value."""
+    from tpu_reductions_torch.bench.family_spot import (_cell_fns, _verify,
+                                                        measure_cell)
+    from tpu_reductions_torch.ops.chain import make_chained_reduce
+    from tpu_reductions_torch.ops.oracle import host_value
+    from tpu_reductions_torch.utils.rng import host_data
+    n = 1 << 20
+    x_host = host_data(n, dtype)
+    x = x_host.to(cuda_device)
+    full, core, offsets = _cell_fns(method, dtype, impl, x, 64, 0)
+    ok, err = _verify(method, dtype, x_host.numpy(), host_value(full(x)),
+                      offsets)
+    assert ok, err
+    op = get_op(method)
+    want = _eager_chain(core, op, (x.reshape(-1, 128),), 5)
+    got = make_chained_reduce(core, op)(x.reshape(-1, 128), 5)
+    if dtype == "float32" and method in ("SCAN", "SEGSUM"):
+        # atomics and blocked products add in an order of their own
+        assert float(got) == pytest.approx(float(want), rel=1e-6)
+    else:
+        assert torch.equal(got.cpu(), want.cpu())
+    row = measure_cell(method, dtype, impl, n, 64, 0, 2, cuda_device)
+    assert row["status"] == "PASSED" and row["gbps"] > 0

@@ -132,9 +132,7 @@ def test_incremental_oracle_matches_jax(numpy_oracle, method, dtype, values):
         got.update(c)
         want.update(cj)
         assert as_float(got.value()) == as_float(want.value())
-        ref = want.state()
-        del ref["extreme_idx"]           # ARG* is not ported
-        assert got.state() == ref
+        assert got.state() == want.state()
         if i == 1:
             revived = oracle.IncrementalOracle.from_state(
                 json.loads(json.dumps(got.state())))

@@ -49,3 +49,21 @@ def numpy_oracle(monkeypatch):
 def both_native(monkeypatch):
     """Both packages on their native library."""
     use_route(monkeypatch, "native")
+
+
+def fixed_slope(chained, x, k_lo, k_hi, reps=5, **_):
+    """time_chained's stand-in for both packages: the chain runs once
+    (through its real machinery) and the slope is 1 ms. At test sizes the
+    host's noise would decide between PASSED and WAIVED."""
+    from tpu_reductions_torch.utils.timing import Stopwatch
+    chained(x, k_lo)
+    return Stopwatch(total_s=1e-3, sessions=1, samples=[1e-3])
+
+
+@pytest.fixture
+def fixed_slopes(monkeypatch):
+    """Both drivers' chained slopes fixed at 1 ms (fixed_slope)."""
+    from tpu_reductions.utils import timing as jax_timing
+    from tpu_reductions_torch.bench import driver
+    monkeypatch.setattr(driver, "time_chained", fixed_slope)
+    monkeypatch.setattr(jax_timing, "time_chained", fixed_slope)

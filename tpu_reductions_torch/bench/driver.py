@@ -174,18 +174,24 @@ def _make_chained_fn(cfg: ReduceConfig, backend: str, device: torch.device):
         op = get_op(cfg.method)
         return make_chained_reduce(op.reduce, op)
     if _dd_route(cfg):
-        # the pair chain over (hi2d, lo2d); the scale is host metadata
+        # the pair chain over (hi2d, lo2d) (_chain_input); the scale is
+        # host metadata
         _stage, core, _finish = dd_reduce.make_dd_device_reduce(
             cfg.method, cfg.n, threads=cfg.threads,
             max_blocks=cfg.max_blocks, device=device)
-        pair_chained = make_chained_reduce(core, get_op(cfg.method))
-        return lambda staged, k: pair_chained(staged[:2], k)
+        return make_chained_reduce(core, get_op(cfg.method))
     op, _stage, core = make_staged_core(
         cfg.method, cfg.n, cfg.dtype, threads=cfg.threads,
         max_blocks=cfg.max_blocks, kernel=cfg.kernel,
         cpu_thresh=cfg.cpu_thresh, stream_buffers=cfg.stream_buffers,
         device=device)
     return make_chained_reduce(core, op)
+
+
+def _chain_input(cfg: ReduceConfig, x_dev):
+    """What the chain folds: the staged tensor, or the pair route's two
+    planes."""
+    return x_dev[:2] if _dd_route(cfg) else x_dev
 
 
 def _make_logger(cfg: ReduceConfig) -> BenchLogger:
@@ -340,17 +346,6 @@ def _run_benchmark_inner(cfg: ReduceConfig, logger: BenchLogger,
     x_dev = stage_fn(x_host)             # host-to-device copy + pad, untimed
     device_mod.synchronize(device)
 
-    if cfg.trace_dir:
-        _, device_events, launches = trace_benchmark(
-            reduce_fn, x_dev, trace_dir=cfg.trace_dir, device=device)
-        logger.log(f"profiler trace written to {cfg.trace_dir} "
-                   f"({device_events} device events, {launches} kernel "
-                   "launches)")
-        if device_events < launches:
-            logger.log(f"WARNING: the trace in {cfg.trace_dir} misses "
-                       f"kernels: {device_events} device events for "
-                       f"{launches} launches")
-
     timing_mode = cfg.timing
     chained = (_make_chained_fn(cfg, backend, device)
                if timing_mode == "chained" else None)
@@ -359,9 +354,29 @@ def _run_benchmark_inner(cfg: ReduceConfig, logger: BenchLogger,
                    "(--cpufinal finishes on host by definition); "
                    "falling back to timing=fetch")
         timing_mode = "fetch"
+
+    if cfg.trace_dir:
+        # the timed call: a chained row's trace replays its chain's graph
+        # of 1 + iterations, which the timing then reuses
+        traced, traced_x = ((lambda x: chained(x, 1 + cfg.iterations),
+                             _chain_input(cfg, x_dev))
+                            if chained is not None else (reduce_fn, x_dev))
+        _, device_events, launches = trace_benchmark(
+            traced, traced_x, trace_dir=cfg.trace_dir, device=device)
+        logger.log(f"profiler trace written to {cfg.trace_dir} "
+                   f"({device_events} device events, {launches} kernel "
+                   "launches)")
+        if device_events < launches:
+            logger.log(f"WARNING: the trace in {cfg.trace_dir} misses "
+                       f"kernels: {device_events} device events for "
+                       f"{launches} launches")
+
     if chained is not None:
-        sw = time_chained(chained, x_dev, k_lo=1, k_hi=1 + cfg.iterations,
-                          reps=cfg.chain_reps)
+        try:
+            sw = time_chained(chained, _chain_input(cfg, x_dev), k_lo=1,
+                              k_hi=1 + cfg.iterations, reps=cfg.chain_reps)
+        finally:
+            chained.close()
         avg_s = sw.average_s if cfg.stat == "mean" else sw.median_s
         if avg_s <= 0:
             # noise swamped the slope: report no bandwidth from it

@@ -13,10 +13,10 @@ The grid's averages prefer cells measured under the flagship contract
 (sweep.FLAGSHIP_GRID); for a (dtype, op) with none, they fall back to the
 PASSED cells of another discipline at the flagship geometry, and say so.
 
-Of the JAX regenerator's report folds, only the stream probes' table is
-here; the others come with the port of the modules that write their
-artifacts. Its cross-round trajectory table is left out: the rounds it
-collates are TPU runs.
+Of the JAX regenerator's report folds, the stream probes' table and the
+reduction family's (family_spot.json) are here; the others come with the
+port of the modules that write their artifacts. Its cross-round
+trajectory table is left out: the rounds it collates are TPU runs.
 """
 
 from __future__ import annotations
@@ -163,6 +163,21 @@ def regenerate(out_dir: str | Path, device_kind: str | None = None,
                              + "\n" + table + "\n")
             log(f"regen: appended streaming-pipeline table "
                 f"({', '.join(sorted(probes))})")
+    # the reduction family's spot grid, where the dir has it
+    fs_file = out / "family_spot.json"
+    if fs_file.exists():
+        from tpu_reductions_torch.bench.family_spot import \
+            family_spot_markdown
+        try:
+            table = family_spot_markdown(json.loads(fs_file.read_text()))
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            log(f"regen: family_spot.json unusable ({e}); skipped")
+        else:
+            if table:
+                atomic_text_dump(paths["md"], paths["md"].read_text()
+                                 + "\n" + table + "\n")
+                log("regen: appended the reduction-family table "
+                    "(family_spot.json)")
     pdf = generate_pdf(out, platform=platform,
                        data={"avgs": {}, "single_chip": sc or None,
                              "calibration": cal,

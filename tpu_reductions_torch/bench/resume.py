@@ -1,12 +1,14 @@
 """Checkpoint and resume of a race's or a stream's `--out` artifact.
 
-The counterpart of the part of tpu_reductions/bench/resume.py that the
-kernel race and the streaming probe (bench/stream.py) use: `Checkpoint`
-(one artifact `{**meta, "complete": bool, <rows_key>: [...]}`, written
-atomically after every row; a re-invocation against an artifact left
-`complete: false` by an interrupted run reuses its rows instead of
-measuring them again), `default_reusable` and `result_from_row`; and the
-experiment sweep's per-cell cache files (`load_cell`, `store_cell`). A
+The counterpart of tpu_reductions/bench/resume.py without its ledger
+events: `Checkpoint` (one artifact `{**meta, "complete": bool,
+<rows_key>: [...]}`, written atomically after every row; a re-invocation
+against an artifact left `complete: false` by an interrupted run reuses
+its rows instead of measuring them again), `default_reusable`,
+`prior_artifact` (the same rule for a one-row artifact),
+`run_checkpointed_cells` (the grid instruments' loop) and
+`result_from_row`; and the experiment sweep's per-cell cache files
+(`load_cell`, `store_cell`). A
 `complete: true` artifact is a finished run: running again measures
 afresh, since resume is interruption-proofing, not a cache.
 """
@@ -26,9 +28,31 @@ from tpu_reductions_torch.utils.qa import QAStatus
 
 def default_reusable(row: dict) -> bool:
     """A persisted row may stand in for a measurement when it is verified
-    or waived by design; FAILED rows, and rows with no verdict, run
-    again."""
+    or waived by design (smoke manifests spell that `ok`); FAILED rows,
+    and rows with no verdict, run again."""
+    if row.get("ok") is True:
+        return True
     return row.get("status") in ("PASSED", "WAIVED")
+
+
+def prior_artifact(path: Optional[str | os.PathLike],
+                   meta: dict) -> Optional[dict]:
+    """The artifact an interrupted run left at `path`, parsed, or None:
+    it must exist, parse, be marked `complete: false`, and hold every
+    meta key as given (Checkpoint's rule, for a one-row artifact such as
+    bench/firstrow.py's)."""
+    if path is None or not os.path.exists(path):
+        return None
+    try:
+        data = json.loads(Path(path).read_text())
+    except (OSError, ValueError):
+        return None   # unreadable: measure again
+    if not isinstance(data, dict) or data.get("complete") is True:
+        return None
+    meta = json.loads(json.dumps(meta))
+    if not all(data.get(k) == v for k, v in meta.items()):
+        return None
+    return data
 
 
 class Checkpoint:
@@ -93,6 +117,26 @@ class Checkpoint:
         atomic_json_dump(self.path, {**self.meta, **(extra or {}),
                                      "complete": complete,
                                      self.rows_key: rows})
+
+
+def run_checkpointed_cells(ck: Checkpoint, cells, measure,
+                           on_row=None) -> List[dict]:
+    """The per-cell resume loop of a grid instrument: for each cell key,
+    the prior run's row when the Checkpoint takes it, else
+    `measure(key)`; either way `add()`ed, then `on_row(key, row)`; the
+    artifact is finalized once the grid is done. Returns the rows in grid
+    order."""
+    rows: List[dict] = []
+    for key in cells:
+        row = ck.resume(key)
+        if row is None:
+            row = measure(key)
+        ck.add(row)
+        if on_row is not None:
+            on_row(key, row)
+        rows.append(row)
+    ck.finalize()
+    return rows
 
 
 def load_cell(path: str | os.PathLike) -> dict:

@@ -64,6 +64,11 @@ DTYPE_ALIASES = {
 }
 
 METHODS = ("SUM", "MIN", "MAX")
+# The reduction family (ops/family/): prefix scan, segmented reductions
+# and index-carrying extremes. Served methods and family-spot cells, not
+# benchmark methods: ReduceConfig takes METHODS only.
+FAMILY_METHODS = ("SCAN", "SEGSUM", "SEGMIN", "SEGMAX", "ARGMIN", "ARGMAX")
+SERVED_METHODS = METHODS + FAMILY_METHODS
 BACKENDS = ("auto", "cuda", "torch")
 PLATFORMS = ("gpu", "cpu")
 TIMINGS = ("periter", "bulk", "fetch", "chained")

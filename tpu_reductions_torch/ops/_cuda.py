@@ -84,30 +84,33 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def _library_path(source: Path) -> Path:
-    return BUILD / f"lib{source.stem}.so"
+def _library_path(source: Path, build_dir: Path = BUILD) -> Path:
+    return build_dir / f"lib{source.stem}.so"
 
 
-def _stale(source: Path, newest_header: float) -> bool:
-    lib = _library_path(source)
+def _stale(source: Path, newest_header: float, build_dir: Path) -> bool:
+    lib = _library_path(source, build_dir)
     return (not lib.exists() or lib.stat().st_mtime
             < max(source.stat().st_mtime, newest_header))
 
 
-def build() -> tuple[float, str]:
+def build(build_dir: Path = BUILD) -> tuple[float, str]:
     """Compile every stale source (older than its library, or than a
-    header in csrc/), in parallel; return (seconds, the compilers' output,
-    which holds `-Xptxas -v`'s register report). Raises RuntimeError,
-    with the compiler's output, when a compile fails."""
-    BUILD.mkdir(exist_ok=True)
+    header in csrc/), in parallel, into `build_dir` (the package's
+    _build/; bench/warm.py times a build into an empty directory);
+    return (seconds, the compilers' output, which holds `-Xptxas -v`'s
+    register report). Raises RuntimeError, with the compiler's output,
+    when a compile fails."""
+    build_dir = Path(build_dir)
+    build_dir.mkdir(exist_ok=True)
     t0 = time.perf_counter()
     newest_header = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")),
                         default=0.0)
     stale = [src for src in sorted(CSRC.glob("*.cu"))
-             if _stale(src, newest_header)]
+             if _stale(src, newest_header, build_dir)]
     jobs = []
     for src in stale:
-        tmp = BUILD / f"lib{src.stem}.so.{os.getpid()}.tmp"
+        tmp = build_dir / f"lib{src.stem}.so.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -119,7 +122,7 @@ def build() -> tuple[float, str]:
         if proc.returncode != 0:
             raise RuntimeError(f"{' '.join(cmd)} failed with exit "
                                f"{proc.returncode}:\n{out}")
-        os.replace(tmp, _library_path(src))
+        os.replace(tmp, _library_path(src, build_dir))
     return time.perf_counter() - t0, "".join(logs)
 
 

@@ -3,17 +3,34 @@
 The counterpart of tpu_reductions/ops/chain.py: `chained(x2d, k)` runs k
 reductions, each folding its scalar into element [0, 0] of the next one's
 input with the op's own combine, so no iteration can be skipped or
-hoisted. The launches are queued eagerly with no host sync in between;
-the caller materializes the last scalar once, which bounds the completion
-of all k.
+hoisted; the caller materializes the last scalar once, which bounds the
+completion of all k.
+
+The JAX chain runs its k iterations inside one compiled program, so the
+slope (t(k_hi) - t(k_lo)) / (k_hi - k_lo) holds the device's time of an
+iteration and nothing of the host's. The port's counterpart of that
+program is a CUDA graph: on a CUDA tensor the k iterations (core, then
+fold) are captured once per (k, staged shape) and replayed for every
+timed trip, so an iteration costs its kernels and no Python. The capture
+falls inside time_chained's discarded warm-up trips, as the JAX compile
+does. A core that cannot be captured raises: the eager loop never runs
+on the card. On a CPU tensor the chain is that eager loop, the plain
+path the tests run.
 
 `core` is `core(x2d) -> scalar`, or, on the f64 pair route, `core(hi2d,
 lo2d) -> (s_hi, s_lo)` with `x2d` the tuple of the two planes: then the
 first plane's scalar is folded into the first plane's [0, 0] and returned.
 
 JAX's loop carry is a fresh array; here the fold is an in-place write.
-So the chain runs on clones of the staged tensors, and the caller's
+So the chain runs on copies of the staged tensors (a clone on the CPU,
+the graph's own input buffers on the card, refilled every call; either
+copy is a constant cost that cancels in the slope), and the caller's
 tensors, which the driver verifies afterwards, stay as they were staged.
+
+The kernel wrappers count their launches as Python runs them. A capture
+runs them without launching anything, so the chain takes back what the
+capture counted and adds it again at every replay: the counters read the
+captured launches times the replays.
 
 `auto_chain_span` sizes the chain's span (the iterations between the
 slope's two ends) for a chained shmoo cell.
@@ -21,11 +38,14 @@ slope's two ends) for a chained shmoo cell.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Callable, Union
 
 import torch
 
+from tpu_reductions_torch.ops import dd_reduce, kernel_reduce
 from tpu_reductions_torch.ops.registry import ReduceOpSpec, torch_dtype
 
 Staged = Union[torch.Tensor, tuple]
@@ -51,18 +71,115 @@ def auto_chain_span(n: int, dtype: str, platform: str = "gpu") -> int:
         SPAN_SIGNAL_S / max(est_iter_s, 1e-9))))
 
 
-def make_chained_reduce(core: Callable, op: ReduceOpSpec):
-    """Wrap `core` into `chained(x2d, k) -> 0-d tensor` running k
-    data-dependent iterations (k >= 1)."""
+def counted_wrappers() -> tuple:
+    """The kernel wrappers whose `launches` a chain keeps true: k6, k7,
+    k8, k9, k10 and the pair kernel dd."""
+    return (kernel_reduce.single_pass_call, kernel_reduce.two_pass_call,
+            kernel_reduce.elementwise_call, kernel_reduce.mxu_call,
+            kernel_reduce.stream_call, dd_reduce.dd_call)
 
-    def chained(x2d: Staged, k: int) -> torch.Tensor:
-        pair = isinstance(x2d, tuple)
-        planes = tuple(p.clone() for p in x2d) if pair else (x2d.clone(),)
-        first = planes[0]
-        last = None
-        for _ in range(k):
-            last = core(*planes)[0] if pair else core(first)
-            first[0, 0] = op.combine(first[0, 0], last.to(first.dtype))
+
+def fold_into(first: torch.Tensor, last: torch.Tensor,
+              op: ReduceOpSpec) -> None:
+    """The chain's fold: combine the iteration's scalar into first[0, 0],
+    in place (one elementwise launch on the card)."""
+    head = first[0, 0]
+    op.combine(head, last.to(first.dtype), out=head)
+
+
+@functools.cache
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """One side stream per device that every capture runs on, so the
+    per-stream tickets of k8 and dd (kernel_reduce._tickets) are
+    allocated and zeroed once, by a warm-up step outside any capture."""
+    return torch.cuda.Stream(device)
+
+
+def _refill(buffers: tuple, planes: tuple) -> None:
+    for buf, p in zip(buffers, planes):
+        buf.copy_(p)
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    out: torch.Tensor          # the last iteration's scalar, in the graph
+    launches: tuple            # per counted wrapper, captured launches
+
+
+class ChainedReduce:
+    """`chained(x2d, k) -> 0-d tensor`: k data-dependent iterations of
+    `core` (k >= 1); see the module docstring. `close()` frees the card's
+    graphs and their input buffers (a row's chain is closed when the row
+    is timed)."""
+
+    def __init__(self, core: Callable, op: ReduceOpSpec) -> None:
+        self.core = core
+        self.op = op
+        self._buffers: dict = {}     # staged shapes -> input buffers
+        self._graphs: dict = {}      # (staged shapes, k) -> _Graph
+
+    def _step(self, planes: tuple, pair: bool) -> torch.Tensor:
+        last = self.core(*planes)[0] if pair else self.core(planes[0])
+        fold_into(planes[0], last, self.op)
         return last
 
-    return chained
+    def __call__(self, x2d: Staged, k: int) -> torch.Tensor:
+        if k < 1:
+            raise ValueError(f"a chain runs k >= 1 iterations, got {k}")
+        pair = isinstance(x2d, tuple)
+        planes = tuple(x2d) if pair else (x2d,)
+        if planes[0].device.type != "cuda":
+            planes = tuple(p.clone() for p in planes)
+            last = None
+            for _ in range(k):
+                last = self._step(planes, pair)
+            return last
+        shapes = tuple((p.shape, p.dtype, p.device) for p in planes)
+        buffers = self._buffers.get(shapes)
+        if buffers is None:
+            buffers = self._buffers[shapes] = tuple(
+                torch.empty_like(p) for p in planes)
+        entry = self._graphs.get((shapes, k))
+        if entry is None:
+            _refill(buffers, planes)       # the warm-up step reads real data
+            entry = self._graphs[(shapes, k)] = self._capture(buffers, pair,
+                                                              k)
+        _refill(buffers, planes)
+        entry.graph.replay()
+        for wrapper, n in zip(counted_wrappers(), entry.launches):
+            wrapper.launches += n
+        return entry.out.clone()
+
+    def _capture(self, buffers: tuple, pair: bool, k: int) -> _Graph:
+        """Capture k iterations over `buffers` on the capture stream,
+        after one eager step there (its first-use costs: library loads,
+        plans, tickets, library handles), which folds into the buffers:
+        the caller refills them before every replay."""
+        device = buffers[0].device
+        stream = _capture_stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            self._step(buffers, pair)
+        wrappers = counted_wrappers()
+        before = [w.launches for w in wrappers]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(k):
+                out = self._step(buffers, pair)
+        launches = tuple(w.launches - b for w, b in zip(wrappers, before))
+        for w, b in zip(wrappers, before):
+            w.launches = b         # the capture launched nothing
+        torch.cuda.current_stream(device).wait_stream(stream)
+        return _Graph(graph, out, launches)
+
+    def close(self) -> None:
+        """Free the graphs and their buffers."""
+        self._graphs.clear()
+        self._buffers.clear()
+
+
+def make_chained_reduce(core: Callable, op: ReduceOpSpec) -> ChainedReduce:
+    """Wrap `core` into `chained(x2d, k) -> 0-d tensor` running k
+    data-dependent iterations (k >= 1)."""
+    return ChainedReduce(core, op)

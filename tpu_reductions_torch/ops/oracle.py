@@ -92,8 +92,16 @@ def host_reduce(x: Union[torch.Tensor, np.ndarray], method: str
     """The oracle reduction of the payload `x` (a CPU tensor or a numpy
     array). SUM of int32 wraps modulo 2^32 (the device accumulator's
     width); SUM of reals is float64, Kahan-compensated on the native route;
-    MIN/MAX return the input's value."""
+    MIN/MAX return the input's value. SCAN's scalar digest is its last
+    prefix element, the full SUM (its whole prefix: family.host_scan);
+    ARGMIN/ARGMAX give numpy's first-occurrence index."""
     method = method.upper()
+    if method == "SCAN":
+        return host_reduce(x, "SUM")
+    if method in ("ARGMIN", "ARGMAX"):
+        from tpu_reductions_torch.ops.family.argreduce import host_arg_reduce
+        return host_arg_reduce(
+            host_value(x) if isinstance(x, torch.Tensor) else x, method)
     if method not in ("SUM", "MIN", "MAX"):
         raise ValueError(f"unknown method {method!r}")
     if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
@@ -131,18 +139,21 @@ def host_reduce(x: Union[torch.Tensor, np.ndarray], method: str
 class IncrementalOracle:
     """The host oracle of a streamed reduction, fed one chunk at a time
     (ops/stream.py), so that a streamed payload is verified without a
-    second whole copy. SUM/MIN/MAX; SCAN and ARG* are not ported.
+    second whole copy. SUM/MIN/MAX, SCAN's digest (as SUM) and ARG*.
 
     Each update runs host_reduce on the chunk (native when the library is
-    in use) and folds its value into the running state: int32 SUM wraps modulo 2^32 like the device
-    accumulator; real SUM carries a Kahan pair (total, compensation)
-    across chunk boundaries; MIN/MAX keep the running extreme. state() and
-    from_state() round-trip through JSON, so a resumed stream verifies
-    without reading the chunks it already folded."""
+    in use) and folds its value into the running state: int32 SUM wraps
+    modulo 2^32 like the device accumulator; real SUM carries a Kahan
+    pair (total, compensation) across chunk boundaries; MIN/MAX keep the
+    running extreme; ARG* keep the extreme and its global index (the
+    chunk's offset is `count`), a tie keeping the earlier, lower index.
+    state() and from_state() round-trip through JSON, so a resumed stream
+    verifies without reading the chunks it already folded."""
 
     def __init__(self, method: str, dtype: str) -> None:
         self.method = method.upper()
-        if self.method not in ("SUM", "MIN", "MAX"):
+        if self.method not in ("SUM", "MIN", "MAX", "SCAN", "ARGMIN",
+                               "ARGMAX"):
             raise ValueError(f"unknown method {method!r}")
         self.dtype = str(dtype)
         self.count = 0
@@ -150,14 +161,27 @@ class IncrementalOracle:
         self._sum = 0.0              # real SUM: Kahan pair
         self._comp = 0.0
         self._extreme: Optional[float] = None   # MIN/MAX running value
+        self._extreme_idx: Optional[int] = None   # ARG*: its global index
 
     def update(self, chunk: torch.Tensor) -> None:
         """Fold one host chunk (a CPU tensor) into the running state."""
         if chunk.numel() == 0:
             return
+        if self.method in ("ARGMIN", "ARGMAX"):
+            a = host_value(chunk).reshape(-1)
+            li = int(np.argmin(a) if self.method == "ARGMIN"
+                     else np.argmax(a))
+            v = float(a[li])
+            if (self._extreme is None
+                    or (v < self._extreme if self.method == "ARGMIN"
+                        else v > self._extreme)):
+                self._extreme = v
+                self._extreme_idx = self.count + li
+            self.count += int(chunk.numel())
+            return
         h = host_reduce(chunk, self.method)
         self.count += int(chunk.numel())
-        if self.method == "SUM":
+        if self.method in ("SUM", "SCAN"):
             if self.dtype == "int32":
                 # both addends wrap mod 2^32 already; so does their sum
                 self._int_total = int(np.int64(self._int_total)
@@ -180,11 +204,16 @@ class IncrementalOracle:
     def value(self):
         """The oracle so far, as host_reduce gives it: np.int32 for int32
         SUM, np.float64 for real SUM, the input's value for MIN/MAX
-        (bfloat16 as the exact float32, which numpy has)."""
-        if self.method == "SUM":
+        (bfloat16 as the exact float32, which numpy has), np.int64 for
+        ARG*."""
+        if self.method in ("SUM", "SCAN"):
             if self.dtype == "int32":
                 return np.int64(self._int_total).astype(np.int32)[()]
             return np.float64(self._sum)
+        if self.method in ("ARGMIN", "ARGMAX"):
+            if self._extreme_idx is None:
+                raise ValueError("oracle saw no data")
+            return np.int64(self._extreme_idx)
         if self._extreme is None:
             raise ValueError("oracle saw no data")
         dtype = "float32" if self.dtype == "bfloat16" else self.dtype
@@ -195,7 +224,7 @@ class IncrementalOracle:
         return {"method": self.method, "dtype": self.dtype,
                 "count": self.count, "int_total": self._int_total,
                 "sum": self._sum, "comp": self._comp,
-                "extreme": self._extreme}
+                "extreme": self._extreme, "extreme_idx": self._extreme_idx}
 
     @classmethod
     def from_state(cls, state: dict) -> "IncrementalOracle":
@@ -206,6 +235,8 @@ class IncrementalOracle:
         o._sum = float(state.get("sum", 0.0))
         o._comp = float(state.get("comp", 0.0))
         o._extreme = state.get("extreme")
+        idx = state.get("extreme_idx")
+        o._extreme_idx = None if idx is None else int(idx)
         return o
 
 

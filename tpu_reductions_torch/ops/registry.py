@@ -1,9 +1,10 @@
 """Reduction op registry: {SUM, MIN, MAX} over {int32, float32, float64,
-bfloat16}, in torch.
+bfloat16}, and the reduction family, in torch.
 
 The counterpart of tpu_reductions/ops/registry.py (`ReduceOpSpec`, `OPS`,
-`accum_dtype`, `tolerance`): one table that the kernels' wrappers, their
-plain versions, the comparator, the chain and the oracle all key off.
+`FAMILY_OPS`, `accum_dtype`, `tolerance`): one table that the kernels'
+wrappers, their plain versions, the comparator, the chain and the oracle
+all key off.
 """
 
 from __future__ import annotations
@@ -92,21 +93,48 @@ OPS = {
 }
 
 
+# The reduction family (config.FAMILY_METHODS, ops/family/): each entry
+# describes the combine its partials obey, which is what the chain's fold
+# and the padding use. SCAN and SEGSUM combine like SUM (a scan's scalar
+# digest is its last prefix element, the full SUM), SEGMIN/SEGMAX like
+# MIN/MAX, and ARGMIN/ARGMAX like MIN/MAX in the order-key domain
+# (ops/family/argreduce.py).
+FAMILY_OPS = {
+    "SCAN": ReduceOpSpec("SCAN", _sum_same_dtype, torch.add, np.sum,
+                         _sum_identity),
+    "SEGSUM": ReduceOpSpec("SEGSUM", _sum_same_dtype, torch.add, np.sum,
+                           _sum_identity),
+    "SEGMIN": ReduceOpSpec("SEGMIN", torch.amin, torch.minimum, np.min,
+                           _min_identity),
+    "SEGMAX": ReduceOpSpec("SEGMAX", torch.amax, torch.maximum, np.max,
+                           _max_identity),
+    "ARGMIN": ReduceOpSpec("ARGMIN", torch.amin, torch.minimum, np.min,
+                           _min_identity),
+    "ARGMAX": ReduceOpSpec("ARGMAX", torch.amax, torch.maximum, np.max,
+                           _max_identity),
+}
+
+
 def get_op(name: str) -> ReduceOpSpec:
-    """Lookup by the CLI spelling (--method)."""
+    """Lookup by the CLI spelling (--method), the family's included."""
     key = name.upper()
-    if key not in OPS:
-        raise ValueError(f"unknown reduction {name!r}; expected one of "
-                         f"{list(OPS)}")
-    return OPS[key]
+    if key in OPS:
+        return OPS[key]
+    if key in FAMILY_OPS:
+        return FAMILY_OPS[key]
+    raise ValueError(f"unknown reduction {name!r}; expected one of "
+                     f"{list(OPS) + list(FAMILY_OPS)}")
 
 
 def tolerance(method: str, dtype: str, n: int) -> float:
-    """Verification tolerance, the JAX package's table: ints and MIN/MAX
-    exact; float32 SUM 1e-8*n; float64 SUM 1e-12; bfloat16 SUM 1e-2*n."""
+    """Verification tolerance, the JAX package's table: ints exact;
+    MIN/MAX and the family's extremes exact (arg indices are integers
+    whatever the dtype); float32 SUM 1e-8*n; float64 SUM 1e-12; bfloat16
+    SUM 1e-2*n."""
     if dtype in ("int32", "int64"):
         return 0.0
-    if method.upper() in ("MIN", "MAX"):
+    if method.upper() in ("MIN", "MAX", "SEGMIN", "SEGMAX", "ARGMIN",
+                          "ARGMAX"):
         return 0.0
     if dtype == "float64":
         return 1e-12

@@ -101,11 +101,14 @@ def consistency_check(method: str, dtype: str, n: int, *,
 
 
 def _device_events(prof) -> tuple[int, int]:
-    """(device events, kernel launches issued by the host) of a session."""
+    """(device events, launches issued by the host) of a session: kernel
+    launches, and graph launches, each of which runs at least one
+    kernel."""
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
     return (sum(e.device_type == cuda for e in events),
-            sum(e.device_type != cuda and "LaunchKernel" in e.name
+            sum(e.device_type != cuda and ("LaunchKernel" in e.name
+                                           or "GraphLaunch" in e.name)
                 for e in events))
 
 

@@ -1,7 +1,8 @@
 """Log fan-out (console, per-app file, master file), the canonical
-throughput row and the averaged `DATATYPE OP NODES GB/sec` row, each
-byte-identical to the JAX package's (tpu_reductions/utils/logging.py;
-templates from its lint/grammar.py)."""
+throughput row, the averaged `DATATYPE OP NODES GB/sec` row and the
+family's `DATATYPE OP IMPL N GBPS STATUS` row, each byte-identical to the
+JAX package's (tpu_reductions/utils/logging.py; templates from its
+lint/grammar.py)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,14 @@ COLLECTIVE_COLUMNS = ("DATATYPE", "OP", "NODES", "GB/sec")
 COLLECTIVE_HEADER = " ".join(COLLECTIVE_COLUMNS)
 COLLECTIVE_ROW_TEMPLATE = "{dtype} {op} {ranks} {gbps:.3f}"
 
+# The reduction family's rows (bench/family_spot.py): the DATATYPE row
+# with the implementation column and the oracle's verdict.
+FAMILY_COLUMNS = ("DATATYPE", "OP", "IMPL", "N", "GBPS", "STATUS")
+FAMILY_HEADER = " ".join(FAMILY_COLUMNS)
+FAMILY_ROW_TEMPLATE = "{dtype} {op} {impl} {n} {gbps:.3f} {status}"
+_ROW_DTYPES = {"int32": "INT", "float64": "DOUBLE", "float32": "FLOAT",
+               "bfloat16": "BF16"}
+
 
 def throughput_line(gbps: float, secs: float, n: int, *,
                     name: str = "Reduction", devices: int = 1,
@@ -28,6 +37,14 @@ def throughput_line(gbps: float, secs: float, n: int, *,
     Elements, NumDevsUsed = %d, Workgroup = %u`"""
     return THROUGHPUT_TEMPLATE.format(name=name, gbps=gbps, secs=secs, n=n,
                                       devices=devices, workgroup=workgroup)
+
+
+def family_row(dtype: str, op: str, impl: str, n: int, gbps: float,
+               status: str) -> str:
+    """`DATATYPE OP IMPL N GBPS STATUS`: one family-spot row."""
+    return FAMILY_ROW_TEMPLATE.format(
+        dtype=_ROW_DTYPES.get(dtype, dtype.upper()), op=op.upper(),
+        impl=impl, n=n, gbps=gbps, status=status)
 
 
 class BenchLogger:

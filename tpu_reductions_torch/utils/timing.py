@@ -4,7 +4,9 @@ of a chained reduction.
 The counterpart of tpu_reductions/utils/timing.py. `time.perf_counter`
 around `torch.cuda.synchronize()` at the timer edges (where the JAX
 package uses `block_until_ready`): PyTorch returns before the card
-finishes, so a timer without the sync measures the enqueue.
+finishes, so a timer without the sync measures the enqueue. Chained
+timing replays one CUDA graph a trip (ops/chain.py), so its slope holds
+the card's time of an iteration and not the host's.
 """
 
 from __future__ import annotations
@@ -101,8 +103,10 @@ def time_chained(chained_fn: Callable, x, k_lo: int, k_hi: int,
     """Slope timing of `chained_fn(x, k)` (ops/chain.py): time it to host
     materialization at two trip counts and book
     (t(k_hi) - t(k_lo)) / (k_hi - k_lo) as one sample per rep. Every
-    constant cost (launch queueing, the final copy, the clone) appears in
-    both and cancels."""
+    constant cost (the graph's launch, the copy of its input, the final
+    copy) appears in both and cancels. The two untimed warm-up trips
+    capture the chain's CUDA graphs on the card, as the JAX package's
+    compile its program."""
     if not k_lo < k_hi:
         raise ValueError(f"need k_lo < k_hi, got {k_lo} >= {k_hi}")
     sw = Stopwatch()
