@@ -76,7 +76,18 @@ Run from the repository root on a machine with one NVIDIA GPU:
    row (its chain's graph) into out/smoke_trace_chain, each trace naming
    k6's launches; int32 SUM at n = 2^30 (4 GiB), staged in chunks, and
    float32 SUM at 2^30 under TPU_REDUCTIONS_STAGE_CHUNK_BYTES=64 MiB,
-   each with the host time of its native fill, staging and oracle.
+   each with the host time of its native fill, staging and oracle;
+   `[collective]`, the collective driver (bench/collective_driver.py)
+   with its k ranks as rows of one tensor on the card: the reduce.c grid
+   (int32 and float64 x MAX/MIN/SUM, k = 8, n = 2^27) periter and
+   chained, int32 SUM/MIN at k = 8 with --rooted scatter and root and
+   MIN scatter at k = 6, the f64 pair route at 2^26 (the dd ring at k = 8,
+   its naive fallback at k = 3, the key-pair MIN and MAX), and the rank
+   ladder k = 2..1024 at 2^26, every row PASSED with its algorithm's label
+   and printed beside its bound; and the chained int32 SUM slope at k = 8
+   within 1.2 x (one collective call + the fold), both timed with CUDA
+   events; `[round]`, the round metric (bench/round.py) at its defaults,
+   one JSON line with value > 0 and vs_baseline = value / 90.8413.
    Then the flagship experiment, `tpu_reductions_torch.bench.experiment`,
    into out/smoke_experiment: the n = 2^24 grid (float64 and int32 x
    SUM/MIN/MAX, 3 repeats, 18 cells through k6), the chained SUM curves
@@ -103,6 +114,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1159,10 +1171,183 @@ def warm_path(driver, counted, kr, registry, config, staging) -> None:
         raise AssertionError(f"warm: exit {rc}")
 
 
+# [collective]: the reduce.c grid (int32 and float64 x MAX/MIN/SUM) at
+# k = 8 over n = 2^27 (512 MiB of int32, 1 GiB of float64; constants.h's
+# 2 GiB cut to keep the phase near two minutes), periter and chained;
+# rooted rows; the pair route at 2^26; the rank ladder at 2^26
+COLL_N = 1 << 27
+COLL_K = 8
+COLL_RETRIES = 5
+COLL_SPAN = 16
+# MIN scatter at k = 6: n a multiple of 36, so that the slice fallback's
+# k * (L // k) elements are the whole reduced row the check compares with
+COLL_K6_N = COLL_N - COLL_N % 36
+ROOTED_ROWS = (
+    [(dict(method=m, rooted=r, num_devices=COLL_K, n=COLL_N), label)
+     for m, r, label in (("SUM", "scatter", "reduce_scatter"),
+                         ("MIN", "scatter", "reduce_scatter"),
+                         ("SUM", "root", "reduce_to_root_rs_ag"),
+                         ("MIN", "root", "reduce_to_root_rs_ag"))]
+    + [(dict(method="MIN", rooted="scatter", num_devices=6, n=COLL_K6_N),
+        "all_reduce_slice")])
+PAIR_N = 1 << 26
+PAIR_ROWS = (   # per-rank 2^26 // 3 = 22369621 is no multiple of 3
+    (dict(method="SUM", num_devices=8), "dd_ring_rs_ag"),
+    (dict(method="SUM", num_devices=3), "dd_ring_naive"),
+    (dict(method="MIN", num_devices=8), "key_two_phase_all_reduce"),
+    (dict(method="MAX", num_devices=8), "key_two_phase_all_reduce"))
+LADDER_N = 1 << 26
+LADDER_KS = (2, 8, 64, 256, 1024)   # 64/256/1024: the reference's ranks
+
+
+def collective_bound_ms(row) -> float:
+    """The least time the card could take for a row's collective: its
+    payload read once and its per-rank result written once (k rows of L,
+    or of L/k under a reduce-scatter), over the memory rate. The f64 pair
+    planes move the 8 bytes an element that native f64 does."""
+    itemsize = {"int32": 4, "float32": 4, "float64": 8, "bfloat16": 2}[
+        row.dtype]
+    per_rank = row.n // row.ranks
+    out = (per_rank // row.ranks * row.ranks
+           if row.algorithm in ("reduce_scatter", "all_reduce_slice")
+           else per_rank * row.ranks)
+    return 1e3 * itemsize * (per_rank * row.ranks + out) / HBM_BYTES_PER_S
+
+
+def run_collective(collective_driver, config, want_label, suite=False,
+                   **fields) -> list:
+    """One collective config (or, with suite, its reduce.c grid) on the
+    card: every row PASSED with `want_label` (a dict by method for the
+    grid); each row printed with its algorithm, seconds, reference GB/s,
+    busbw, status and bound."""
+    log = io.StringIO()
+    cfg = config.CollectiveConfig(**fields)
+    logger = collective_driver.BenchLogger(None, None, console=log)
+    t0 = time.perf_counter()
+    rows = (collective_driver.run_collective_suite(cfg, logger=logger)
+            if suite else
+            collective_driver.run_collective_benchmark(cfg, logger=logger))
+    seconds = time.perf_counter() - t0
+    for r in rows:
+        bound_ms = collective_bound_ms(r)
+        print(f"  {r.dtype} {r.method} k={r.ranks} n={r.n} "
+              f"rooted={r.rooted} {cfg.timing} rep {r.repeat}: "
+              f"{r.algorithm} {r.time_s:.6f} s, {r.reference_gbps:.4f} "
+              f"GB/s, busbw {r.busbw_gbps:.4f}, bound {bound_ms:.5f} ms "
+              f"({1e3 * r.time_s / bound_ms:.2f}x) [{r.status.name}]")
+        label = want_label[r.method] if isinstance(want_label, dict) \
+            else want_label
+        if r.status.name != "PASSED" or r.algorithm != label:
+            raise AssertionError(f"[collective] {fields}: {r.algorithm} "
+                                 f"[{r.status.name}], expected {label}")
+    print(f"  ({seconds:.1f} s)", flush=True)
+    return rows
+
+
+def collective_path(driver, counted, kr, registry, config, staging) -> None:
+    """The collective driver on the card: the reduce.c grid periter and
+    chained, the rooted rows, the pair route, the rank ladder, every row
+    PASSED with its label and bound; the chained slope of int32 SUM at
+    k = 8 against one collective call plus the fold, both timed with CUDA
+    events here. The collectives launch no kernel of the repository (the
+    JAX package's are XLA collectives and jnp)."""
+    from tpu_reductions_torch.bench import collective_driver as cd
+    from tpu_reductions_torch.collectives import (make_collective_reduce,
+                                                  shard_payload)
+    from tpu_reductions_torch.ops.chain import fold_into
+    from tpu_reductions_torch.parallel.mesh import build_mesh
+    all_reduce = dict.fromkeys(METHODS, "all_reduce")
+    # the driver's own note and header, once, through its CLI
+    rc, text, seconds = run_cli(cd.main, [
+        "--method=SUM", "--type=int", f"--n={COLL_N}",
+        f"--devices={COLL_K}", "--retries=2"])
+    print(text, end="")
+    if rc != 0 or "note: the 8 ranks are rows of one tensor" not in text:
+        raise AssertionError(f"collective CLI: exit {rc}")
+    grid = {}
+    for timing in ("periter", "chained"):
+        grid[timing] = run_collective(
+            cd, config, all_reduce, suite=True, n=COLL_N,
+            num_devices=COLL_K, retries=COLL_RETRIES, timing=timing,
+            chain_span=COLL_SPAN)
+    for fields, label in ROOTED_ROWS:
+        run_collective(cd, config, label, retries=3, **fields)
+    for fields, label in PAIR_ROWS:
+        for timing in ("periter", "chained"):
+            run_collective(cd, config, label, retries=3,
+                           dtype="float64", f64="dd", n=PAIR_N,
+                           timing=timing, chain_span=COLL_SPAN, **fields)
+    for dtype in ("int32", "float64"):
+        for k in LADDER_KS:
+            run_collective(cd, config, "all_reduce", dtype=dtype,
+                           n=LADDER_N, num_devices=k, retries=3,
+                           timing="chained", chain_span=COLL_SPAN)
+    # the slope check: the chained int32 SUM rows of the grid against one
+    # call of the same collective on the same payload, plus the fold
+    slope_ms = 1e3 * statistics.median(
+        r.time_s for r in grid["chained"]
+        if r.dtype == "int32" and r.method == "SUM")
+    mesh = build_mesh(num_devices=COLL_K, platform="gpu",
+                      local_ranks=COLL_K)
+    cfg = config.CollectiveConfig(method="SUM", n=COLL_N,
+                                  num_devices=COLL_K)
+    x = shard_payload(cd._build_payload(cfg, COLL_K), mesh)
+    coll = make_collective_reduce("SUM", mesh)
+    call_ms = device_ms(lambda: coll(x))
+    op = registry.get_op("SUM")
+    head = x[:, :8].clone()
+    last = torch.ones((), dtype=torch.int32, device=mesh.device)
+    fold_ms = device_ms(lambda: fold_into(head, last, op))
+    ratio = slope_ms / (call_ms + fold_ms)
+    print(f"  chained int32 SUM k={COLL_K} n={COLL_N}: {slope_ms:.5f} ms "
+          f"an iteration against call_ms {call_ms:.5f} + fold_ms "
+          f"{fold_ms:.5f} (ratio {ratio:.3f}, limit {CHAIN_RATIO})",
+          flush=True)
+    if ratio > CHAIN_RATIO:
+        raise AssertionError(f"[collective] chained slope ratio {ratio:.3f}"
+                             f" over {CHAIN_RATIO}")
+    del x, head
+
+
+ROUND_OUT = OUT / "smoke_round"
+ROUND_KEYS = {"metric", "value", "unit", "vs_baseline"}
+
+
+def round_path(driver, counted, kr, registry, config, staging) -> None:
+    """bench.round at its defaults on the card: exit 0, exactly one JSON
+    line with bench.py's four keys, value > 0, vs_baseline =
+    round(value / 90.8413, 4); the candidates' rows; k6, k7 and k8
+    launched by the candidates, dd by the doubles."""
+    from tpu_reductions_torch.bench import headline
+    from tpu_reductions_torch.bench import round as round_cli
+    shutil.rmtree(ROUND_OUT, ignore_errors=True)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, text, seconds = run_cli(round_cli.main, [f"--out={ROUND_OUT}"])
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    print("".join(ln for ln in err.getvalue().splitlines(True)
+                  if ln.startswith("#")), end="")
+    print("\n".join(lines))
+    print(f"  ({seconds:.1f} s)", flush=True)
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"round: exit {rc}, {len(lines)} stdout lines")
+    line = json.loads(lines[0])
+    if set(line) != ROUND_KEYS or not line["value"] > 0 \
+            or line["vs_baseline"] != round(
+                line["value"] / headline.BASELINE_GBPS, 4):
+        raise AssertionError(f"round: {line}")
+    missing = [k for k in ("k6", "k7", "k8", "dd")
+               if counted[k].launches == 0]
+    if missing or not (ROUND_OUT / "snapshot.json").exists():
+        raise AssertionError(f"round never launched {missing}, or wrote "
+                             "no snapshot")
+
+
 CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
              "family": family_path, "firstrow": firstrow_path,
              "warm": warm_path, "shmoo": shmoo_path, "check": check_path,
              "trace": trace_path, "staging": staging_path,
+             "collective": collective_path, "round": round_path,
              "experiment": experiment_path}
 
 
@@ -1268,7 +1453,12 @@ def main() -> int:
                for name in KERNELS]
     for extra in ("reduce_ms", "tree_ms"):    # dd's fused finish
         kernels[KERNELS.index("dd")][extra] = main_shape["dd"][extra]
-    print(json.dumps({"kernels": kernels}))
+    # the paths whose zero launches are right: the JAX package computes
+    # the collectives with XLA collectives and jnp, not with a kernel
+    print(json.dumps({"kernels": kernels, "notes": {
+        "collective": "no kernel of the repository: the collectives are "
+                      "torch ops over the rank axis, as the JAX package's "
+                      "are XLA collectives and jnp"}}))
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,410 @@
+"""The port's collective CLI against the JAX package's, on the CPU.
+
+- The parser walked flag by flag: both `build_collective_parser`s offer
+  the same flags with the same destinations, defaults and choices, except
+  those in DIFFERENT; `parse_collective` refuses the same values with the
+  same exit code and reason.
+- The CLI at small n: the same header, `DATATYPE OP NODES` rows, QA
+  markers (each under its package's name) and exit codes as the JAX CLI
+  for the same argv (`--rooted`, `--timing`, the f64 pair route as
+  `--f64=dd` against JAX's TPU_REDUCTIONS_FORCE_DD=1, refusals). The port
+  adds one `note:` line before its header, saying where its ranks live.
+- `--quantized` parses as in JAX and the port's driver refuses it.
+- Resume from an interrupted `--out`.
+- Processes over gloo: `__graft_entry__.dryrun_multihost(2)` as a
+  two-process run of the port's CLI, and the two-process interleaved
+  reduce-scatter that tests/test_mesh_distributed.py runs for JAX. Each
+  run takes its port from the OS, every subprocess has a timeout, and a
+  run that fails or hangs has its whole group killed.
+"""
+
+import contextlib
+import io
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import pytest
+
+from tpu_reductions import config as jax_config
+from tpu_reductions.bench import collective_driver as jax_driver
+from tpu_reductions_torch import config as port_config
+from tpu_reductions_torch.bench import collective_driver as port_driver
+from tpu_reductions_torch.utils import timing as port_timing
+
+REPO = Path(__file__).resolve().parents[1]
+
+# flag: what differs, on purpose
+DIFFERENT = {
+    "--platform": "gpu|cpu (default gpu) against the JAX cpu|tpu",
+    "--f64": "the port only: float64's native or pair route",
+}
+# flags that parse alike but that the port's driver refuses
+REFUSED_BY_THE_PORT = {
+    "--quantized": "the quantized wire is not ported yet",
+}
+
+
+def _flags(parser) -> dict:
+    return {opt: action for action in parser._actions
+            for opt in action.option_strings
+            if opt.startswith("--") and opt != "--help"}
+
+
+JAX_FLAGS = _flags(jax_config.build_collective_parser())
+PORT_FLAGS = _flags(port_config.build_collective_parser())
+
+
+def _described(action) -> tuple:
+    return (action.dest, action.default, action.type, action.choices,
+            action.nargs, action.const, type(action).__name__)
+
+
+def test_the_walk_covers_every_flag():
+    both = set(JAX_FLAGS) | set(PORT_FLAGS)
+    assert set(DIFFERENT) <= both
+    assert set(REFUSED_BY_THE_PORT) <= set(JAX_FLAGS) & set(PORT_FLAGS)
+    for flag in both - set(DIFFERENT):
+        assert flag in JAX_FLAGS and flag in PORT_FLAGS, flag
+
+
+@pytest.mark.parametrize("flag", sorted(set(JAX_FLAGS) | set(PORT_FLAGS)))
+def test_flag_matches_the_reference(flag):
+    if flag in DIFFERENT:
+        port, ref = PORT_FLAGS.get(flag), JAX_FLAGS.get(flag)
+        if port is not None and ref is not None:
+            assert port.dest == ref.dest
+            assert _described(port) != _described(ref)
+        return
+    assert _described(PORT_FLAGS[flag]) == _described(JAX_FLAGS[flag])
+
+
+def _refusal(parse, argv) -> tuple:
+    """(exit code, message): argparse's, a SystemExit's text, or a
+    ValueError/KeyError as the CLI's exit 1."""
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            parse(argv)
+    except SystemExit as exc:
+        if isinstance(exc.code, str):
+            return 1, exc.code
+        return exc.code, err.getvalue()
+    except (ValueError, KeyError) as exc:
+        return 1, str(exc)
+    return 0, ""
+
+
+REFUSALS = [
+    ([], 2, "--method={SUM|MIN|MAX} is required"),
+    (["--method=AVG"], 1, "method must be one of"),
+    (["--type=quad"], 1, "quad"),
+    (["--timing=wall"], 2, "invalid choice: 'wall'"),
+    (["--mode=xx"], 2, "invalid choice: 'xx'"),
+    (["--rooted=leaf"], 2, "invalid choice: 'leaf'"),
+    (["--n=many"], 2, "invalid int value: 'many'"),
+    (["--bogus"], 2, "unrecognized arguments: --bogus"),
+    (["--hel"], 2, "unrecognized arguments: --hel"),
+    (["--chainspan=0"], 1, "chain_span must be positive"),
+    (["--quantized", "--type=int"], 1, "--quantized does not support SUM"),
+    (["--quantized", "--quant-bits=5", "--type=float"], 1,
+     "at 5 bits"),
+    (["--platform=cpu", "--devices=3", "--num-processes=2",
+      "--coordinator=127.0.0.1:1", "--process-id=0"], 1,
+     "--devices=3 must divide evenly among --num-processes=2"),
+    (["--platform=cpu", "--devices=3", "--mode=co", "--num-processes=4",
+      "--coordinator=127.0.0.1:1", "--process-id=0"], 1,
+     "(mode=co provisions 2x that in virtual devices)"),
+]
+
+
+@pytest.mark.parametrize("extra, code, reason", REFUSALS,
+                         ids=[" ".join(r[0]) or "no-method" for r in REFUSALS])
+def test_refusal_matches_the_reference(extra, code, reason):
+    argv = (extra if any(a.startswith("--method") for a in extra)
+            or not extra else ["--method=SUM", *extra])
+    port = _refusal(port_config.parse_collective, argv)
+    ref = _refusal(jax_config.parse_collective, argv)
+    assert port[0] == ref[0] == code, (port, ref)
+    assert reason in port[1] and reason in ref[1], (port, ref)
+
+
+def test_valid_flags_parse_to_the_reference_values():
+    argv = ["--method=min", "--type=double", "--n=12345", "--seed=3",
+            "--retries=2", "--warmup=3", "--devices=4", "--mapping=reversed",
+            "--mode=co", "--rooted", "--timing=chained", "--chainspan=7",
+            "--coordinator=h:1", "--num-processes=2", "--process-id=1",
+            "--out=o.json", "--qatest", "--no-verify"]
+    port = port_config.parse_collective(argv)
+    ref = jax_config.parse_collective(argv)
+    for field in ("method", "dtype", "n", "seed", "retries", "warmup",
+                  "num_devices", "mapping", "mode", "rooted", "timing",
+                  "chain_span", "coordinator", "num_processes",
+                  "process_id", "out", "qatest", "verify", "quantized",
+                  "quant_bits", "mesh_shape"):
+        assert getattr(port, field) == getattr(ref, field), field
+    assert (port.platform, port.f64) == ("gpu", "native")
+    assert port.provisioned_ranks == 4      # 4 ranks, co: 2x, 2 processes
+    assert port_config.parse_collective(
+        ["--method=SUM", "--rooted=root"]).rooted == "root"
+
+
+# ---------------------------------------------------------------------------
+# the CLI against the JAX CLI
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def stable_port_chain(monkeypatch):
+    """As tests/conftest.py's stable_chained_timing for the JAX chain: the
+    real chained machinery, with a nominal slope only when host noise
+    swamped it (the WAIVE path keeps its own test)."""
+    real = port_timing.time_chained
+
+    def stabilized(*args, **kwargs):
+        sw = real(*args, **kwargs)
+        if any(s <= 0 for s in sw.samples):
+            return types.SimpleNamespace(samples=[1e-4] * len(sw.samples))
+        return sw
+
+    monkeypatch.setattr(port_timing, "time_chained", stabilized)
+
+
+def _run(main, argv) -> tuple:
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _shape(text: str, name: str) -> list:
+    """The output's grammar: markers (under a common name), header, row
+    prefixes without the rate, and the notes but the port's placement
+    note."""
+    lines = []
+    for line in text.splitlines():
+        if line.startswith("&&&&"):
+            lines.append(line.replace(name, "NAME"))
+        elif line.startswith("note: the ") and "ranks are rows" in line:
+            continue
+        elif line.startswith(("note:", "DATATYPE", "error:")):
+            lines.append(line)
+        elif line.strip():
+            lines.append(" ".join(line.split()[:3]))
+    return lines
+
+
+CLI_CASES = [
+    ["--method=SUM", "--type=int", "--n=4096", "--devices=4"],
+    ["--method=MIN", "--type=float", "--n=4096", "--devices=8", "--rooted"],
+    ["--method=MAX", "--type=double", "--n=4096", "--devices=4",
+     "--rooted=root"],
+    ["--method=SUM", "--type=float", "--n=4000", "--devices=6",
+     "--rooted=root"],
+    ["--method=MIN", "--type=int", "--n=4200", "--devices=6",
+     "--rooted=scatter"],
+    ["--method=SUM", "--type=int", "--n=8192", "--devices=4",
+     "--timing=chained", "--chainspan=4"],
+    ["--method=MAX", "--type=double", "--n=8192", "--devices=8",
+     "--timing=chained", "--chainspan=4", "--rooted"],
+    ["--method=SUM", "--type=double", "--n=4096", "--devices=8",
+     "--f64=dd"],
+    ["--method=SUM", "--type=double", "--n=4096", "--devices=3",
+     "--f64=dd", "--rooted"],
+    ["--method=MIN", "--type=double", "--n=4096", "--devices=4",
+     "--f64=dd", "--rooted=root"],
+    ["--method=MAX", "--type=double", "--n=8192", "--devices=4",
+     "--f64=dd", "--timing=chained", "--chainspan=4"],
+    ["--type=int", "--n=4096"],
+    ["--method=SUM", "--chainspan=0"],
+    ["--method=SUM", "--n=2", "--devices=4"],
+]
+
+
+@pytest.mark.parametrize("argv", CLI_CASES,
+                         ids=[" ".join(a) for a in CLI_CASES])
+def test_cli_gives_the_jax_rows_markers_and_exit(argv, monkeypatch,
+                                                 stable_chained_timing,
+                                                 stable_port_chain):
+    argv = argv + ["--retries=2"]
+    jax_argv = [a for a in argv if a != "--f64=dd"]
+    monkeypatch.delenv("TPU_REDUCTIONS_FORCE_DD", raising=False)
+    port = _run(port_driver.main, argv + ["--platform=cpu"])
+    if "--f64=dd" in argv:
+        monkeypatch.setenv("TPU_REDUCTIONS_FORCE_DD", "1")
+    ref = _run(jax_driver.main, jax_argv)
+    assert port[0] == ref[0], (port, ref)
+    got = _shape(port[1], "tpu_reductions_torch.collective")
+    want = _shape(ref[1], "tpu_reductions.collective")
+    # the RUNNING markers echo their own argv
+    assert got[0].split()[:3] == want[0].split()[:3] == [
+        "&&&&", "RUNNING", "NAME"]
+    assert got[1:] == want[1:], (port[1], ref[1])
+    if port[0] == 0:
+        assert "ranks are rows of one tensor on cpu" in port[1]
+
+
+def test_quantized_parses_but_the_driver_refuses_it():
+    argv = ["--method=SUM", "--type=float", "--quantized", "--n=4096",
+            "--devices=4", "--retries=1"]
+    assert port_config.parse_collective(argv).quantized \
+        == jax_config.parse_collective(argv).quantized is True
+    rc, out, err = _run(port_driver.main, argv + ["--platform=cpu"])
+    assert rc == 1
+    assert "item 6b" in err and "item 6b" in out
+    assert "&&&& tpu_reductions_torch.collective FAILED" in out
+
+
+def test_card_refuses_more_than_one_process():
+    """Without --platform=cpu, --num-processes > 1 exits 1 with its
+    reason before any bring-up, card or none; never moved to the CPU."""
+    rc, out, err = _run(port_driver.main, [
+        "--method=SUM", "--num-processes=2", "--process-id=0",
+        "--coordinator=127.0.0.1:1", "--devices=2"])
+    assert rc == 1
+    assert "NCCL takes one rank per GPU" in err
+    assert "&&&& tpu_reductions_torch.collective FAILED" in out
+    assert "DATATYPE" not in out
+
+
+def test_a_non_positive_slope_waives_the_rep(monkeypatch):
+    monkeypatch.setattr(port_timing, "time_chained",
+                        lambda *a, **k: types.SimpleNamespace(
+                            samples=[-1e-6, 2e-4]))
+    cfg = port_config.CollectiveConfig(method="SUM", n=4096, num_devices=4,
+                                       retries=2, timing="chained",
+                                       platform="cpu")
+    rows = port_driver.run_collective_benchmark(
+        cfg, logger=port_driver.BenchLogger(None, None,
+                                            console=io.StringIO()))
+    assert [r.status.name for r in rows] == ["WAIVED", "PASSED"]
+    assert rows[0].time_s == 0.0 and rows[1].algorithm == "all_reduce"
+
+
+def test_suite_runs_the_reduce_c_grid():
+    log = io.StringIO()
+    rows = port_driver.run_collective_suite(
+        port_config.CollectiveConfig(n=2048, num_devices=4, retries=1,
+                                     platform="cpu"),
+        logger=port_driver.BenchLogger(None, None, console=log))
+    assert [(r.dtype, r.method) for r in rows] == [
+        (d, m) for d in ("int32", "float64") for m in ("MAX", "MIN", "SUM")]
+    assert all(r.passed for r in rows)
+    assert log.getvalue().count("DATATYPE OP NODES GB/sec") == 6
+
+
+def test_rows_keep_the_jax_keys():
+    cfg = port_config.CollectiveConfig(method="MIN", n=4096, num_devices=8,
+                                       rooted="scatter", retries=1,
+                                       platform="cpu")
+    rows = port_driver.run_collective_benchmark(
+        cfg, logger=port_driver.BenchLogger(None, None,
+                                            console=io.StringIO()))
+    ref = jax_driver.CollectiveResult("MIN", "int32", 4096, 8, 0,
+                                      "scatter", 0.0, 0.0, 0.0,
+                                      rows[0].status, "reduce_scatter")
+    assert set(rows[0].to_dict()) == set(ref.to_dict())
+    assert rows[0].algorithm == "reduce_scatter"
+    assert set(port_driver.collective_meta(cfg)) >= set(
+        jax_driver.collective_meta(cfg))
+
+
+def test_resume_from_an_interrupted_out(tmp_path):
+    out = tmp_path / "coll.json"
+    argv = ["--method=SUM", "--type=int", "--n=4096", "--devices=4",
+            "--retries=3", f"--out={out}", "--platform=cpu"]
+    rc, first, _ = _run(port_driver.main, argv)
+    assert rc == 0
+    data = json.loads(out.read_text())
+    assert data["complete"] is True and len(data["rows"]) == 3
+    data["complete"] = False                 # as an interrupted run left it
+    out.write_text(json.dumps(data))
+    rc, again, _ = _run(port_driver.main, argv)
+    assert rc == 0
+    assert "3 row(s) resumed from prior artifact" in again
+    assert [ln for ln in again.splitlines() if ln.startswith("INT SUM")] == \
+        [ln for ln in first.splitlines() if ln.startswith("INT SUM")]
+    assert json.loads(out.read_text())["rows"] == data["rows"]
+    # another contract measures afresh
+    rc, other, _ = _run(port_driver.main, argv[:-2] + [
+        "--retries=2", f"--out={out}", "--platform=cpu"])
+    assert rc == 0 and "resumed" not in other
+
+
+# ---------------------------------------------------------------------------
+# processes over gloo
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_group(nproc: int, argv: list, timeout: float = 180) -> list:
+    """`nproc` processes of the port's collective CLI over gloo; their
+    (exit code, stdout, stderr). Every process is killed if one fails to
+    finish in time."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tpu_reductions_torch.bench.collective_driver",
+         *argv, "--platform=cpu", f"--coordinator=127.0.0.1:{port}",
+         f"--num-processes={nproc}", f"--process-id={i}"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True) for i in range(nproc)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+
+
+def _ours(text: str) -> list:
+    return [ln for ln in text.splitlines()
+            if ln.strip() and not ln.startswith("[Gloo]")]
+
+
+def test_two_processes_as_dryrun_multihost():
+    """`__graft_entry__.dryrun_multihost(2)` for the port: two processes,
+    2 ranks each, verified int32 SUM; rank 0 alone reports."""
+    (rc0, out0, err0), (rc1, out1, err1) = _run_group(2, [
+        "--method=SUM", "--type=int", "--n=65536", "--retries=2",
+        "--devices=4"])
+    assert rc0 == 0 and rc1 == 0, (out0, err0, out1, err1)
+    assert "&&&& tpu_reductions_torch.collective PASSED" in out0
+    assert len([ln for ln in out0.splitlines()
+                if ln.startswith("INT SUM 4 ")]) == 2
+    assert "this process holds 2 of them" in out0
+    assert _ours(out1) == []
+
+
+def test_two_processes_interleaved_scatter_verifies():
+    """An interleaved mapping gives each process every other rank; the
+    reduce-scatter check must line each local slice up with its global
+    position (local_view_and_selection's selector)."""
+    results = _run_group(2, [
+        "--method=SUM", "--type=int", "--n=65536", "--retries=2",
+        "--devices=4", "--mapping=interleaved", "--rooted"])
+    for rc, out, err in results:
+        assert rc == 0, (out, err)
+    assert "&&&& tpu_reductions_torch.collective PASSED" in results[0][1]
+
+
+def test_two_processes_pair_ring_and_butterfly_verify():
+    """The dd ring and the MIN halving butterfly with hops between the
+    processes (gloo send/receive), each verified."""
+    for argv in (["--method=SUM", "--type=double", "--f64=dd"],
+                 ["--method=MIN", "--type=int", "--rooted=root",
+                  "--mapping=reversed"]):
+        results = _run_group(2, argv + ["--n=16384", "--retries=1",
+                                        "--devices=8"])
+        for rc, out, err in results:
+            assert rc == 0, (argv, out, err)
+        assert "&&&& tpu_reductions_torch.collective PASSED" in results[0][1]

@@ -840,3 +840,145 @@ def test_family_cells_verify_on_card(cuda_device, method, dtype, impl):
         assert torch.equal(got.cpu(), want.cpu())
     row = measure_cell(method, dtype, impl, n, 64, 0, 2, cuda_device)
     assert row["status"] == "PASSED" and row["gbps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the collectives on the card: the rank axis as rows of one CUDA tensor
+# ---------------------------------------------------------------------------
+
+def _collective_case(device, k, per, dtype, seed=0):
+    """The mesh of k ranks on `device` and on the CPU, and one payload."""
+    from tpu_reductions_torch.bench.collective_driver import _build_payload
+    from tpu_reductions_torch.config import CollectiveConfig
+    from tpu_reductions_torch.parallel.mesh import build_mesh
+    platform = "gpu" if device.type == "cuda" else "cpu"
+    mesh = build_mesh(num_devices=k, platform=platform, local_ranks=k,
+                      device=device)
+    x = _build_payload(CollectiveConfig(dtype=dtype, n=k * per, seed=seed),
+                       k)
+    return mesh, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rooted", ["none", "scatter", "root"])
+@pytest.mark.parametrize("k, per", [(1, 4096), (6, 6000), (8, 4096),
+                                    (8, 4100), (64, 1024)])
+@pytest.mark.parametrize("dtype, method", [
+    ("int32", "SUM"), ("int32", "MIN"), ("int32", "MAX"),
+    ("float32", "MIN"), ("float64", "MAX"), ("bfloat16", "MIN")])
+def test_collective_on_card_gives_the_cpu_bits(cuda_device, rooted, k, per,
+                                               dtype, method):
+    """int32 and MIN/MAX collectives are exact: the card gives the CPU
+    run's bits on every rank row, and a reduce-to-root's rows are all the
+    same."""
+    from tpu_reductions_torch import collectives as coll
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        mesh, x = _collective_case(device, k, per, dtype)
+        fn = coll.make_collective_reduce(method, mesh, rooted=rooted)
+        results.append(fn(coll.shard_payload(x, mesh)).cpu())
+    got, want = results
+    assert torch.equal(bits(got), bits(want))
+    if rooted != "scatter":
+        assert all(torch.equal(bits(row), bits(got[0])) for row in got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["SUM", "MIN", "MAX"])
+@pytest.mark.parametrize("k, per", [(3, 1000), (8, 4096), (8, 4100)])
+def test_pair_collectives_on_card_give_the_cpu_planes(cuda_device, method,
+                                                      k, per):
+    """The dd ring (and its naive fallback) and the key-pair MIN/MAX: the
+    card's hi/lo planes are the CPU run's bits on every rank row."""
+    from tpu_reductions_torch import collectives as coll
+    from tpu_reductions_torch.ops.dd_reduce import (host_key_encode,
+                                                    host_split_scaled)
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        mesh, x = _collective_case(device, k, per, "float64", seed=1)
+        if method == "SUM":
+            hi, lo, _ = host_split_scaled(x.numpy())
+            fn = coll.make_dd_sum_all_reduce(mesh)
+        else:
+            hi, lo = host_key_encode(x.numpy())
+            fn = coll.make_key_minmax_all_reduce(method, mesh)
+        out = fn(coll.shard_payload(hi, mesh), coll.shard_payload(lo, mesh))
+        results.append(tuple(o.cpu() for o in out))
+    for got, want in zip(*results):
+        assert torch.equal(bits(got), bits(want))
+        assert all(torch.equal(bits(row), bits(got[0])) for row in got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 17])
+@pytest.mark.parametrize("case", ["SUM-none", "MIN-scatter", "SUM-root",
+                                  "dd-SUM", "key-MAX"])
+def test_collective_graph_chain_gives_the_eager_chains_scalar(cuda_device,
+                                                              case, k):
+    """A chained collective on the card is one CUDA graph a trip: its
+    scalar is the eager loop's (the CPU chain's) for every path."""
+    from tpu_reductions_torch import collectives as coll
+    from tpu_reductions_torch.ops.dd_reduce import (host_key_encode,
+                                                    host_split_scaled)
+    kind, arg = case.split("-")
+    got = []
+    for device in (cuda_device, torch.device("cpu")):
+        mesh, x = _collective_case(device, 8, 4096, (
+            "float64" if kind in ("dd", "key") else "int32"))
+        if kind == "dd":
+            hi, lo, _ = host_split_scaled(x.numpy())
+            planes = (coll.shard_payload(hi, mesh),
+                      coll.shard_payload(lo, mesh))
+            chained = coll.make_chained_pair_collective(
+                "SUM", coll.make_dd_sum_all_reduce(mesh))
+        elif kind == "key":
+            hi, lo = host_key_encode(x.numpy())
+            planes = (coll.shard_payload(hi, mesh),
+                      coll.shard_payload(lo, mesh))
+            chained = coll.make_chained_pair_collective(
+                arg, coll.make_key_minmax_all_reduce(arg, mesh))
+        else:
+            planes = coll.shard_payload(x, mesh)
+            chained = coll.make_chained_collective(kind, mesh, rooted=arg)
+        before = planes[0].clone() if kind in ("dd", "key") else \
+            planes.clone()
+        got.append([chained(planes, k).cpu() for _ in range(2)])
+        first = planes[0] if kind in ("dd", "key") else planes
+        assert torch.equal(first, before)     # the chain folds into a copy
+        chained.close()
+    card, cpu = got
+    for g in card:
+        assert torch.equal(bits(g), bits(cpu[0]))
+
+
+@pytest.mark.gpu
+def test_collective_cli_on_card_refuses_two_processes(cuda_device):
+    """On the card --num-processes=2 exits 1 with its reason (NCCL takes
+    one rank per GPU); it is never moved to the CPU."""
+    import subprocess
+    import sys
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_reductions_torch.bench.collective_driver",
+         "--method=SUM", "--n=4096", "--devices=2", "--num-processes=2",
+         "--process-id=0", "--coordinator=127.0.0.1:1"],
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "NCCL takes one rank per GPU" in proc.stderr
+    assert "DATATYPE" not in proc.stdout
+
+
+@pytest.mark.gpu
+def test_collective_cli_on_card_passes(cuda_device):
+    """The CLI on the card: its note names the card, every row PASSED."""
+    import contextlib
+    import io
+    from tpu_reductions_torch.bench import collective_driver
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = collective_driver.main(["--method=MIN", "--type=double",
+                                     "--n=65536", "--devices=8",
+                                     "--rooted=root", "--retries=2"])
+    assert rc == 0
+    assert f"rows of one tensor on {torch.cuda.get_device_name()}" in \
+        out.getvalue()
+    assert "&&&& tpu_reductions_torch.collective PASSED" in out.getvalue()

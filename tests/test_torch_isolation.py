@@ -1,7 +1,7 @@
 """The port stands alone: tpu_reductions_torch/ and chip_smoke.py import
 neither jax nor any tpu_reductions module, and without a card and without
-an explicit CPU request the entry points and kernel wrappers raise rather
-than run on the CPU. Every kernel wrapper (k6-k10 and the pair kernel dd)
+an explicit CPU request the entry points (the benchmark, collective and
+round CLIs) and kernel wrappers raise rather than run on the CPU. Every kernel wrapper (k6-k10 and the pair kernel dd)
 takes its plain version only for a CPU tensor."""
 
 import ast
@@ -100,6 +100,21 @@ def test_cli_raises_without_card(no_card):
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_reductions_torch", "--method=SUM",
          "--n=4096", "--logfile="], cwd=REPO, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "PASSED" not in proc.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    ["tpu_reductions_torch.bench.collective_driver", "--method=SUM",
+     "--n=4096", "--devices=4"],
+    ["tpu_reductions_torch.bench.round", "--n=4096"],
+], ids=["collective", "round"])
+def test_collective_and_round_clis_raise_without_card(no_card, argv):
+    """Without --platform=cpu they need the card: no CPU fallback."""
+    proc = subprocess.run(
+        [sys.executable, "-m", *argv], cwd=REPO, capture_output=True,
         text=True, timeout=120)
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr

@@ -1,0 +1,498 @@
+"""The cross-rank collective reduction benchmark: the mpi/reduce.c analog.
+
+The counterpart of tpu_reductions/bench/collective_driver.py, over the
+port's rank axis (parallel/mesh.py). Per-run flow, as reduce.c:9-108:
+
+  the mesh (MPI_Init/Comm_size, :32-34): k ranks, the rows of one tensor
+  -> per-rank payload, rank-offset seeded (:38-57)
+  -> one warm-up collective (:61-64)
+  -> `retries` timed collectives, periter or chained (:71-97)
+  -> header + `DATATYPE OP NODES GB/sec` rows from rank 0 (:67-69,81,95)
+
+Every result is verified against an elementwise host oracle (the
+reference's MPI side had none). float64 runs natively by default, or as
+the JAX package's pair planes (`--f64=dd`, or TPU_REDUCTIONS_FORCE_DD=1):
+the dd ring for SUM, the exact key-pair collective for MIN/MAX.
+
+On the card every rank is a row of one tensor on one GPU, so a hop is a
+copy inside the card: a row's GB/s is a copy-and-combine rate inside
+device memory and its busbw the registry's wire factor applied to that
+time; neither is a link rate. Each run says so in a `note:` line before
+its header. Across processes (--platform=cpu only) the ranks of other
+processes are reached over gloo; the card refuses --num-processes > 1,
+since NCCL takes one rank per GPU.
+
+CLI:
+    python -m tpu_reductions_torch.bench.collective_driver --method=SUM
+        [--type=int] [--n=N] [--devices=K] [--rooted[=scatter|root]]
+        [--timing=periter|chained] [--f64=native|dd] [--platform=cpu]
+        [--coordinator=HOST:PORT --num-processes=P --process-id=I]
+        [--out=ARTIFACT.json]
+
+Exit codes: 0 PASSED (WAIVED rows allowed), 1 FAILED, a parse or
+validation error included.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from tpu_reductions_torch import device as device_mod
+from tpu_reductions_torch.config import CollectiveConfig
+from tpu_reductions_torch.utils.logging import (COLLECTIVE_HEADER,
+                                                BenchLogger, collective_row)
+from tpu_reductions_torch.utils.qa import QAStatus
+from tpu_reductions_torch.utils.rng import host_data
+from tpu_reductions_torch.utils.timing import Stopwatch
+
+NAME = "tpu_reductions_torch.collective"
+
+
+@dataclasses.dataclass
+class CollectiveResult:
+    """One collective benchmark outcome: the data behind a rank-0
+    `DATATYPE OP NODES GB/sec` row plus the QA status. The JAX package's
+    fields and `to_dict` keys."""
+
+    method: str
+    dtype: str
+    n: int
+    ranks: int
+    repeat: int
+    rooted: str                      # none|scatter|root (requested mode)
+    time_s: float
+    reference_gbps: float
+    busbw_gbps: float
+    status: QAStatus
+    algorithm: str = "all_reduce"    # the wire pattern that ran
+
+    @property
+    def passed(self) -> bool:
+        return self.status == QAStatus.PASSED
+
+    def to_dict(self) -> dict:
+        """JSON-ready row; status spelled as its QA marker name."""
+        d = dataclasses.asdict(self)
+        d["status"] = self.status.name
+        return d
+
+
+def _build_payload(cfg: CollectiveConfig, k: int) -> torch.Tensor:
+    """The global (k*L,) payload on the host: per-rank MT19937 streams
+    with rank-offset seeds (reduce.c:38-41), each rank's the JAX
+    package's bits (utils/rng.host_data), concatenated."""
+    per_rank = cfg.n // k
+    if per_rank == 0:
+        raise ValueError(f"n={cfg.n} too small for {k} ranks")
+    return torch.cat([host_data(per_rank, cfg.dtype, rank=r, seed=cfg.seed)
+                      for r in range(k)])
+
+
+def collective_meta(cfg: CollectiveConfig) -> dict:
+    """The resume contract of one invocation (bench/resume.Checkpoint
+    meta): prior rows are reused only when every key round-trips."""
+    return {"method": cfg.method, "dtype": cfg.dtype, "n": cfg.n,
+            "retries": cfg.retries, "devices": cfg.num_devices,
+            "rooted": cfg.rooted, "mode": cfg.mode,
+            "mapping": cfg.mapping, "timing": cfg.timing,
+            "chain_span": cfg.chain_span, "quantized": cfg.quantized,
+            "quant_bits": cfg.quant_bits, "seed": cfg.seed,
+            "platform": cfg.platform, "f64": cfg.f64}
+
+
+def _result_from_collective_row(row: dict) -> CollectiveResult:
+    """A CollectiveResult from a persisted artifact row, so that resumed
+    rows flow through the same exit-status paths as fresh ones."""
+    return CollectiveResult(
+        row["method"], row["dtype"], row["n"], row["ranks"],
+        row["repeat"], row.get("rooted", "none"),
+        row.get("time_s", 0.0), row.get("reference_gbps", 0.0),
+        row.get("busbw_gbps", 0.0),
+        QAStatus[row.get("status", "FAILED")],
+        row.get("algorithm", "all_reduce"))
+
+
+def _resume_rows(cfg: CollectiveConfig, checkpoint, row_key,
+                 logger: BenchLogger) -> Optional[List[CollectiveResult]]:
+    """Reuse an interrupted run's full row set for this config (every
+    repeat present and reusable), printing its rows again; None means
+    measure afresh. Whole-config grain: a chained run times all reps in
+    one slope call."""
+    key = row_key or (lambda rep: rep)
+    prior = [checkpoint.resume(key(rep)) for rep in range(cfg.retries)]
+    if not prior or not all(r is not None for r in prior):
+        return None
+    logger.log(COLLECTIVE_HEADER)
+    results = []
+    for row in prior:
+        checkpoint.add(row)
+        gbps = row.get("reference_gbps")
+        if row.get("status") == "PASSED" and gbps:
+            logger.log(collective_row(row["dtype"], row["method"],
+                                      row["ranks"], gbps))
+        results.append(_result_from_collective_row(row))
+    logger.log(f"note: {len(prior)} row(s) resumed from prior artifact "
+               "(interrupted run; rows reused, not re-measured)")
+    return results
+
+
+def run_collective_benchmark(cfg: CollectiveConfig,
+                             logger: Optional[BenchLogger] = None,
+                             checkpoint=None, row_key=None
+                             ) -> List[CollectiveResult]:
+    """Run `retries` collectives on one (method, dtype, rank count) mesh:
+    one reduce.c process run (its warm-up and timed loop, reduce.c:61-96).
+
+    `checkpoint` (bench/resume.Checkpoint) persists each row as it lands,
+    and when an interrupted artifact already holds this config's full
+    row set, reuses it without touching the device (`row_key(rep)` maps a
+    repeat to its checkpoint key; default the repeat itself)."""
+    logger = logger or BenchLogger(None, None)
+    if checkpoint is not None:
+        reused = _resume_rows(cfg, checkpoint, row_key, logger)
+        if reused is not None:
+            return reused
+    if cfg.quantized:
+        raise ValueError("--quantized: the quantized wire is not ported "
+                         "yet (ROADMAP item 6b); drop --quantized for the "
+                         "exact collectives")
+    return _run_collective_benchmark(cfg, logger, checkpoint=checkpoint,
+                                     row_key=row_key)
+
+
+def _use_dd_planes(cfg: CollectiveConfig) -> bool:
+    """Whether float64 travels as two 32-bit planes: under --f64=dd, and
+    under TPU_REDUCTIONS_FORCE_DD=1, the JAX package's hook for running
+    its TPU encoding elsewhere. (The JAX `_dd_planes_for` adds
+    --quantized, which the port refuses.)"""
+    return cfg.dtype == "float64" and (
+        cfg.f64 == "dd" or os.environ.get("TPU_REDUCTIONS_FORCE_DD") == "1")
+
+
+def _placement_note(mesh) -> str:
+    where = device_mod.name(mesh.device)
+    note = (f"note: the {mesh.k} ranks are rows of one tensor on {where} "
+            f"({mesh.device}); a hop between two ranks is a copy inside "
+            f"it, so GB/sec and busbw are copy-and-combine rates of its "
+            f"memory, not link rates")
+    if mesh.spans_processes:
+        note += (f"; this process holds {mesh.k_local} of them, the other "
+                 f"{mesh.num_processes - 1} process(es) the rest, reached "
+                 f"over gloo")
+    return note
+
+
+def _run_collective_benchmark(cfg: CollectiveConfig,
+                              logger: BenchLogger,
+                              checkpoint=None, row_key=None
+                              ) -> List[CollectiveResult]:
+    from tpu_reductions_torch.collectives import (
+        bandwidth_report, host_collective_oracle, make_collective_reduce,
+        make_dd_sum_all_reduce, make_key_minmax_all_reduce,
+        select_algorithm, shard_payload)
+    from tpu_reductions_torch.parallel.mesh import build_mesh
+
+    results: List[CollectiveResult] = []
+
+    def book(res: CollectiveResult) -> CollectiveResult:
+        # persisted the moment it exists
+        results.append(res)
+        if checkpoint is not None:
+            checkpoint.add(res.to_dict())
+        return res
+
+    mesh = build_mesh(num_devices=cfg.num_devices,
+                      mesh_shape=cfg.mesh_shape, mapping=cfg.mapping,
+                      mode=cfg.mode, platform=cfg.platform,
+                      local_ranks=cfg.provisioned_ranks)
+    k = mesh.k
+
+    # --- payload staging (untimed, like reduce.c's fill before its loop)
+    dtype = cfg.dtype
+    method = cfg.method
+    dd_planes = _use_dd_planes(cfg)
+    x_host = _build_payload(cfg, k)
+    rooted = cfg.rooted
+    per_rank = cfg.n // k
+    dd_scale = 0    # power-of-two pre-scale exponent of the dd SUM planes
+    sel = select_algorithm(method, dtype, k, per_rank, rooted=rooted,
+                           quantized=cfg.quantized, bits=cfg.quant_bits,
+                           dd_planes=dd_planes)
+    algorithm = sel.algorithm
+    if dd_planes:
+        from tpu_reductions_torch.ops.dd_reduce import (host_key_encode,
+                                                        host_split_scaled)
+        if rooted == "scatter":
+            # the pair collectives are all-reduce shaped; the rows keep
+            # the requested mode, the algorithm column what ran
+            logger.log("note: --rooted=scatter is not supported on the "
+                       "f64 pair paths; running all-reduce")
+        elif rooted == "root":
+            logger.log("note: --rooted=root on the f64 pair paths is the "
+                       "pair all-reduce (replicated output; root holds "
+                       "the full array)")
+        x_np = x_host.numpy()
+        if method == "SUM":
+            hi, lo, dd_scale = host_split_scaled(x_np)
+            coll = make_dd_sum_all_reduce(mesh)
+        else:
+            hi, lo = host_key_encode(x_np)
+            coll = make_key_minmax_all_reduce(method, mesh)
+        x_dev = (shard_payload(hi, mesh), shard_payload(lo, mesh))
+
+        def run(x):
+            return coll(*x)
+    else:
+        x_dev = shard_payload(x_host, mesh)
+        coll = make_collective_reduce(method, mesh, rooted=rooted)
+        run = coll
+
+    # the bytes really reduced: k * (n // k) elements (the remainder is
+    # dropped, as the reference's N/commSize split drops it)
+    payload_bytes = x_host.numel() * x_host.element_size()
+
+    logger.log(_placement_note(mesh))
+    logger.log(COLLECTIVE_HEADER)
+
+    def sync():
+        device_mod.synchronize(mesh.device)
+
+    out = None
+    for _ in range(max(cfg.warmup, 1)):      # reduce.c:61-64
+        out = run(x_dev)
+        sync()
+
+    expect = host_collective_oracle(x_host, k, method) if cfg.verify \
+        else None
+
+    def verify(out) -> QAStatus:
+        if expect is None:
+            return QAStatus.PASSED
+        got, selector = _gather_result(out, method, coll, dd_planes,
+                                       scale_exp=dd_scale)
+        ok = _check(got, expect, method, dtype, cfg, selector=selector)
+        return QAStatus.PASSED if ok else QAStatus.FAILED
+
+    if cfg.timing == "chained":
+        # each "retry" is one slope sample over chain_span data-dependent
+        # collectives (one CUDA graph a trip on the card), chaining the
+        # collective that was warmed up and is verified here
+        from tpu_reductions_torch.collectives import (
+            make_chained_collective, make_chained_pair_collective)
+        from tpu_reductions_torch.utils.timing import time_chained
+        chained = (make_chained_pair_collective(method, coll) if dd_planes
+                   else make_chained_collective(method, coll=coll))
+        try:
+            sw = time_chained(chained, x_dev, k_lo=1,
+                              k_hi=1 + cfg.chain_span, reps=cfg.retries)
+        finally:
+            chained.close()
+        status = verify(out)
+        for rep, dt in enumerate(sw.samples):
+            if dt <= 0:
+                # a non-positive slope carries no bandwidth: the rep is
+                # WAIVED with no row printed (a failed verification still
+                # fails)
+                logger.log(f"note: rep {rep} slope non-positive "
+                           f"(interconnect stall); rep WAIVED")
+                book(CollectiveResult(
+                    method, dtype, cfg.n, k, rep, rooted, 0.0, 0.0, 0.0,
+                    status if status == QAStatus.FAILED
+                    else QAStatus.WAIVED, algorithm))
+                continue
+            bw = bandwidth_report(payload_bytes, k, dt, algorithm=algorithm)
+            logger.log(collective_row(dtype, method, k,
+                                      bw["reference_gbps"]))
+            book(CollectiveResult(
+                method, dtype, cfg.n, k, rep, rooted, dt,
+                bw["reference_gbps"], bw["busbw_gbps"], status, algorithm))
+        return results
+
+    for rep in range(cfg.retries):
+        # the previous result is released first, so that the timed call
+        # reuses its memory instead of allocating anew
+        out = None
+        sw = Stopwatch()
+        sw.start()
+        out = run(x_dev)
+        sync()
+        dt = sw.stop()
+        status = verify(out)
+        bw = bandwidth_report(payload_bytes, k, dt, algorithm=algorithm)
+        logger.log(collective_row(dtype, method, k, bw["reference_gbps"]))
+        book(CollectiveResult(
+            method, dtype, cfg.n, k, rep, rooted, dt,
+            bw["reference_gbps"], bw["busbw_gbps"], status, algorithm))
+    return results
+
+
+def _gather_result(out, method: str, coll, dd_planes: bool,
+                   scale_exp: int = 0):
+    """This process's view of the result for verification, with its
+    selector (collectives.local_view_and_selection); on the pair paths
+    the planes decoded: SUM's hi + lo with the exact power-of-two
+    pre-scale of host_split_scaled undone, MIN/MAX's keys decoded."""
+    from tpu_reductions_torch.collectives import local_view_and_selection
+    if dd_planes:
+        hi_v, sel = local_view_and_selection(out[0], coll)
+        lo_v, _ = local_view_and_selection(out[1], coll)
+        if method == "SUM":
+            hi = np.asarray(hi_v, dtype=np.float64)
+            lo = np.asarray(lo_v, dtype=np.float64)
+            return np.ldexp(hi + lo, scale_exp), sel
+        from tpu_reductions_torch.ops.dd_reduce import host_key_decode
+        return host_key_decode(hi_v, lo_v), sel
+    return local_view_and_selection(out, coll)
+
+
+def _check(got: np.ndarray, expect: np.ndarray, method: str, dtype: str,
+           cfg: CollectiveConfig, selector=slice(None)) -> bool:
+    """Acceptance as the JAX driver's (reduction.cpp:750-780): ints and
+    selections exact (the key-pair MIN/MAX too), float sums within a
+    scaled tolerance."""
+    if cfg.rooted != "none" and got.size != expect.size:
+        # a reduce-scatter view: this process's slices, at the global
+        # positions `selector` names
+        expect = expect.reshape(-1)[selector]
+    if dtype == "int32" or method in ("MIN", "MAX"):
+        if dtype == "bfloat16":
+            return bool(np.allclose(got.astype(np.float64),
+                                    expect.astype(np.float64), rtol=1e-2))
+        return bool(np.array_equal(got, expect))
+    rtol = {"float32": 1e-6, "float64": 1e-12, "bfloat16": 1e-2}[dtype]
+    return bool(np.allclose(got.astype(np.float64),
+                            expect.astype(np.float64), rtol=rtol,
+                            atol=rtol * max(1.0, float(np.abs(
+                                expect.astype(np.float64)).max()))))
+
+
+def run_collective_suite(cfg: CollectiveConfig,
+                         logger: Optional[BenchLogger] = None
+                         ) -> List[CollectiveResult]:
+    """The full grid of one reduce.c run: for each dtype in {int32,
+    float64}, MAX, MIN and SUM (reduce.c:71-97), `retries` each."""
+    results = []
+    for dtype in ("int32", "float64"):
+        for method in ("MAX", "MIN", "SUM"):   # reduce.c:73's order
+            sub = dataclasses.replace(cfg, method=method, dtype=dtype)
+            results.extend(run_collective_benchmark(sub, logger=logger))
+    return results
+
+
+def _rank0_hint(args) -> bool:
+    """Whether this process will report, decided before parsing, so that
+    the RUNNING marker precedes any parse or bring-up failure: only an
+    explicit --process-id other than 0 demotes a process."""
+    for i, a in enumerate(args):
+        if a.startswith("--process-id"):
+            val = (a.split("=", 1)[1] if "=" in a
+                   else (args[i + 1] if i + 1 < len(args) else "0"))
+            try:
+                return int(val) == 0
+            except ValueError:
+                return True
+    return True
+
+
+def main(argv=None) -> int:
+    """CLI: RUNNING marker, parse, bring-up, run, terminal marker; returns
+    the QA exit code (module docstring)."""
+    from tpu_reductions_torch.config import parse_collective
+    from tpu_reductions_torch.utils.qa import qa_start
+
+    args = list(argv) if argv else sys.argv[1:]
+    if any(a in ("-h", "--help") for a in args):
+        parse_collective(argv)          # prints help, SystemExit(0)
+    rank0 = _rank0_hint(args)
+    if rank0:
+        qa_start(NAME, args)
+    # a printed RUNNING always gets its terminal marker from this process
+    qa_out = open(os.devnull, "w") if not rank0 else None
+    try:
+        return _main(argv, qa_out)
+    finally:
+        if qa_out is not None:
+            qa_out.close()
+
+
+def _main(argv, qa_out) -> int:
+    from tpu_reductions_torch.config import parse_collective
+    from tpu_reductions_torch.utils.qa import qa_finish
+
+    try:
+        cfg = parse_collective(argv)
+    except SystemExit as e:
+        if e.code in (0, None):
+            return 0
+        if isinstance(e.code, str):
+            # a validation exit carries its reason; argparse's own
+            # refusals printed theirs
+            print(f"error: {e.code}", file=sys.stderr)
+        # FAILED = 1, not argparse's 2
+        return qa_finish(NAME, QAStatus.FAILED, out=qa_out)
+    except Exception as e:   # a value CollectiveConfig refuses
+        print(f"error: {type(e).__name__}: {e}", file=sys.stderr)
+        return qa_finish(NAME, QAStatus.FAILED, out=qa_out)
+    nproc = cfg.num_processes or 1
+    if cfg.platform == "gpu" and nproc > 1:
+        print(f"error: --num-processes={nproc} is refused on the card: "
+              "NCCL takes one rank per GPU, and this port places every "
+              "rank as a row of one tensor on one card; run the ranks in "
+              "one process (--devices=K), or pass --platform=cpu to split "
+              "them among processes over gloo", file=sys.stderr)
+        return qa_finish(NAME, QAStatus.FAILED, out=qa_out)
+    joined = False
+    try:
+        device_mod.resolve(cfg.platform)
+        if nproc > 1:
+            from tpu_reductions_torch.parallel.mesh import \
+                initialize_distributed
+            joined = initialize_distributed(
+                coordinator_address=cfg.coordinator, num_processes=nproc,
+                process_id=cfg.process_id)
+        reporting = nproc <= 1 or cfg.process_id in (None, 0)
+    except Exception as e:   # no card, a dead coordinator, ...
+        print(f"error: bring-up failed: {type(e).__name__}: {e}",
+              file=sys.stderr)
+        return qa_finish(NAME, QAStatus.FAILED, out=qa_out)
+    try:
+        # --qatest: markers only; a process other than rank 0 prints no
+        # rows (reduce.c prints from rank 0 only, :68,81,95)
+        quiet = cfg.qatest or not reporting
+        logger = BenchLogger(None, None,
+                             console=open(os.devnull, "w") if quiet
+                             else None)
+        ck = None
+        if cfg.out and reporting:
+            from tpu_reductions_torch.bench.resume import Checkpoint
+            ck = Checkpoint(cfg.out, collective_meta(cfg),
+                            key_fn=lambda r: r.get("repeat"))
+        try:
+            results = run_collective_benchmark(cfg, logger=logger,
+                                               checkpoint=ck)
+        except Exception as e:  # fail fast with the QA protocol intact
+            logger.log(f"error: {type(e).__name__}: {e}")
+            print(f"error: {type(e).__name__}: {e}", file=sys.stderr)
+            return qa_finish(NAME, QAStatus.FAILED, out=qa_out)
+        finally:
+            if quiet:
+                logger.console.close()
+        if ck is not None:
+            ck.finalize()
+        ok = all(r.passed or r.status == QAStatus.WAIVED for r in results)
+        return qa_finish(NAME, QAStatus.PASSED if ok else QAStatus.FAILED,
+                         out=qa_out)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,7 +9,8 @@ caches each verified cell as `raw_output/run-{dtype}-{method}-{rep}.json`
 (the reference's per-job stdout files, which its getAvgs.sh averaged;
 bench/aggregate.py and bench/regen.py read them). The collective sweeps
 (`sweep_collective`, `shmoo_collective`) and the module's CLI wait for
-the port of the collectives.
+ROADMAP item 6b; the collective benchmark itself is
+bench/collective_driver.py.
 """
 
 from __future__ import annotations

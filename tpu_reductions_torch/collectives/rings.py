@@ -1,0 +1,216 @@
+"""Ring machinery of the collective suite: the one place hops are built.
+
+The counterpart of tpu_reductions/collectives/rings.py (`ring_perm`,
+`grid_factors`, `_chunk`/`_put`, `_rs_phase`, `_ag_phase`,
+`ring_rs_ag_stateful`, `ring_rs_ag`, `naive_accumulate`), over the port's
+rank axis (parallel/mesh.py): a buffer is a `(k_local, L)` tensor whose
+rows are this process's ranks.
+
+- `ppermute(x, perm, mesh)` is `jax.lax.ppermute`: row `dst` of the
+  result is row `src` of `x` for each `(src, dst)` pair, zeros where no
+  pair names the row. Within a process it is one `index_select` along the
+  rank axis with an index tensor made once per permutation (a copy inside
+  the device); rows whose source lies in another process arrive by gloo
+  `isend`/`irecv`.
+- `_chunk`/`_put` are vectorised: every row gathers (or writes) its own
+  chunk index, which differs by rank, in one gather (or scatter) launch.
+- Every combine keeps the JAX order: the target chunk first, the arrival
+  second (`absorb(_chunk(bs, tgt, c), rx)`); the dd ring's bits depend
+  on it.
+
+`_put` writes in place: the ring constructors run on their own copies of the
+caller's buffers (collectives/core.py). Every index tensor is made the
+first time a (mesh, geometry) needs it, when the constructor first runs,
+outside any CUDA graph capture.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def ring_perm(k: int, sigma: int = 1) -> list:
+    """The ppermute source -> dest pairs of a k-rank ring in direction
+    sigma (+1 forwards, -1 backwards)."""
+    return [(i, (i + sigma) % k) for i in range(k)]
+
+
+def grid_factors(k: int) -> tuple:
+    """(a, b) with a*b == k and a the largest divisor <= sqrt(k): the
+    sub-ring sizes of the 2D-torus decomposition (a = 1 for primes)."""
+    a = 1
+    d = 1
+    while d * d <= k:
+        if k % d == 0:
+            a = d
+        d += 1
+    return a, k // a
+
+
+class _Hop:
+    """One permutation's plan on a mesh: the rows this process fills from
+    its own rows, and the rows it sends to and receives from others."""
+
+    def __init__(self, perm: tuple, mesh) -> None:
+        src_of = {d: s for s, d in perm}
+        self.mesh = mesh
+        local_dst, local_src = [], []
+        self.recvs, self.sends = [], []       # (row, peer process, tag)
+        for i, r in enumerate(mesh.owned):
+            s = src_of.get(r)
+            if s is None:
+                continue
+            if mesh.owners[s] == mesh.process:
+                local_dst.append(i)
+                local_src.append(mesh.row(s))
+            else:
+                self.recvs.append((i, mesh.owners[s], r))
+        for s, d in perm:
+            if (mesh.owners[s] == mesh.process
+                    and mesh.owners[d] != mesh.process):
+                self.sends.append((mesh.row(s), mesh.owners[d], d))
+        dev = mesh.device
+        # every row filled locally, in order: one index_select
+        self.full = local_dst == list(range(mesh.k_local))
+        self.src = torch.tensor(local_src, dtype=torch.long, device=dev)
+        self.dst = torch.tensor(local_dst, dtype=torch.long, device=dev)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.full:
+            return x.index_select(0, self.src)
+        out = torch.zeros_like(x)
+        if self.dst.numel():
+            out.index_copy_(0, self.dst, x.index_select(0, self.src))
+        if self.sends or self.recvs:
+            import torch.distributed as dist
+            group = self.mesh.group
+            reqs = [dist.isend(x[row].contiguous(), peer, group=group,
+                               tag=tag) for row, peer, tag in self.sends]
+            reqs += [dist.irecv(out[row], peer, group=group, tag=tag)
+                     for row, peer, tag in self.recvs]
+            for req in reqs:
+                req.wait()
+        return out
+
+
+def hop_plan(perm, mesh) -> _Hop:
+    """The mesh's cached plan of permutation `perm`."""
+    key = ("hop", tuple(map(tuple, perm)))
+    return mesh.cached(key, lambda: _Hop(key[1], mesh))
+
+
+def ppermute(x: torch.Tensor, perm, mesh) -> torch.Tensor:
+    """jax.lax.ppermute over the rank axis (module docstring)."""
+    return hop_plan(perm, mesh)(x)
+
+
+def axis_index(mesh) -> torch.Tensor:
+    """This process's ranks, on its device: the rank of every row."""
+    return mesh.index
+
+
+def ring_steps(mesh, m: int, sigma: int = 1) -> torch.Tensor:
+    """(m, k_local) chunk indices of the ring over the whole rank axis:
+    row s holds (pos - sigma*s) % m for every row's rank pos. The RS
+    phase sends chunk [s] and matches chunk [s + 1] at hop s; the AG
+    phase stores chunk [s] at hop s."""
+    def build():
+        s = torch.arange(m, device=mesh.device).unsqueeze(1)
+        return torch.remainder(mesh.index.unsqueeze(0) - sigma * s, m)
+    return mesh.cached(("ring_steps", m, sigma), build)
+
+
+def _index(idx: torch.Tensor, c: int) -> torch.Tensor:
+    return idx.view(-1, 1, 1).expand(-1, 1, c)
+
+
+def _chunk(bs: tuple, idx: torch.Tensor, c: int) -> tuple:
+    """Row i's chunk idx[i] of each buffer: (k_local, c) tensors."""
+    return tuple(torch.gather(b.view(b.shape[0], -1, c), 1,
+                              _index(idx, c)).view(b.shape[0], c)
+                 for b in bs)
+
+
+def _put(bs: tuple, pieces: tuple, idx: torch.Tensor, c: int) -> tuple:
+    """Write row i's piece into chunk idx[i] of each buffer, in place."""
+    for b, pc in zip(bs, pieces):
+        b.view(b.shape[0], -1, c).scatter_(1, _index(idx, c),
+                                           pc.view(b.shape[0], 1, c))
+    return bs
+
+
+def _rs_phase(mesh, m: int, perm: list, steps: torch.Tensor, bufs: tuple,
+              to_wire, absorb, state):
+    """Reduce-scatter half: m-1 hops around the ring named by `perm`;
+    `steps` are ring_steps' chunk indices of its direction sigma. After
+    the last hop the rank at position p owns the fully reduced chunk
+    (p + sigma) % m = steps[m - 1]. Returns (bufs, state, own_idx)."""
+    c = bufs[0].shape[1] // m
+    for s in range(m - 1):
+        send, tgt = steps[s], steps[s + 1]
+        wire, state = to_wire(_chunk(bufs, send, c), state)
+        rx = tuple(ppermute(w, perm, mesh) for w in wire)
+        bufs = _put(bufs, absorb(_chunk(bufs, tgt, c), rx), tgt, c)
+    return bufs, state, steps[m - 1]
+
+
+def _ag_phase(mesh, m: int, perm: list, steps: torch.Tensor, bufs: tuple,
+              from_wire, w0: tuple) -> tuple:
+    """All-gather half: from the owned chunk's wire form `w0`, m-1 hops
+    forwarding what arrived, so that every rank decodes the one encoding
+    of each chunk (bit-identical replicas)."""
+    c = bufs[0].shape[1] // m
+    w = w0
+    for s in range(m - 1):
+        w = tuple(ppermute(x, perm, mesh) for x in w)
+        bufs = _put(bufs, from_wire(w), steps[s], c)
+    return bufs
+
+
+def ring_rs_ag_stateful(mesh, k: int, bufs: tuple, to_wire, absorb,
+                        from_wire, state, *, perm: Optional[list] = None,
+                        sigma: int = 1) -> tuple:
+    """The ring all-reduce (RS phase, the owned chunk re-encoded, AG
+    phase) with wire state threaded through every encode:
+
+      to_wire(chunks, state) -> (wire, state')   what crosses a hop
+      absorb(tgt, wire)      -> chunk tuple      combine an arrival
+      from_wire(wire)        -> chunk tuple      store in the AG phase
+
+    bufs: (k_local, L) buffers sharing one chunking, L divisible by k
+    (callers gate on it), written in place. Returns (bufs, state)."""
+    if perm is None:
+        perm = ring_perm(k, sigma)
+    steps = ring_steps(mesh, k, sigma)
+    c = bufs[0].shape[1] // k
+    bufs, state, own = _rs_phase(mesh, k, perm, steps, bufs, to_wire,
+                                 absorb, state)
+    w0, state = to_wire(_chunk(bufs, own, c), state)
+    bufs = _put(bufs, from_wire(w0), own, c)
+    bufs = _ag_phase(mesh, k, perm, steps, bufs, from_wire, w0)
+    return bufs, state
+
+
+def ring_rs_ag(mesh, k: int, bufs: tuple, to_wire, absorb,
+               from_wire) -> tuple:
+    """Stateless spelling of ring_rs_ag_stateful (the dd pair ring):
+    to_wire takes only the chunk tuple."""
+    bufs, _ = ring_rs_ag_stateful(
+        mesh, k, bufs, to_wire=lambda ch, st: (to_wire(ch), st),
+        absorb=absorb, from_wire=from_wire, state=None)
+    return bufs
+
+
+def naive_accumulate(mesh, k: int, bufs: tuple, combine,
+                     sigma: int = 1) -> tuple:
+    """Accumulate around the ring: k-1 hops of the full per-rank buffer
+    (wire factor k-1, the only fit for lengths that do not divide by k).
+    combine(acc_tuple, rx_tuple) -> tuple. Leaves `bufs` as they are."""
+    perm = ring_perm(k, sigma)
+    acc, cur = bufs, bufs
+    for _ in range(k - 1):
+        cur = tuple(ppermute(b, perm, mesh) for b in cur)
+        acc = combine(acc, cur)
+    return acc

@@ -1,8 +1,10 @@
-"""Flags and configuration of the single-chip benchmark.
+"""Flags and configuration of the single-chip and collective benchmarks.
 
 The counterpart of tpu_reductions/config.py (`DTYPE_ALIASES`, `METHODS`,
-the kernel ids, `ReduceConfig`, `parse_single_chip`). Flags keep the JAX
-package's spelling and defaults:
+the kernel ids, `ReduceConfig`, `parse_single_chip`, and at the end the
+collective CLI's `CollectiveConfig`, `build_collective_parser` and
+`parse_collective`, with --platform and --f64 added). Flags keep the JAX
+package's spelling and defaults. The single-chip CLI's:
 
   --method={SUM|MIN|MAX}       required
   --type={int|float|double}    or int32/float32/float64/bfloat16
@@ -311,3 +313,199 @@ def parse_single_chip(argv=None):
         p.error(f"--shmoo-min/--shmoo-max must satisfy 0 < min <= max, "
                 f"got {ns.shmoo_min}/{ns.shmoo_max}")
     return cfg, ((ns.shmoo_min, ns.shmoo_max) if ns.shmoo else None)
+
+
+@dataclasses.dataclass
+class CollectiveConfig:
+    """Cross-rank collective reduction configuration (the MPI_Reduce
+    analog; the JAX package's CollectiveConfig, whose fields and defaults
+    it keeps), plus the port's `platform` and `f64`:
+
+      n            total elements over all ranks (NUM_INTS/NUM_DOUBLES,
+                   constants.h:1-2, as a flag)
+      retries      timed repetitions (RETRY_COUNT=5, constants.h:5)
+      num_devices  rank count (the sbatch --nodes sweep); each process
+                   provisions num_devices / num_processes virtual ranks,
+                   twice that under mode='co' (provisioned_ranks)
+      mesh_shape   optional multi-axis mesh whose first axis is the ranks
+      mapping      rank placement over processes (BGLMPI_MAPPING)
+      mode         'vn' every virtual rank, 'co' every other one
+      rooted       'none' all-reduce; 'scatter' reduce-scatter; 'root'
+                   reduce-to-root (reduce.c:76,90). Bools accepted.
+      quantized    parsed as in the JAX package; the driver refuses it
+                   (the quantized wire is ROADMAP item 6b)
+      platform     gpu (the card, default) or cpu
+      f64          float64's route: native, or dd, the JAX package's
+                   pair planes (also TPU_REDUCTIONS_FORCE_DD=1)
+    """
+
+    method: str = "SUM"
+    dtype: str = "int32"
+    n: int = 1 << 24
+    retries: int = 5
+    warmup: int = 1                  # reduce.c:61-64 warm-up reduce
+    num_devices: Optional[int] = None
+    mesh_shape: Optional[tuple] = None
+    mapping: str = "default"
+    mode: str = "vn"
+    rooted: str = "none"             # none|scatter|root (bools accepted)
+    quantized: bool = False
+    quant_bits: int = 8
+    seed: int = 0
+    verify: bool = True
+    qatest: bool = False             # batch mode: QA markers only
+    timing: str = "periter"          # periter | chained (one CUDA graph)
+    chain_span: int = 16             # iterations per slope
+    coordinator: Optional[str] = None   # process 0's host:port
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    out: Optional[str] = None        # --out artifact (bench/resume)
+    platform: str = "gpu"
+    f64: str = "native"
+
+    def __post_init__(self) -> None:
+        self.method = self.method.upper()
+        if self.method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, got {self.method!r}")
+        self.dtype = DTYPE_ALIASES[self.dtype]
+        from tpu_reductions_torch.collectives.algorithms import \
+            normalize_rooted
+        self.rooted = normalize_rooted(self.rooted)
+        if self.mode not in ("vn", "co"):
+            raise ValueError("mode must be 'vn' or 'co'")
+        if self.timing not in ("periter", "chained"):
+            raise ValueError(f"timing must be periter|chained, "
+                             f"got {self.timing!r}")
+        if self.chain_span <= 0:
+            raise ValueError("chain_span must be positive")
+        if self.platform not in PLATFORMS:
+            raise ValueError(f"platform must be one of {PLATFORMS}, got {self.platform!r}")
+        if self.f64 not in F64_ROUTES:
+            raise ValueError(f"f64 must be one of {F64_ROUTES}, got "
+                             f"{self.f64!r}")
+        if self.quantized:
+            from tpu_reductions_torch.collectives.quant import (
+                quant_support_error, quant_supported)
+            if not quant_supported(self.method, self.dtype,
+                                   self.quant_bits):
+                raise ValueError(quant_support_error(
+                    self.method, self.dtype, self.quant_bits))
+
+    @property
+    def provisioned_ranks(self) -> Optional[int]:
+        """The virtual ranks each process provides: --devices over the
+        processes, twice that under mode='co' (the JAX CLI's virtual CPU
+        devices); None without --devices (the platform's device count)."""
+        if self.num_devices is None:
+            return None
+        want = self.num_devices * (2 if self.mode == "co" else 1)
+        return want // (self.num_processes or 1)
+
+
+def build_collective_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="tpu_reductions_torch.collective",
+        description="Cross-rank collective reduction benchmark "
+                    "(reference: mpi/reduce.c over the BG/L torus), its "
+                    "ranks the rows of one tensor on the card",
+        # no prefix abbreviation: an abbreviated --hel would reach the
+        # parser as --help after the RUNNING marker printed
+        allow_abbrev=False,
+    )
+    p.add_argument("--method", type=str, default=None,
+                   help="Reduction to benchmark: SUM|MIN|MAX (required)")
+    p.add_argument("--type", dest="dtype", type=str, default="int",
+                   help="int|float|double (or int32/float32/float64/bfloat16)")
+    p.add_argument("--n", type=int, default=1 << 24,
+                   help="Number of elements to reduce (default 2^24)")
+    p.add_argument("--seed", type=int, default=0, help="Data seed")
+    p.add_argument("--qatest", action="store_true",
+                   help="QA batch mode: markers only")
+    p.add_argument("--no-verify", dest="verify", action="store_false",
+                   help="Skip host-oracle verification")
+    p.add_argument("--platform", type=str, default="gpu", choices=PLATFORMS,
+                   help="gpu (default): the ranks are rows on the card; "
+                        "cpu: on the host, and across processes over gloo")
+    p.add_argument("--retries", type=int, default=5,
+                   help="Timed repetitions (RETRY_COUNT analog)")
+    p.add_argument("--warmup", type=int, default=1)
+    p.add_argument("--devices", dest="num_devices", type=int, default=None,
+                   help="Device count (rank-count analog): virtual ranks, "
+                        "split evenly among --num-processes")
+    p.add_argument("--mapping", type=str, default="default",
+                   help="Mesh axis ordering (BGLMPI_MAPPING analog)")
+    p.add_argument("--mode", type=str, default="vn", choices=("vn", "co"),
+                   help="vn=all devices, co=one per chip (BG/L VN/CO analog)")
+    p.add_argument("--quantized", action="store_true",
+                   help="block-quantized wire: parsed, and refused by the "
+                        "driver (not ported yet)")
+    p.add_argument("--quant-bits", dest="quant_bits", type=int, default=8,
+                   help="wire width for --quantized: 4|8|16 for SUM "
+                        "block scaling, 8|16 for MIN/MAX coarse keys "
+                        "(default 8)")
+    p.add_argument("--rooted", nargs="?", const="scatter", default="none",
+                   choices=("none", "scatter", "root"),
+                   help="Rooted reduce semantics: bare --rooted = "
+                        "'scatter' (reduce-scatter, the rooted wire "
+                        "cost); 'root' = true reduce-to-root like "
+                        "MPI_Reduce(root=0) — the root rank holds the "
+                        "full reduced array (reduce.c:76,90)")
+    p.add_argument("--timing", type=str, default="periter",
+                   choices=("periter", "chained"),
+                   help="periter = reduce.c's sync-per-collective "
+                        "structure; chained = data-dependent iterations, "
+                        "slope-timed, one CUDA graph a trip on the card")
+    p.add_argument("--chainspan", dest="chain_span", type=int, default=16,
+                   help="Iterations per slope for --timing=chained")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="Multi-process: process 0's address host:port")
+    p.add_argument("--num-processes", dest="num_processes", type=int,
+                   default=None,
+                   help="Multi-process: total participating processes "
+                        "(--platform=cpu only: gloo)")
+    p.add_argument("--process-id", dest="process_id", type=int,
+                   default=None,
+                   help="Multi-process: this process's id in [0, "
+                        "num_processes)")
+    p.add_argument("--out", type=str, default=None,
+                   help="JSON artifact path (bench/resume.Checkpoint: "
+                        "rows persisted the moment they land; an "
+                        "interrupted run resumes them)")
+    p.add_argument("--f64", type=str, default="native", choices=F64_ROUTES,
+                   help="float64's route: native (the card's f64, default) "
+                        "or dd, the JAX package's pair planes (dd ring for "
+                        "SUM, order-key pairs for MIN/MAX). Other dtypes "
+                        "ignore it")
+    return p
+
+
+def parse_collective(argv=None) -> CollectiveConfig:
+    """Parse the collective CLI. A missing --method is a usage error
+    (exit 2); --devices that does not divide among --num-processes exits
+    with the JAX package's reason (a SystemExit carrying the message); a
+    value CollectiveConfig refuses raises ValueError."""
+    p = build_collective_parser()
+    ns = p.parse_args(argv)
+    if ns.method is None:
+        p.error("--method={SUM|MIN|MAX} is required")
+    nproc = ns.num_processes or 1
+    if ns.num_devices is not None and nproc > 1:
+        want = ns.num_devices * (2 if ns.mode == "co" else 1)
+        if want % nproc != 0:
+            co = (" (mode=co provisions 2x that in virtual "
+                  "devices)" if want != ns.num_devices else "")
+            raise SystemExit(
+                f"--devices={ns.num_devices}{co} must divide "
+                f"evenly among --num-processes={nproc}: every "
+                "process provisions an equal local share "
+                "(docs/MULTIHOST.md)")
+    return CollectiveConfig(
+        method=ns.method, dtype=ns.dtype, n=ns.n, retries=ns.retries,
+        warmup=ns.warmup, num_devices=ns.num_devices, mapping=ns.mapping,
+        mode=ns.mode, rooted=ns.rooted, seed=ns.seed, verify=ns.verify,
+        qatest=ns.qatest, timing=ns.timing, chain_span=ns.chain_span,
+        quantized=ns.quantized, quant_bits=ns.quant_bits,
+        coordinator=ns.coordinator, num_processes=ns.num_processes,
+        process_id=ns.process_id, out=ns.out, platform=ns.platform,
+        f64=ns.f64,
+    )

@@ -111,17 +111,22 @@ class ChainedReduce:
     """`chained(x2d, k) -> 0-d tensor`: k data-dependent iterations of
     `core` (k >= 1); see the module docstring. `close()` frees the card's
     graphs and their input buffers (a row's chain is closed when the row
-    is timed)."""
+    is timed). `fold=False` leaves the input as it is: a process of a
+    collective that does not hold rank 0, whose element the chain folds
+    into (collectives/core.make_chained_collective)."""
 
-    def __init__(self, core: Callable, op: ReduceOpSpec) -> None:
+    def __init__(self, core: Callable, op: ReduceOpSpec,
+                 fold: bool = True) -> None:
         self.core = core
         self.op = op
+        self.fold = fold
         self._buffers: dict = {}     # staged shapes -> input buffers
         self._graphs: dict = {}      # (staged shapes, k) -> _Graph
 
     def _step(self, planes: tuple, pair: bool) -> torch.Tensor:
         last = self.core(*planes)[0] if pair else self.core(planes[0])
-        fold_into(planes[0], last, self.op)
+        if self.fold:
+            fold_into(planes[0], last, self.op)
         return last
 
     def __call__(self, x2d: Staged, k: int) -> torch.Tensor:

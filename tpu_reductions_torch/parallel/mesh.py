@@ -1,0 +1,232 @@
+"""The rank mesh: k ranks as the rows of one tensor per process.
+
+The counterpart of tpu_reductions/parallel/mesh.py. The JAX package
+places one rank on each device of a `jax.sharding.Mesh` and runs its rank
+ladder on virtual CPU devices, up to 1024. torch has no virtual devices,
+and NCCL takes one rank per GPU, so the port's mesh is a rank axis inside
+each process: this process's ranks are the rows of one `(k_local, L)`
+tensor on its device, and a hop between two of them is a copy inside that
+device (collectives/rings.py). The same code runs on the CPU and on the
+card.
+
+Across processes (`initialize_distributed`, gloo over TCP) the rank axis
+is split: each process owns the ranks whose virtual device it provides,
+and a hop between ranks of two processes is a gloo send and receive. The
+card refuses more than one process (bench/collective_driver.py).
+
+Reference mapping, as in the JAX package:
+- MPI_Init / Comm_size (reduce.c:32-34): `device_inventory`, `build_mesh`;
+- the Blue Gene VN/CO modes (ccni_vn.sh:6): `mode`; without chip
+  topology, CO keeps every other rank, the JAX package's CPU simulation;
+- BGLMPI_MAPPING (ccni_vn.sh:3): `mapping`, a permutation of which
+  process places each rank;
+- mpirun across nodes: `initialize_distributed`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from tpu_reductions_torch import device as device_mod
+
+DEFAULT_AXIS = "ranks"
+
+MAPPINGS = ("default", "reversed", "interleaved")
+
+# how long a process waits on a peer in one collective before it raises:
+# a peer that died leaves the others waiting this long, not forever
+DIST_TIMEOUT_S = 300
+
+
+@dataclasses.dataclass(frozen=True)
+class Place:
+    """One virtual device: the process that holds it, and its index among
+    that process's rows."""
+
+    process: int
+    local: int
+
+
+def _world() -> tuple:
+    """(this process's index, the number of processes)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def device_inventory(platform: str = "gpu",
+                     local_ranks: Optional[int] = None) -> dict:
+    """What the mesh can place (the deviceQuery analog, and the
+    MPI_Comm_size source): `num_devices` is the ranks every process
+    provides together, `local_ranks` each (default: the platform's
+    device count, 1 on the CPU)."""
+    dev = device_mod.resolve(platform)
+    me, world = _world()
+    local = device_mod.count(platform) if local_ranks is None else local_ranks
+    return {
+        "platform": platform,
+        "num_devices": local * world,
+        "num_processes": world,
+        "process_index": me,
+        "device_kinds": [device_mod.name(dev)],
+    }
+
+
+def _order_devices(devs: list, mapping: str) -> list:
+    """Permute rank placement, the BGLMPI_MAPPING analog: which process
+    holds which rank."""
+    if mapping == "default":
+        return devs
+    if mapping == "reversed":
+        return devs[::-1]
+    if mapping == "interleaved":
+        return devs[0::2] + devs[1::2]
+    raise ValueError(f"unknown mapping {mapping!r}; one of {MAPPINGS}")
+
+
+def coarsen_to_chips(devs: Sequence) -> list:
+    """CO mode: one rank per chip. Virtual devices have no chip topology,
+    so, as the JAX package's CPU branch does, CO keeps every other
+    device: a simulation of the VN -> CO halving, not a granularity."""
+    return list(devs[0::2]) if len(devs) > 1 else list(devs)
+
+
+@dataclasses.dataclass
+class RankMesh:
+    """The mesh of one collective run, seen from this process.
+
+    `devices` holds the mesh's virtual devices in mesh order (row-major
+    over `mesh_shape`); rank r is the index along the first axis. `owned`
+    are the ranks this process holds, ascending: the rows of its
+    `(k_local, L)` tensors, in that order."""
+
+    k: int
+    axis_names: tuple
+    mesh_shape: tuple
+    devices: tuple
+    process: int
+    num_processes: int
+    device: torch.device
+    group: object = None
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self) -> None:
+        per_rank = len(self.devices) // self.k
+        self.owners = tuple(self.devices[r * per_rank].process
+                            for r in range(self.k))
+        self.owned = tuple(r for r in range(self.k)
+                           if self.owners[r] == self.process)
+        self._row = {r: i for i, r in enumerate(self.owned)}
+        # this process's ranks, on its device: axis_index's counterpart
+        self.index = torch.tensor(self.owned, dtype=torch.long,
+                                  device=self.device)
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size, as jax.sharding.Mesh.shape."""
+        return dict(zip(self.axis_names, self.mesh_shape))
+
+    @property
+    def k_local(self) -> int:
+        return len(self.owned)
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether another process holds ranks of this mesh."""
+        return any(p != self.process for p in self.owners)
+
+    def row(self, rank: int) -> int:
+        """The row of an owned rank in this process's tensors."""
+        return self._row[rank]
+
+    def owned_by(self, process: int) -> tuple:
+        return tuple(r for r in range(self.k) if self.owners[r] == process)
+
+    def cached(self, key, build):
+        """`build()` once per key: the index tensors and hop plans of a
+        collective, made when it first runs, so that a captured CUDA graph
+        holds no host-to-device copy."""
+        if key not in self._cache:
+            self._cache[key] = build()
+        return self._cache[key]
+
+
+def build_mesh(num_devices: Optional[int] = None,
+               mesh_shape: Optional[Sequence[int]] = None,
+               axis_names: Optional[Sequence[str]] = None,
+               mapping: str = "default",
+               mode: str = "vn", *,
+               platform: str = "gpu",
+               local_ranks: Optional[int] = None,
+               device: Optional[torch.device] = None) -> RankMesh:
+    """Build the reduction mesh.
+
+    Each process provides `local_ranks` virtual devices (default: the
+    platform's device count, 1 on the CPU; the collective CLI provisions
+    --devices / processes of them, twice that under mode=co, as the JAX
+    CLI provisions virtual CPU devices). `num_devices` is the rank count
+    (defaults to all after `mode` filtering); `mesh_shape`/`axis_names`
+    allow a multi-axis mesh whose first axis is the rank axis. The
+    refusals keep the JAX package's words."""
+    me, world = _world()
+    local = device_mod.count(platform) if local_ranks is None else local_ranks
+    devs = [Place(p, i) for p in range(world) for i in range(local)]
+    if mode == "co":
+        devs = coarsen_to_chips(devs)
+    elif mode != "vn":
+        raise ValueError("mode must be 'vn' or 'co'")
+    devs = _order_devices(devs, mapping)
+    if num_devices is not None:
+        if num_devices > len(devs):
+            raise ValueError(f"requested {num_devices} devices, "
+                             f"only {len(devs)} available in mode={mode!r}")
+        devs = devs[:num_devices]
+    if mesh_shape is None:
+        mesh_shape = (len(devs),)
+        axis_names = tuple(axis_names or (DEFAULT_AXIS,))
+    else:
+        mesh_shape = tuple(mesh_shape)
+        if math.prod(mesh_shape) != len(devs):
+            raise ValueError(f"mesh_shape {mesh_shape} != {len(devs)} devices")
+        if axis_names is None:
+            axis_names = ((DEFAULT_AXIS,) if len(mesh_shape) == 1
+                          else tuple(f"ax{i}"
+                                     for i in range(len(mesh_shape))))
+        axis_names = tuple(axis_names)
+        if len(axis_names) != len(mesh_shape):
+            raise ValueError(f"{len(axis_names)} axis names for "
+                             f"{len(mesh_shape)}-d mesh")
+    if device is None:
+        device = device_mod.resolve(platform)
+    group = None
+    if world > 1:
+        import torch.distributed as dist
+        group = dist.group.WORLD
+    return RankMesh(k=mesh_shape[0], axis_names=axis_names,
+                    mesh_shape=mesh_shape, devices=tuple(devs), process=me,
+                    num_processes=world, device=device, group=group)
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None) -> bool:
+    """Join the processes of one run: gloo over TCP at
+    `coordinator_address` (host:port of process 0). Every participating
+    process calls this before build_mesh. Returns True when it joined,
+    False when it did nothing (one process, or a group already exists)."""
+    import torch.distributed as dist
+    if num_processes in (None, 1):
+        return False
+    if dist.is_initialized():
+        return False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    return True

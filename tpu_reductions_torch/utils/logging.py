@@ -1,5 +1,5 @@
 """Log fan-out (console, per-app file, master file), the canonical
-throughput row, the averaged `DATATYPE OP NODES GB/sec` row and the
+throughput row, the collective `DATATYPE OP NODES GB/sec` row and the
 family's `DATATYPE OP IMPL N GBPS STATUS` row, each byte-identical to the
 JAX package's (tpu_reductions/utils/logging.py; templates from its
 lint/grammar.py)."""
@@ -37,6 +37,14 @@ def throughput_line(gbps: float, secs: float, n: int, *,
     Elements, NumDevsUsed = %d, Workgroup = %u`"""
     return THROUGHPUT_TEMPLATE.format(name=name, gbps=gbps, secs=secs, n=n,
                                       devices=devices, workgroup=workgroup)
+
+
+def collective_row(dtype: str, op: str, ranks: int, gbps: float) -> str:
+    """`DATATYPE OP NODES GB/sec`: one rank-0 row of the collective
+    benchmark (reduce.c:81,95)."""
+    return COLLECTIVE_ROW_TEMPLATE.format(
+        dtype=_ROW_DTYPES.get(dtype, dtype.upper()), op=op.upper(),
+        ranks=ranks, gbps=gbps)
 
 
 def family_row(dtype: str, op: str, impl: str, n: int, gbps: float,
