@@ -87,7 +87,21 @@ Run from the repository root on a machine with one NVIDIA GPU:
    and printed beside its bound; and the chained int32 SUM slope at k = 8
    within 1.2 x (one collective call + the fold), both timed with CUDA
    events; `[round]`, the round metric (bench/round.py) at its defaults,
-   one JSON line with value > 0 and vs_baseline = value / 90.8413.
+   one JSON line with value > 0 and vs_baseline = value / 90.8413;
+   `[quant]`, the collective driver under --quantized at k = 8 and
+   n = 2^27 (the f64 dd planes at 2^26): SUM over float32, bfloat16 and
+   float64 at 4/8/16 bits, MIN and MAX over float32/float64 at 8/16,
+   chained, float32 SUM q8 periter too, every row PASSED within its
+   declared bound (MIN/MAX exact) with its label and printed beside its
+   bound, and the CLI at n = 2^27 - 8, which must say it fell back to the
+   exact psum and pass; `[rank_scaling]`, bench/rank_scaling.py into
+   out/smoke_rank_scaling: the sweep of int32 and float64 x MAX/MIN/SUM at
+   2^26 over ranks 2, 8, 64, 256, 1024 (one retry), the averages and
+   figures, the amortisation probe at 1024 ranks, the quantized curve
+   (102 cells) and the reshard curve (42 cells) at 2^24 over ranks 2..64,
+   every row PASSED, each reshard row's measured memory within its
+   declared factor and the permute pairs' wire under the naive
+   program's; each stage's seconds printed.
    Then the flagship experiment, `tpu_reductions_torch.bench.experiment`,
    into out/smoke_experiment: the n = 2^24 grid (float64 and int32 x
    SUM/MIN/MAX, 3 repeats, 18 cells through k6), the chained SUM curves
@@ -1343,11 +1357,156 @@ def round_path(driver, counted, kr, registry, config, staging) -> None:
                              "no snapshot")
 
 
+# [quant]: the collective CLI under --quantized at the [collective] width
+# (k = 8, n = 2^27; the f64 dd planes at 2^26): (method, dtype, bits, the
+# label the row must carry), every row chained; float SUM 8 periter too;
+# and one geometry whose per-rank length is no multiple of k * 256, which
+# falls back to the exact psum
+QUANT_LABELS = {"float32": "q{b}_ring_rs_ag",
+                "bfloat16": "q{b}_bf16_ring_rs_ag",
+                "float64": "q{b}_dd_ring_rs_ag"}
+KEY_LABELS = {"float32": "q{b}_key_minmax_all_reduce",
+              "float64": "q{b}_key_two_phase_all_reduce"}
+QUANT_ROWS = (
+    [("SUM", t, b, QUANT_LABELS[t].format(b=b))
+     for t in ("float32", "bfloat16", "float64") for b in (4, 8, 16)]
+    + [(m, t, b, KEY_LABELS[t].format(b=b))
+       for m in ("MIN", "MAX") for t in ("float32", "float64")
+       for b in (8, 16)])
+QUANT_FALLBACK_N = COLL_N - 8
+# a quantized ring call takes milliseconds: a span of 4 holds tens of ms
+QUANT_SPAN = 4
+FALLBACK_NOTE = "quantized ring fell back to the exact f32 psum"
+
+
+def quant_path(driver, counted, kr, registry, config, staging) -> None:
+    """The quantized collectives on the card through the collective
+    driver, k = 8: SUM over float32/bfloat16/float64 at 4/8/16 bits, MIN
+    and MAX over float32/float64 at 8/16, chained (float SUM 8 periter
+    too), and the exact-psum fallback geometry; every row PASSED within
+    its declared bound (MIN/MAX exact) with its label, each config's
+    median ms beside its bound. No kernel of the repository: the JAX
+    package's quantized rings are jnp and XLA collectives."""
+    from tpu_reductions_torch.bench import collective_driver as cd
+
+    def median_row(rows, what):
+        ms = 1e3 * statistics.median(r.time_s for r in rows)
+        bound_ms = collective_bound_ms(rows[0])
+        print(f"  -> {what}: {rows[0].algorithm} median {ms:.5f} ms, "
+              f"bound {bound_ms:.5f} ms ({ms / bound_ms:.2f}x)",
+              flush=True)
+
+    for method, dtype, bits, label in QUANT_ROWS:
+        n = PAIR_N if dtype == "float64" else COLL_N
+        rows = run_collective(cd, config, label, method=method,
+                              dtype=dtype, n=n, num_devices=COLL_K,
+                              retries=3, quantized=True, quant_bits=bits,
+                              timing="chained", chain_span=QUANT_SPAN)
+        median_row(rows, f"{dtype} {method} q{bits} chained")
+    rows = run_collective(cd, config, QUANT_LABELS["float32"].format(b=8),
+                          method="SUM", dtype="float32", n=COLL_N,
+                          num_devices=COLL_K, retries=3, quantized=True,
+                          quant_bits=8)
+    median_row(rows, "float32 SUM q8 periter")
+    # the fallback, through the CLI, whose row must say so
+    rc, text, seconds = run_cli(cd.main, [
+        "--method=SUM", "--type=float", f"--n={QUANT_FALLBACK_N}",
+        f"--devices={COLL_K}", "--quantized", "--quant-bits=8",
+        "--retries=2"])
+    print(text, end="")
+    print(f"  ({seconds:.1f} s)", flush=True)
+    if rc != 0 or FALLBACK_NOTE not in text:
+        raise AssertionError(f"[quant] fallback row: exit {rc}")
+
+
+RANK_SCALING_OUT = OUT / "smoke_rank_scaling"
+RANK_SCALING_ARGV = [f"--ranks={','.join(map(str, LADDER_KS))}",
+                     f"--n={LADDER_N}", "--retries=1",
+                     f"--curve-n={1 << 24}", "--rows=4096"]
+QUANT_CURVE_CELLS = 102
+RESHARD_CURVE_CELLS = 42
+PERMUTE_PAIRS = ("row_to_col", "col_to_row")
+
+
+def rank_scaling_path(driver, counted, kr, registry, config,
+                      staging) -> None:
+    """bench.rank_scaling on the card: the rank sweep (int32 and float64
+    x MAX/MIN/SUM at 2^26, ranks 2/8/64/256/1024, one retry), its
+    averages and figures, the amortisation probe at 1024 ranks, the
+    quantized curve (102 cells) and the reshard curve (42 cells) at 2^24
+    over ranks 2..64. Every row PASSED; each sweep row printed with its
+    ms and bound; each reshard row's accounted memory factor (the JAX
+    package's, from shapes) within its declared one and printed beside
+    the card allocator's peak factor (not gated: it counts the ops'
+    temporaries), its ms the median of warm calls, and the permute
+    pairs' planned wire under the naive program's. The full log goes to
+    OUT/rank_scaling.log."""
+    import types
+    from tpu_reductions_torch.bench import rank_scaling
+    shutil.rmtree(RANK_SCALING_OUT, ignore_errors=True)
+    rc, text, seconds = run_cli(rank_scaling.main,
+                                [str(RANK_SCALING_OUT),
+                                 *RANK_SCALING_ARGV])
+    (RANK_SCALING_OUT / "rank_scaling.log").write_text(text)
+    print(f"  rank_scaling exit {rc} ({seconds:.1f} s)", flush=True)
+    print("".join(f"  {ln}\n" for ln in text.splitlines()
+                  if ln.startswith("stage ")), end="")
+    sweep = json.loads((RANK_SCALING_OUT
+                        / "collective_sweep.json").read_text())["rows"]
+    for r in sweep:
+        row = types.SimpleNamespace(**r)
+        bound_ms = collective_bound_ms(row)
+        print(f"  {r['dtype']} {r['method']} k={r['ranks']} n={r['n']}: "
+              f"{r['algorithm']} {1e3 * r['time_s']:.5f} ms, "
+              f"{r['reference_gbps']:.4f} GB/s, bound {bound_ms:.5f} ms "
+              f"({1e3 * r['time_s'] / bound_ms:.2f}x) [{r['status']}]")
+    shape = json.loads((RANK_SCALING_OUT
+                        / "scaling_shape.json").read_text())
+    print(f"  amortisation probe at k={shape['amortization_probe_ranks']}:"
+          f" {shape['amortization_probe']}")
+    quant = json.loads((RANK_SCALING_OUT
+                        / "quant_curve.json").read_text())["rows"]
+    worst = {}
+    for r in quant:
+        key = (r["method"], r["dtype"], r["bits"])
+        if key not in worst or r["max_err"] / max(r["bound"], 1e-300) > \
+                worst[key]["max_err"] / max(worst[key]["bound"], 1e-300):
+            worst[key] = r
+    for (method, dtype, bits), r in sorted(worst.items()):
+        print(f"  quant_curve {method} {dtype} q{bits}: worst k="
+              f"{r['ranks']} err {r['max_err']:.3e} bound {r['bound']:.3e}"
+              f" wire x{r['wire_reduction']:.3f} [{r['status']}]")
+    reshard = json.loads((RANK_SCALING_OUT
+                          / "reshard_curve.json").read_text())["rows"]
+    for r in reshard:
+        print(f"  reshard {r['pair']} {r['wire']} k={r['ranks']} "
+              f"[{'+'.join(r['program'])}] {r['gbps']:.3f} GB/s, "
+              f"{1e3 * r['wall_s']:.5f} ms, mem accounted/declared "
+              f"{r['measured_mem_factor']}/{r['mem_factor']}, card peak "
+              f"{r['device_mem_factor']} (steps "
+              f"{[s['device_mem_factor'] for s in r['steps']]}), err "
+              f"{r['max_err']:.2e} [{r['status']}]")
+    bad = ([r for r in sweep if r["status"] != "PASSED"]
+           + [r for r in quant + reshard if r["status"] != "PASSED"]
+           + [r for r in reshard
+              if r["measured_mem_factor"] > r["mem_factor"]
+              or r["device_mem_factor"] is None
+              or (r["pair"] in PERMUTE_PAIRS
+                  and not r["plan_wire_bytes"] < r["naive_wire_bytes"])])
+    if rc != 0 or bad or len(quant) != QUANT_CURVE_CELLS \
+            or len(reshard) != RESHARD_CURVE_CELLS \
+            or len(shape["amortization_probe"]) != 3:
+        raise AssertionError(f"[rank_scaling] exit {rc}, {len(bad)} rows "
+                             f"not as required, {len(quant)} quant and "
+                             f"{len(reshard)} reshard cells")
+
+
 CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
              "family": family_path, "firstrow": firstrow_path,
              "warm": warm_path, "shmoo": shmoo_path, "check": check_path,
              "trace": trace_path, "staging": staging_path,
              "collective": collective_path, "round": round_path,
+             "quant": quant_path, "rank_scaling": rank_scaling_path,
              "experiment": experiment_path}
 
 
@@ -1455,10 +1614,12 @@ def main() -> int:
         kernels[KERNELS.index("dd")][extra] = main_shape["dd"][extra]
     # the paths whose zero launches are right: the JAX package computes
     # the collectives with XLA collectives and jnp, not with a kernel
+    no_kernel = ("no kernel of the repository: the collectives are "
+                 "torch ops over the rank axis, as the JAX package's are "
+                 "XLA collectives and jnp")
     print(json.dumps({"kernels": kernels, "notes": {
-        "collective": "no kernel of the repository: the collectives are "
-                      "torch ops over the rank axis, as the JAX package's "
-                      "are XLA collectives and jnp"}}))
+        "collective": no_kernel, "quant": no_kernel,
+        "rank_scaling": no_kernel}}))
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

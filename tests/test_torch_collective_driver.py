@@ -9,11 +9,17 @@
   for the same argv (`--rooted`, `--timing`, the f64 pair route as
   `--f64=dd` against JAX's TPU_REDUCTIONS_FORCE_DD=1, refusals). The port
   adds one `note:` line before its header, saying where its ranks live.
-- `--quantized` parses as in JAX and the port's driver refuses it.
+- `--quantized` parses as in JAX; an unsupported (op, dtype, bits) is
+  refused with the JAX words, and every supported one at k = 8, and the
+  fallback geometry, gives the JAX CLI's verdict, algorithm column and
+  exit code.
 - Resume from an interrupted `--out`.
 - Processes over gloo: `__graft_entry__.dryrun_multihost(2)` as a
-  two-process run of the port's CLI, and the two-process interleaved
-  reduce-scatter that tests/test_mesh_distributed.py runs for JAX. Each
+  two-process run of the port's CLI, the two-process interleaved
+  reduce-scatter that tests/test_mesh_distributed.py runs for JAX, and
+  two-process quantized runs (int8/uint8/int16 carriers and their scales
+  crossing gloo byte for byte, the coarse keys widened for gloo's
+  all_reduce). Each
   run takes its port from the OS, every subprocess has a timeout, and a
   run that fails or hangs has its whole group killed.
 """
@@ -44,10 +50,9 @@ DIFFERENT = {
     "--platform": "gpu|cpu (default gpu) against the JAX cpu|tpu",
     "--f64": "the port only: float64's native or pair route",
 }
-# flags that parse alike but that the port's driver refuses
-REFUSED_BY_THE_PORT = {
-    "--quantized": "the quantized wire is not ported yet",
-}
+# flags that parse alike but that the port's driver refuses: none, now
+# that the quantized wire runs
+REFUSED_BY_THE_PORT = {}
 
 
 def _flags(parser) -> dict:
@@ -249,14 +254,102 @@ def test_cli_gives_the_jax_rows_markers_and_exit(argv, monkeypatch,
 
 
 def test_quantized_parses_but_the_driver_refuses_it():
+    """--quantized parses alike, and the driver refuses what the
+    quantized wire cannot carry (integers) with the JAX words and exit
+    code; a supported combination runs to PASSED."""
     argv = ["--method=SUM", "--type=float", "--quantized", "--n=4096",
             "--devices=4", "--retries=1"]
     assert port_config.parse_collective(argv).quantized \
         == jax_config.parse_collective(argv).quantized is True
     rc, out, err = _run(port_driver.main, argv + ["--platform=cpu"])
-    assert rc == 1
-    assert "item 6b" in err and "item 6b" in out
-    assert "&&&& tpu_reductions_torch.collective FAILED" in out
+    assert rc == 0
+    assert "&&&& tpu_reductions_torch.collective PASSED" in out
+    refused = ["--method=MAX", "--type=int", "--quantized", "--n=4096",
+               "--devices=4"]
+    port = _run(port_driver.main, refused + ["--platform=cpu"])
+    ref = _run(jax_driver.main, refused)
+    assert port[0] == ref[0] == 1
+    words = "--quantized does not support MAX over int32 at 8 bits"
+    assert words in port[2] and words in ref[2]
+    assert "&&&& tpu_reductions_torch.collective FAILED" in port[1]
+
+
+QUANT_CLI_CASES = (
+    [["--method=SUM", f"--type={t}", f"--quant-bits={b}"]
+     for t in ("float", "bfloat16", "double") for b in (4, 8, 16)]
+    + [[f"--method={m}", f"--type={t}", f"--quant-bits={b}"]
+       for m in ("MIN", "MAX") for t in ("float", "double") for b in (8, 16)]
+    + [["--method=SUM", "--type=float", "--n=16376"],
+       ["--method=SUM", "--type=double", "--n=16376", "--quant-bits=16"],
+       ["--method=SUM", "--type=bfloat16", "--n=16376", "--quant-bits=4"],
+       ["--method=SUM", "--type=float", "--rooted=root"],
+       ["--method=MIN", "--type=double", "--rooted", "--quant-bits=16"],
+       ["--method=SUM", "--type=float", "--timing=chained",
+        "--chainspan=4"],
+       ["--method=MAX", "--type=double", "--timing=chained",
+        "--chainspan=4", "--quant-bits=8"]])
+
+
+# The one case whose verdicts differ, and why: the JAX oracle sums a
+# bfloat16 payload in bfloat16 (np.sum over its ml_dtypes blocks), and at
+# 16 bits that rounding alone (7.0e-9 on this payload) exceeds the ring's
+# declared bound (4.2e-9), so the JAX CLI fails a ring whose bits equal
+# the port's (tests/test_torch_quant.py). The port's oracle adds bfloat16
+# in float32, and the row passes.
+JAX_ORACLE_FAILS = ("--method=SUM --type=bfloat16 --quant-bits=16",)
+
+
+@pytest.fixture
+def fixed_collective_slopes(monkeypatch):
+    """Both collective drivers' chained slopes fixed at 1 ms, one sample
+    (torch_routes.fixed_slope runs each chain once through its real
+    machinery): at test sizes host noise would decide between PASSED and
+    WAIVED, and how many rows a run prints."""
+    from tpu_reductions.utils import timing as jax_timing
+    from torch_routes import fixed_slope
+    monkeypatch.setattr(jax_timing, "time_chained", fixed_slope)
+    monkeypatch.setattr(port_timing, "time_chained", fixed_slope)
+
+
+@pytest.mark.parametrize("argv", QUANT_CLI_CASES,
+                         ids=[" ".join(a) for a in QUANT_CLI_CASES])
+def test_quantized_cli_gives_the_jax_verdict_algorithm_and_exit(
+        argv, tmp_path, monkeypatch, fixed_collective_slopes):
+    """Every supported (op, dtype, bits) at k = 8, and the geometry that
+    falls back to the exact psum (n = 8 * 2047): the JAX CLI's notes,
+    header, row prefixes, markers and exit code, and the same algorithm
+    in every row of the --out artifact (JAX_ORACLE_FAILS: the JAX verdict
+    is its oracle's, shown here)."""
+    monkeypatch.delenv("TPU_REDUCTIONS_FORCE_DD", raising=False)
+    case = " ".join(argv)
+    argv = (["--quantized", "--devices=8", "--retries=2"] + argv
+            + ([] if any(a.startswith("--n=") for a in argv)
+               else ["--n=16384"]))
+    port = _run(port_driver.main, argv + ["--platform=cpu",
+                                          f"--out={tmp_path / 'p.json'}"])
+    ref = _run(jax_driver.main, argv + [f"--out={tmp_path / 'j.json'}"])
+    p_rows, j_rows = (json.loads((tmp_path / f).read_text())["rows"]
+                      for f in ("p.json", "j.json"))
+    assert all(r["status"] == "PASSED" for r in p_rows) and port[0] == 0
+    assert [(r["algorithm"], r["rooted"]) for r in p_rows] \
+        == [(r["algorithm"], r["rooted"]) for r in j_rows]
+    if case in JAX_ORACLE_FAILS:
+        import numpy as np
+        from tpu_reductions.collectives import (host_collective_oracle,
+                                                quant_error_bound)
+        cfg = jax_config.parse_collective(argv)
+        x = jax_driver._build_payload(cfg, 8)
+        oracle_err = np.abs(host_collective_oracle(x, 8, "SUM").astype(
+            np.float64) - x.astype(np.float64).reshape(8, -1).sum(0)).max()
+        assert oracle_err > quant_error_bound(
+            "SUM", "bfloat16", 16, 8, float(np.abs(x).max()))
+        assert ref[0] == 1
+        return
+    assert port[0] == ref[0] == 0, (port, ref)
+    got = _shape(port[1], "tpu_reductions_torch.collective")
+    want = _shape(ref[1], "tpu_reductions.collective")
+    assert got[1:] == want[1:], (port[1], ref[1])
+    assert [r["status"] for r in p_rows] == [r["status"] for r in j_rows]
 
 
 def test_card_refuses_more_than_one_process():
@@ -408,3 +501,18 @@ def test_two_processes_pair_ring_and_butterfly_verify():
         for rc, out, err in results:
             assert rc == 0, (argv, out, err)
         assert "&&&& tpu_reductions_torch.collective PASSED" in results[0][1]
+
+
+def test_two_processes_quantized_sum_and_keys_verify():
+    """The quantized wire between processes: the 4-bit SUM ring's packed
+    uint8 carriers and f32 scales, and the 16-bit coarse keys of f64 MAX
+    (widened to int32 for gloo's all_reduce), each verified."""
+    for argv in (["--method=SUM", "--type=float", "--quant-bits=4"],
+                 ["--method=MAX", "--type=double", "--quant-bits=16",
+                  "--mapping=interleaved"]):
+        results = _run_group(2, argv + ["--quantized", "--n=16384",
+                                        "--retries=1", "--devices=8"])
+        for rc, out, err in results:
+            assert rc == 0, (argv, out, err)
+        assert "&&&& tpu_reductions_torch.collective PASSED" in results[0][1]
+        assert "this process holds 4 of them" in results[0][1]

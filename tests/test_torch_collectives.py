@@ -469,13 +469,15 @@ def test_quant_constants_match_jax():
 
 
 def test_package_exports_the_ported_names():
-    """collectives/__init__ re-exports the JAX package's names that are
-    ported, and no quantized constructor."""
+    """collectives/__init__ re-exports the JAX package's names, the
+    quantized constructors and the topology rings included, but its jax
+    version shim `shard_map`."""
     import tpu_reductions.collectives as jax_pkg
     missing = set(port.__all__) - set(jax_pkg.__all__)
     assert not missing, missing
-    assert not any(n.startswith("make_q") for n in port.__all__)
-    assert "make_topology_all_reduce" not in port.__all__
+    assert set(jax_pkg.__all__) - set(port.__all__) == {"shard_map"}
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
 
 
 # ---------------------------------------------------------------------------

@@ -982,3 +982,149 @@ def test_collective_cli_on_card_passes(cuda_device):
     assert f"rows of one tensor on {torch.cuda.get_device_name()}" in \
         out.getvalue()
     assert "&&&& tpu_reductions_torch.collective PASSED" in out.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# the quantized wire and reshard on the card (collectives/quant.py,
+# reshard/): the card gives the CPU's bits
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits_", [4, 8, 16])
+def test_block_encode_on_card_gives_the_cpu_bits(cuda_device, bits_):
+    """Carriers and scales of the card's encode equal the CPU's, and so
+    does the exact float64 decode."""
+    from tpu_reductions_torch.collectives import quant
+    x = payload(8 * 4096, "float32", "MIN", seed=bits_).view(8, -1)
+    x[0, :256] = 0.0                              # a zero block: scale 1
+    card = quant.block_encode(x.to(cuda_device), bits_)
+    cpu = quant.block_encode(x, bits_)
+    for g, w in zip(card, cpu):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    for dtype in (torch.float32, torch.float64):
+        assert torch.equal(quant.block_decode(*card, bits_,
+                                              dtype=dtype).cpu(),
+                           quant.block_decode(*cpu, bits_, dtype=dtype))
+
+
+def _quant_case(device, method, dtype, bits_, k, per):
+    """A quantized collective and its planes on `device`."""
+    from tpu_reductions_torch import collectives as coll
+    from tpu_reductions_torch.ops.dd_reduce import (host_key_encode,
+                                                    host_split)
+    mesh, x = _collective_case(device, k, per,
+                               "float32" if dtype == "bfloat16" else dtype)
+    if dtype == "bfloat16":
+        x = x.to(torch.bfloat16)
+    if dtype == "float64":
+        hi, lo = (host_split(x.numpy()) if method == "SUM"
+                  else host_key_encode(x.numpy()))
+        planes = (coll.shard_payload(hi, mesh), coll.shard_payload(lo, mesh))
+    else:
+        planes = (coll.shard_payload(x, mesh),)
+    fn = (coll.make_quant_sum_all_reduce(mesh, bits=bits_, dtype=dtype)
+          if method == "SUM" else
+          coll.make_quant_key_minmax_all_reduce(method, mesh, bits=bits_,
+                                                dtype=dtype))
+    return fn, planes
+
+
+QUANT_CASES = ([("SUM", t, b) for t in ("float32", "bfloat16", "float64")
+                for b in (4, 8, 16)]
+               + [(m, t, b) for m in ("MIN", "MAX")
+                  for t in ("float32", "float64") for b in (8, 16)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method, dtype, bits_", QUANT_CASES)
+@pytest.mark.parametrize("k, per", [(2, 4096), (8, 4096), (8, 4088)])
+def test_quant_collective_on_card_gives_the_cpu_bits(cuda_device, method,
+                                                     dtype, bits_, k, per):
+    """Every quantized ring and key collective (and the exact fallback of
+    per = 4088) gives the CPU run's bits on every rank row; the fallback's
+    psum adds in the card's order, and is held to float32's rtol."""
+    out = []
+    for device in (cuda_device, torch.device("cpu")):
+        fn, planes = _quant_case(device, method, dtype, bits_, k, per)
+        res = fn(*planes)
+        res = res if isinstance(res, tuple) else (res,)
+        out.append([r.cpu() for r in res])
+    for got, want in zip(*out):
+        if method == "SUM" and per % (k * 256):
+            np.testing.assert_allclose(got.double().numpy(),
+                                       want.double().numpy(), rtol=1e-6,
+                                       atol=1e-6)
+        else:
+            assert torch.equal(bits(got), bits(want))
+        assert all(torch.equal(bits(row), bits(got[0])) for row in got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 17])
+@pytest.mark.parametrize("method, dtype, bits_", [
+    ("SUM", "float32", 8), ("SUM", "float32", 4), ("SUM", "bfloat16", 16),
+    ("SUM", "float64", 8), ("MIN", "float32", 8), ("MAX", "float64", 16)])
+def test_quant_graph_chain_gives_the_eager_chains_bits(cuda_device, method,
+                                                       dtype, bits_, k):
+    """The chained quantized collective replays one CUDA graph a trip: its
+    scalar is the eager loop's on the card, and the CPU chain's."""
+    from tpu_reductions_torch import collectives as coll
+    from tpu_reductions_torch.ops.chain import ChainedReduce
+    got = {}
+    for name, device in (("graph", cuda_device), ("cpu", torch.device("cpu"))):
+        fn, planes = _quant_case(device, method, dtype, bits_, 8, 4096)
+        staged = planes if len(planes) == 2 else planes[0]
+        chained = (coll.make_chained_pair_collective(method, fn)
+                   if len(planes) == 2
+                   else coll.make_chained_collective(method, coll=fn))
+        got[name] = [chained(staged, k).cpu() for _ in range(2)]
+        chained.close()
+        if name == "graph":
+            eager = ChainedReduce(chained.core, chained.op)
+            # the eager loop on the card: the CPU path's loop, run on CUDA
+            # tensors step by step
+            cloned = tuple(p.clone() for p in planes)
+            last = None
+            for _ in range(k):
+                last = eager._step(cloned, len(planes) == 2)
+            got["eager"] = last.cpu()
+    for g in got["graph"] + got["cpu"]:
+        assert torch.equal(bits(g), bits(got["eager"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair, wire", [
+    ("row_to_col", "exact"), ("row_to_col", "q8"),
+    ("shard_to_replicated", "exact"), ("shard_to_replicated", "q4"),
+    ("replicated_to_col", "exact"), ("partial_to_row", "exact")])
+def test_reshard_cell_on_card(cuda_device, pair, wire):
+    """One reshard cell per primitive (collective_permute, all_gather,
+    dynamic_slice, reduce_scatter; the first two quantized too) on the
+    card: PASSED, the accounted memory within declared, the allocator's
+    peak read (at least the input and output rows the accounting counts
+    for a step that allocates), and every rank's block the CPU run's bits
+    (the partial pair's sum adds in the card's order and is held to its
+    declared bound)."""
+    from tpu_reductions_torch.bench import reshard_curve as rc
+    from tpu_reductions_torch.reshard import (execute_plan, make_mesh,
+                                              plan_reshard)
+    k, n, rows = 8, 1 << 16, 64
+    row = rc.measure_cell(pair, wire, k, n, rows, 0, platform="gpu")
+    assert row["status"] == "PASSED", row
+    assert row["measured_mem_factor"] <= row["mem_factor"]
+    assert row["device_mem_factor"] > 0
+    assert all(s["device_mem_factor"] is not None for s in row["steps"])
+    kinds = {name: (s, d) for name, s, d in rc.PAIRS}
+    src, dst = (rc._spec(kinds[pair][0], k), rc._spec(kinds[pair][1], k))
+    qb = int(wire[1:]) if wire != "exact" else None
+    plan = plan_reshard(src, dst, (rows, n // rows), 4, quant_bits=qb)
+    rng = np.random.default_rng([0, k])
+    carried = rng.standard_normal(((k,) if src.partial else ())
+                                  + (rows, n // rows)).astype(np.float32)
+    card, cpu = (execute_plan(plan, carried, make_mesh(k, platform))
+                 ["shards"] for platform in ("gpu", "cpu"))
+    for g, w in zip(card, cpu):
+        if src.partial:
+            np.testing.assert_allclose(g, w, rtol=0, atol=row["bound"])
+        else:
+            assert np.array_equal(g, w)

@@ -13,6 +13,10 @@ Every result is verified against an elementwise host oracle (the
 reference's MPI side had none). float64 runs natively by default, or as
 the JAX package's pair planes (`--f64=dd`, or TPU_REDUCTIONS_FORCE_DD=1):
 the dd ring for SUM, the exact key-pair collective for MIN/MAX.
+`--quantized` runs the block-quantized wire (collectives/quant.py): the
+SUM rings over float32/bfloat16 and the dd planes, held to their declared
+error bound, and the exact coarse-key MIN/MAX; float64 under
+`--quantized` always rides the dd planes, as in the JAX package.
 
 On the card every rank is a row of one tensor on one GPU, so a hop is a
 copy inside the card: a row's GB/s is a copy-and-combine rate inside
@@ -26,6 +30,7 @@ CLI:
     python -m tpu_reductions_torch.bench.collective_driver --method=SUM
         [--type=int] [--n=N] [--devices=K] [--rooted[=scatter|root]]
         [--timing=periter|chained] [--f64=native|dd] [--platform=cpu]
+        [--quantized [--quant-bits=4|8|16]]
         [--coordinator=HOST:PORT --num-processes=P --process-id=I]
         [--out=ARTIFACT.json]
 
@@ -158,21 +163,25 @@ def run_collective_benchmark(cfg: CollectiveConfig,
         reused = _resume_rows(cfg, checkpoint, row_key, logger)
         if reused is not None:
             return reused
-    if cfg.quantized:
-        raise ValueError("--quantized: the quantized wire is not ported "
-                         "yet (ROADMAP item 6b); drop --quantized for the "
-                         "exact collectives")
     return _run_collective_benchmark(cfg, logger, checkpoint=checkpoint,
                                      row_key=row_key)
 
 
 def _use_dd_planes(cfg: CollectiveConfig) -> bool:
-    """Whether float64 travels as two 32-bit planes: under --f64=dd, and
-    under TPU_REDUCTIONS_FORCE_DD=1, the JAX package's hook for running
-    its TPU encoding elsewhere. (The JAX `_dd_planes_for` adds
-    --quantized, which the port refuses.)"""
+    """Whether float64 travels as two 32-bit planes (the JAX
+    `_dd_planes_for`): under --f64=dd; under TPU_REDUCTIONS_FORCE_DD=1,
+    the JAX package's hook for running its TPU encoding elsewhere; and
+    always under --quantized, whose f64 wire is defined over the dd
+    planes, on the card too, so that the card runs the JAX package's
+    encoding."""
     return cfg.dtype == "float64" and (
-        cfg.f64 == "dd" or os.environ.get("TPU_REDUCTIONS_FORCE_DD") == "1")
+        cfg.f64 == "dd" or cfg.quantized
+        or os.environ.get("TPU_REDUCTIONS_FORCE_DD") == "1")
+
+
+FALLBACK_NOTE = ("note: per-rank length does not divide by k*Q8_BLOCK; "
+                 "quantized ring fell back to the exact f32 psum (full "
+                 "wire)")
 
 
 def _placement_note(mesh) -> str:
@@ -195,7 +204,8 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
     from tpu_reductions_torch.collectives import (
         bandwidth_report, host_collective_oracle, make_collective_reduce,
         make_dd_sum_all_reduce, make_key_minmax_all_reduce,
-        select_algorithm, shard_payload)
+        make_quant_key_minmax_all_reduce, make_quant_sum_all_reduce,
+        quant_error_bound, select_algorithm, shard_payload)
     from tpu_reductions_torch.parallel.mesh import build_mesh
 
     results: List[CollectiveResult] = []
@@ -240,14 +250,39 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
         x_np = x_host.numpy()
         if method == "SUM":
             hi, lo, dd_scale = host_split_scaled(x_np)
-            coll = make_dd_sum_all_reduce(mesh)
+            if cfg.quantized:
+                coll = make_quant_sum_all_reduce(mesh, bits=cfg.quant_bits,
+                                                 dtype="float64")
+                if algorithm == "all_reduce":
+                    logger.log(FALLBACK_NOTE)
+            else:
+                coll = make_dd_sum_all_reduce(mesh)
         else:
             hi, lo = host_key_encode(x_np)
-            coll = make_key_minmax_all_reduce(method, mesh)
+            if cfg.quantized:
+                coll = make_quant_key_minmax_all_reduce(
+                    method, mesh, bits=cfg.quant_bits, dtype="float64")
+            else:
+                coll = make_key_minmax_all_reduce(method, mesh)
         x_dev = (shard_payload(hi, mesh), shard_payload(lo, mesh))
 
         def run(x):
             return coll(*x)
+    elif cfg.quantized:
+        if rooted != "none":
+            # the quantized ring replicates its output: root holds it all
+            logger.log("note: --rooted with --quantized runs the ring "
+                       "all-reduce (replicated output)")
+        x_dev = shard_payload(x_host, mesh)
+        if method == "SUM":
+            coll = make_quant_sum_all_reduce(mesh, bits=cfg.quant_bits,
+                                             dtype=dtype)
+            if algorithm == "all_reduce":
+                logger.log(FALLBACK_NOTE)
+        else:
+            coll = make_quant_key_minmax_all_reduce(
+                method, mesh, bits=cfg.quant_bits, dtype=dtype)
+        run = coll
     else:
         x_dev = shard_payload(x_host, mesh)
         coll = make_collective_reduce(method, mesh, rooted=rooted)
@@ -270,13 +305,21 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
 
     expect = host_collective_oracle(x_host, k, method) if cfg.verify \
         else None
+    # quantized SUM is held to its declared bound (collectives/quant.py)
+    # wherever it ran, the exact psum fallback included: the f64 planes'
+    # f32 collapse lies inside the bound; quantized MIN/MAX stays exact
+    quant_atol = 0.0
+    if cfg.quantized and method == "SUM":
+        quant_atol = quant_error_bound(method, dtype, cfg.quant_bits, k,
+                                       float(x_host.abs().max()))
 
     def verify(out) -> QAStatus:
         if expect is None:
             return QAStatus.PASSED
         got, selector = _gather_result(out, method, coll, dd_planes,
                                        scale_exp=dd_scale)
-        ok = _check(got, expect, method, dtype, cfg, selector=selector)
+        ok = _check(got, expect, method, dtype, cfg, selector=selector,
+                    quant_atol=quant_atol)
         return QAStatus.PASSED if ok else QAStatus.FAILED
 
     if cfg.timing == "chained":
@@ -352,14 +395,20 @@ def _gather_result(out, method: str, coll, dd_planes: bool,
 
 
 def _check(got: np.ndarray, expect: np.ndarray, method: str, dtype: str,
-           cfg: CollectiveConfig, selector=slice(None)) -> bool:
+           cfg: CollectiveConfig, selector=slice(None),
+           quant_atol: float = 0.0) -> bool:
     """Acceptance as the JAX driver's (reduction.cpp:750-780): ints and
-    selections exact (the key-pair MIN/MAX too), float sums within a
-    scaled tolerance."""
+    selections exact (the key-pair MIN/MAX too), quantized sums within
+    their declared bound `quant_atol`, other float sums within a scaled
+    tolerance."""
     if cfg.rooted != "none" and got.size != expect.size:
         # a reduce-scatter view: this process's slices, at the global
         # positions `selector` names
         expect = expect.reshape(-1)[selector]
+    if quant_atol > 0:
+        return bool(np.allclose(got.astype(np.float64),
+                                expect.astype(np.float64), rtol=0,
+                                atol=quant_atol))
     if dtype == "int32" or method in ("MIN", "MAX"):
         if dtype == "bfloat16":
             return bool(np.allclose(got.astype(np.float64),

@@ -13,9 +13,12 @@ The grid's averages prefer cells measured under the flagship contract
 (sweep.FLAGSHIP_GRID); for a (dtype, op) with none, they fall back to the
 PASSED cells of another discipline at the flagship geometry, and say so.
 
-Of the JAX regenerator's report folds, the stream probes' table and the
-reduction family's (family_spot.json) are here; the others come with the
-port of the modules that write their artifacts. Its cross-round
+Of the JAX regenerator's report folds, the stream probes' table, the
+reduction family's (family_spot.json) and the two rank-axis curves
+(quant_curve.json, reshard_curve.json, read from the experiment dir or
+from its sibling `rank_scaling/`, where bench/rank_scaling.py writes
+them) are here; the others come with the port of the modules that write
+their artifacts. Its cross-round
 trajectory table is left out: the rounds it collates are TPU runs.
 """
 
@@ -78,6 +81,17 @@ def collect_averages(grid_dir: Path, grid: dict | None = None,
             log(f"regen: {key[0]} {key[1]}: no contract-matching cells; "
                 f"averaging {len(vals)} legacy row(s)")
     return out
+
+
+def _quant_curve_table(data: dict) -> str:
+    from tpu_reductions_torch.bench.quant_curve import quant_curve_markdown
+    return quant_curve_markdown(data)
+
+
+def _reshard_curve_table(data: dict) -> str:
+    from tpu_reductions_torch.bench.reshard_curve import \
+        reshard_curve_markdown
+    return reshard_curve_markdown(data)
 
 
 def regenerate(out_dir: str | Path, device_kind: str | None = None,
@@ -178,6 +192,23 @@ def regenerate(out_dir: str | Path, device_kind: str | None = None,
                                  + "\n" + table + "\n")
                 log("regen: appended the reduction-family table "
                     "(family_spot.json)")
+    for name, fold in (("quant_curve", _quant_curve_table),
+                       ("reshard_curve", _reshard_curve_table)):
+        # an experiment dir's own copy wins over the sibling rank_scaling/
+        src = out / f"{name}.json"
+        if not src.exists():
+            src = out.parent / "rank_scaling" / f"{name}.json"
+        if not src.exists():
+            continue
+        try:
+            table = fold(json.loads(src.read_text()))
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            log(f"regen: {name}.json unusable ({e}); skipped")
+            continue
+        if table:
+            atomic_text_dump(paths["md"], paths["md"].read_text()
+                             + "\n" + table + "\n")
+            log(f"regen: appended the {name} table ({src})")
     pdf = generate_pdf(out, platform=platform,
                        data={"avgs": {}, "single_chip": sc or None,
                              "calibration": cal,

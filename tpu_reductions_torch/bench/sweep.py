@@ -1,21 +1,29 @@
-"""The size sweep (`--shmoo`) and the experiment sweep (`sweep_all`).
+"""The size sweeps (`--shmoo`), the experiment sweep (`sweep_all`) and
+the collective sweeps.
 
-The counterpart of `FLAGSHIP_GRID`, `cell_matches`, `run_shmoo`,
-`_run_cells` and `sweep_all` in tpu_reductions/bench/sweep.py, with the
-same sizes, iteration counts, per-cell chained spans, cache files and
-resume rules. `run_shmoo` gives one verified row per n = 2^min..2^max;
-`sweep_all` runs {dtypes} x {methods} x `repeats` cells at one n and
-caches each verified cell as `raw_output/run-{dtype}-{method}-{rep}.json`
-(the reference's per-job stdout files, which its getAvgs.sh averaged;
-bench/aggregate.py and bench/regen.py read them). The collective sweeps
-(`sweep_collective`, `shmoo_collective`) and the module's CLI wait for
-ROADMAP item 6b; the collective benchmark itself is
-bench/collective_driver.py.
+The counterpart of tpu_reductions/bench/sweep.py, with the same sizes,
+iteration counts, per-cell chained spans, cache files and resume rules.
+`run_shmoo` gives one verified row per n = 2^min..2^max; `sweep_all` runs
+{dtypes} x {methods} x `repeats` cells at one n and caches each verified
+cell as `raw_output/run-{dtype}-{method}-{rep}.json` (the reference's
+per-job stdout files, which its getAvgs.sh averaged; bench/aggregate.py
+and bench/regen.py read them). `sweep_collective` climbs a rank ladder
+of the collective benchmark (bench/collective_driver.py) into per-job
+`raw_output/stdout-{mode}-{k}ranks.txt` files, resumable through
+`collective_sweep.json`; `shmoo_collective` sweeps its payload size at
+one rank count; `main` is the CLI over sweep_collective:
+
+    python -m tpu_reductions_torch.bench.sweep --out-dir=DIR
+        [--ranks=2,4,8] [--methods=MAX,MIN,SUM] [--types=int32,float64]
+        [--n=1048576] [--retries=1] [--timing=periter|chained]
+        [--chainspan=16] [--platform=gpu|cpu]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import sys
 from pathlib import Path
 from typing import List, Optional
 
@@ -208,3 +216,155 @@ def sweep_all(*, methods=("SUM", "MIN", "MAX"),
     else:
         run_benchmark_batch(queued_cfgs, logger=logger, on_result=on_result)
     return rows
+
+
+def sweep_collective(*, rank_counts=(2, 4, 8), methods=("MAX", "MIN", "SUM"),
+                     dtypes=("int32", "float64"), n: int = 1 << 22,
+                     retries: int = 5, rooted="none",
+                     mode: str = "vn", mapping: str = "default",
+                     timing: str = "periter", chain_span: int = 16,
+                     platform: str = "gpu", out_dir: Optional[str] = None,
+                     logger: Optional[BenchLogger] = None) -> List[dict]:
+    """Rank-count sweep of the collective benchmark, the submit_all.sh
+    analog (sbatch --nodes {32,128,512}, mpi/submit_all.sh:3-4), in the
+    reference's op order (MAX, MIN, SUM, reduce.c:73), `retries` repeats
+    a cell, on `platform` (the card unless "cpu"). Writes the per-job
+    row files `out_dir/raw_output/stdout-{mode}-{k}ranks.txt` (the
+    stdout-vn-<jobid> analog) for aggregate.pipeline().
+
+    With an out_dir every row persists to out_dir/collective_sweep.json
+    as it lands (bench/resume.Checkpoint), and a run over an interrupted
+    sweep reuses its rows per (ranks, dtype, method, repeat) instead of
+    climbing the ladder again; a completed sweep measures afresh."""
+    from tpu_reductions_torch.bench.collective_driver import \
+        run_collective_benchmark
+    from tpu_reductions_torch.bench.resume import Checkpoint
+    from tpu_reductions_torch.config import CollectiveConfig
+
+    logger = logger or BenchLogger(None, None)
+    raw_dir = Path(out_dir) / "raw_output" if out_dir else None
+    if raw_dir:
+        raw_dir.mkdir(parents=True, exist_ok=True)
+    ck = None
+    if out_dir:
+        # rank, dtype and method live in the row key, not the meta: a
+        # sweep run again with another rank list reuses the rungs it
+        # shares with the interrupted one
+        ck = Checkpoint(Path(out_dir) / "collective_sweep.json",
+                        {"n": n, "retries": retries, "rooted": rooted,
+                         "mode": mode, "mapping": mapping,
+                         "timing": timing, "chain_span": chain_span},
+                        key_fn=lambda r: (r.get("ranks"), r.get("dtype"),
+                                          r.get("method"),
+                                          r.get("repeat")))
+    rows = []
+    for k in rank_counts:
+        # the job file, truncated on open: the driver writes its header
+        # and rows, reused rows included, so it always reads complete
+        job_logger = BenchLogger(
+            str(raw_dir / f"stdout-{mode}-{k}ranks.txt") if raw_dir
+            else None, None, console=logger.console)
+        for dtype in dtypes:
+            for method in methods:
+                cfg = CollectiveConfig(method=method, dtype=dtype, n=n,
+                                       retries=retries, num_devices=k,
+                                       rooted=rooted, mode=mode,
+                                       mapping=mapping, timing=timing,
+                                       chain_span=chain_span,
+                                       platform=platform)
+                for res in run_collective_benchmark(
+                        cfg, logger=job_logger, checkpoint=ck,
+                        row_key=lambda rep, _k=k, _d=cfg.dtype,
+                        _m=cfg.method: (_k, _d, _m, rep)):
+                    rows.append(res.to_dict())
+    if ck is not None:
+        ck.finalize()
+    return rows
+
+
+def shmoo_collective(*, method: str = "SUM", dtype: str = "float64",
+                     num_devices: Optional[int] = None,
+                     min_pow: int = 10, max_pow: int = 24,
+                     retries: int = 3, timing: str = "periter",
+                     chain_span: int = 16, platform: str = "gpu",
+                     logger: Optional[BenchLogger] = None) -> List[dict]:
+    """Payload-size sweep of the collective at one rank count, n =
+    2^min_pow..2^max_pow: the bandwidth-vs-N axis the reference's MPI
+    side never had (its payload was constants.h's fixed 2 GiB). Each row
+    carries `gbps` (its reference GB/s) for plot_vs_n."""
+    from tpu_reductions_torch.bench.collective_driver import \
+        run_collective_benchmark
+    from tpu_reductions_torch.config import CollectiveConfig
+
+    logger = logger or BenchLogger(None, None)
+    rows = []
+    for p in range(min_pow, max_pow + 1):
+        cfg = CollectiveConfig(method=method, dtype=dtype, n=1 << p,
+                               retries=retries, num_devices=num_devices,
+                               timing=timing, chain_span=chain_span,
+                               platform=platform)
+        for res in run_collective_benchmark(cfg, logger=logger):
+            row = res.to_dict()
+            row["gbps"] = row["reference_gbps"]
+            rows.append(row)
+    return rows
+
+
+def main(argv=None) -> int:
+    """CLI over sweep_collective: the submit_all.sh rank fan-out as one
+    resumable process. Exit 0 when every row PASSED or WAIVED, 1
+    otherwise or with no rows, 2 on a usage error."""
+    from tpu_reductions_torch.config import (DTYPE_ALIASES, METHODS,
+                                             PLATFORMS)
+    p = argparse.ArgumentParser(
+        prog="tpu_reductions_torch.bench.sweep",
+        description="Resumable rank-count sweep of the collective "
+                    "benchmark (collective_sweep.json checkpoint)",
+    )
+    p.add_argument("--out-dir", dest="out_dir", type=str, required=True)
+    p.add_argument("--ranks", type=str, default="2,4,8",
+                   help="Comma-separated virtual rank counts")
+    p.add_argument("--methods", type=str, default="MAX,MIN,SUM",
+                   help="Reference op order (reduce.c:73)")
+    p.add_argument("--types", dest="dtypes", type=str,
+                   default="int32,float64")
+    p.add_argument("--n", type=int, default=1 << 20)
+    p.add_argument("--retries", type=int, default=1)
+    p.add_argument("--timing", type=str, default="periter",
+                   choices=("periter", "chained"))
+    p.add_argument("--chainspan", dest="chain_span", type=int, default=16)
+    p.add_argument("--platform", type=str, default="gpu", choices=PLATFORMS,
+                   help="gpu (default): the ranks are rows on the card; "
+                        "cpu: on the host")
+    ns = p.parse_args(argv)
+    methods = tuple(m.strip().upper() for m in ns.methods.split(",")
+                    if m.strip())
+    if not methods or any(m not in METHODS for m in methods):
+        p.error(f"--methods must name only {METHODS}, got {ns.methods!r}")
+    dtypes = tuple(DTYPE_ALIASES[d.strip()] for d in ns.dtypes.split(",")
+                   if d.strip() in DTYPE_ALIASES)
+    if not dtypes or len(dtypes) != len(
+            [d for d in ns.dtypes.split(",") if d.strip()]):
+        p.error(f"--types must name only {sorted(DTYPE_ALIASES)}, "
+                f"got {ns.dtypes!r}")
+    try:
+        rank_counts = tuple(int(r) for r in ns.ranks.split(",") if r.strip())
+    except ValueError:
+        p.error(f"--ranks must be comma-separated ints, got {ns.ranks!r}")
+    if not rank_counts or any(k < 2 for k in rank_counts):
+        p.error(f"--ranks must all be >= 2, got {ns.ranks!r}")
+    logger = BenchLogger(None, None, console=sys.stderr)
+    rows = sweep_collective(rank_counts=rank_counts, methods=methods,
+                            dtypes=dtypes, n=ns.n, retries=ns.retries,
+                            timing=ns.timing, chain_span=ns.chain_span,
+                            platform=ns.platform, out_dir=ns.out_dir,
+                            logger=logger)
+    bad = [r for r in rows if r.get("status") not in ("PASSED", "WAIVED")]
+    print(f"swept {len(rows)} rows across ranks={list(rank_counts)} "
+          f"-> {ns.out_dir}/collective_sweep.json"
+          + (f" ({len(bad)} FAILED)" if bad else ""))
+    return 1 if bad or not rows else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

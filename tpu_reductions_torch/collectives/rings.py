@@ -2,9 +2,10 @@
 
 The counterpart of tpu_reductions/collectives/rings.py (`ring_perm`,
 `grid_factors`, `_chunk`/`_put`, `_rs_phase`, `_ag_phase`,
-`ring_rs_ag_stateful`, `ring_rs_ag`, `naive_accumulate`), over the port's
-rank axis (parallel/mesh.py): a buffer is a `(k_local, L)` tensor whose
-rows are this process's ranks.
+`ring_rs_ag_stateful`, `ring_rs_ag`, `naive_accumulate`,
+`ring_all_to_all`, `make_topology_all_reduce`), over the port's rank axis
+(parallel/mesh.py): a buffer is a `(k_local, L)` tensor whose rows are
+this process's ranks.
 
 - `ppermute(x, perm, mesh)` is `jax.lax.ppermute`: row `dst` of the
   result is row `src` of `x` for each `(src, dst)` pair, zeros where no
@@ -111,15 +112,20 @@ def axis_index(mesh) -> torch.Tensor:
     return mesh.index
 
 
-def ring_steps(mesh, m: int, sigma: int = 1) -> torch.Tensor:
-    """(m, k_local) chunk indices of the ring over the whole rank axis:
-    row s holds (pos - sigma*s) % m for every row's rank pos. The RS
-    phase sends chunk [s] and matches chunk [s + 1] at hop s; the AG
-    phase stores chunk [s] at hop s."""
+def ring_steps(mesh, m: int, sigma: int = 1,
+               stride: int = 1) -> torch.Tensor:
+    """(m, k_local) chunk indices of an m-rank ring: row s holds
+    (pos - sigma*s) % m for every row, where a rank r's position in its
+    ring is pos = (r // stride) % m (stride 1: the ring over the whole
+    rank axis, or a 2D torus's row ring; stride b: the torus's column
+    ring). The RS phase sends chunk [s] and matches chunk [s + 1] at hop
+    s; the AG phase stores chunk [s] at hop s."""
     def build():
         s = torch.arange(m, device=mesh.device).unsqueeze(1)
-        return torch.remainder(mesh.index.unsqueeze(0) - sigma * s, m)
-    return mesh.cached(("ring_steps", m, sigma), build)
+        pos = torch.remainder(torch.div(mesh.index, stride,
+                                        rounding_mode="floor"), m)
+        return torch.remainder(pos.unsqueeze(0) - sigma * s, m)
+    return mesh.cached(("ring_steps", m, sigma, stride), build)
 
 
 def _index(idx: torch.Tensor, c: int) -> torch.Tensor:
@@ -171,7 +177,7 @@ def _ag_phase(mesh, m: int, perm: list, steps: torch.Tensor, bufs: tuple,
 
 def ring_rs_ag_stateful(mesh, k: int, bufs: tuple, to_wire, absorb,
                         from_wire, state, *, perm: Optional[list] = None,
-                        sigma: int = 1) -> tuple:
+                        sigma: int = 1, stride: int = 1) -> tuple:
     """The ring all-reduce (RS phase, the owned chunk re-encoded, AG
     phase) with wire state threaded through every encode:
 
@@ -180,10 +186,12 @@ def ring_rs_ag_stateful(mesh, k: int, bufs: tuple, to_wire, absorb,
       from_wire(wire)        -> chunk tuple      store in the AG phase
 
     bufs: (k_local, L) buffers sharing one chunking, L divisible by k
-    (callers gate on it), written in place. Returns (bufs, state)."""
+    (callers gate on it), written in place. `perm` and `stride` name a
+    sub-ring of k ranks (the JAX `perm` and `pos`; ring_steps). Returns
+    (bufs, state)."""
     if perm is None:
         perm = ring_perm(k, sigma)
-    steps = ring_steps(mesh, k, sigma)
+    steps = ring_steps(mesh, k, sigma, stride)
     c = bufs[0].shape[1] // k
     bufs, state, own = _rs_phase(mesh, k, perm, steps, bufs, to_wire,
                                  absorb, state)
@@ -214,3 +222,139 @@ def naive_accumulate(mesh, k: int, bufs: tuple, combine,
         cur = tuple(ppermute(b, perm, mesh) for b in cur)
         acc = combine(acc, cur)
     return acc
+
+
+def _hop_indices(mesh, k: int, t: int) -> tuple:
+    """Hop t of ring_all_to_all: each row's piece to send, (r + t) % k,
+    and the sender of what it receives, (r - t) % k."""
+    def build():
+        return (torch.remainder(mesh.index + t, k),
+                torch.remainder(mesh.index - t, k))
+    return mesh.cached(("all_to_all", k, t), build)
+
+
+def _row_select(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row i's entry idx[i] along axis 1 of x: (k_local, *rest)."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows, idx]
+
+
+def ring_all_to_all(mesh, k: int, x: torch.Tensor, *, split_axis: int,
+                    concat_axis: int, to_wire=None,
+                    from_wire=None) -> torch.Tensor:
+    """The redistribution all-to-all on the ring (the collective-permute
+    step of reshard): each rank's block is split into k pieces along
+    `split_axis`; after k-1 rotation hops every rank holds the pieces
+    matching its index along `split_axis`, concatenated along
+    `concat_axis` in sender order. An array sharded on the concat dim
+    becomes the same array sharded on the split dim, each rank sending
+    k-1 pieces of 1/k^2 of the global payload.
+
+    x is (k_local, *block): a rank's block is its row, and the axes name
+    the block's dims. `to_wire(piece) -> tuple` / `from_wire(tuple) ->
+    piece` make the hop payload pluggable (the quantized wire); the
+    rank's own piece never crosses a hop and is stored exactly. Hop t is
+    the rotation by t: sender s ships the piece for rank (s + t) % k
+    straight to it, so every piece crosses exactly once."""
+    if k == 1:
+        return x
+    block = x.shape[1:]
+    # (k_local, k, *piece): piece j of each row
+    pieces = x.unflatten(1 + split_axis, (k, block[split_axis] // k)
+                         ).movedim(1 + split_axis, 1).contiguous()
+    # (k_local, k, *piece): what arrived from each sender, in sender order
+    got = torch.empty_like(pieces)
+    rows = torch.arange(x.shape[0], device=x.device)
+    got[rows, mesh.index] = pieces[rows, mesh.index]
+    for t in range(1, k):
+        send_idx, src_idx = _hop_indices(mesh, k, t)
+        send = _row_select(pieces, send_idx)
+        wire = to_wire(send) if to_wire is not None else (send,)
+        perm = [(i, (i + t) % k) for i in range(k)]
+        rx = tuple(ppermute(w, perm, mesh) for w in wire)
+        got[rows, src_idx] = from_wire(rx) if from_wire is not None \
+            else rx[0]
+    out = list(pieces.shape[2:])
+    out[concat_axis] *= k
+    return got.movedim(1, 1 + concat_axis).reshape(x.shape[0], *out)
+
+
+def make_topology_all_reduce(method: str, mesh, topology: str = "ring"):
+    """The explicit-topology elementwise all-reduce for `method`
+    (SUM/MIN/MAX), exact at every combine:
+
+      ring      RS+AG single ring         2(k-1)/k wire, 2(k-1) hops
+      bidir     both ring directions over disjoint halves, each hop
+                moving L/2k a direction
+      torus2d   row-ring RS, column all-reduce of the owned chunk,
+                row-ring AG over an a x b grid (grid_factors), in
+                2(a-1)+2(b-1) hops
+      naive     accumulate-around-the-ring, k-1 full-L hops
+
+    A topology whose divisibility does not hold
+    (algorithms.topology_supported) falls back to the ring, else naive,
+    as the selector reports. Returns a Collective over (k_local, L) rows
+    whose every row holds the reduced (L,)."""
+    from tpu_reductions_torch.collectives.algorithms import \
+        topology_supported
+    from tpu_reductions_torch.collectives.core import Collective
+    from tpu_reductions_torch.ops.registry import get_op
+
+    op = get_op(method)
+    k = mesh.k
+
+    def ident(ch):
+        return ch
+
+    def stateless(ch, st):
+        return ch, st
+
+    def absorb(tgt, rx):
+        return tuple(op.combine(t, r) for t, r in zip(tgt, rx))
+
+    def local(x):
+        topo = topology
+        if not topology_supported(topo, k, x.shape[1]):
+            topo = ("ring" if topology_supported("ring", k, x.shape[1])
+                    else "naive")
+        if k == 1:
+            return x.clone()
+        if topo == "naive":
+            (x,) = naive_accumulate(mesh, k, (x,), absorb)
+            return x
+        if topo == "bidir":
+            half = x.shape[1] // 2
+            (lo,) = ring_rs_ag(mesh, k, (x[:, :half].contiguous(),),
+                               ident, absorb, ident)
+            (hi,), _ = ring_rs_ag_stateful(
+                mesh, k, (x[:, half:].contiguous(),), stateless, absorb,
+                ident, None, sigma=-1)
+            return torch.cat([lo, hi], dim=1)
+        if topo == "torus2d":
+            a, b = grid_factors(k)
+            row_perm = [(q, (q // b) * b + ((q % b) + 1) % b)
+                        for q in range(k)]
+            col_perm = [(q, (((q // b) + 1) % a) * b + q % b)
+                        for q in range(k)]
+            c = x.shape[1] // b
+            steps = ring_steps(mesh, b)
+            # row reduce-scatter: rank (i, j) owns row-reduced chunk
+            # (j + 1) % b
+            (x,), _, own = _rs_phase(mesh, b, row_perm, steps,
+                                     (x.clone(),), stateless, absorb,
+                                     None)
+            (piece,) = _chunk((x,), own, c)
+            # column all-reduce of the owned chunk (every rank of a
+            # column owns the same chunk index)
+            (piece,), _ = ring_rs_ag_stateful(
+                mesh, a, (piece,), stateless, absorb, ident, None,
+                perm=col_perm, stride=b)
+            (x,) = _put((x,), (piece,), own, c)
+            # row all-gather circulates the fully reduced chunks
+            (x,) = _ag_phase(mesh, b, row_perm, steps, (x,), ident,
+                             (piece,))
+            return x
+        (x,) = ring_rs_ag(mesh, k, (x.clone(),), ident, absorb, ident)
+        return x
+
+    return Collective(local, mesh)

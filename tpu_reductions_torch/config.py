@@ -332,8 +332,9 @@ class CollectiveConfig:
       mode         'vn' every virtual rank, 'co' every other one
       rooted       'none' all-reduce; 'scatter' reduce-scatter; 'root'
                    reduce-to-root (reduce.c:76,90). Bools accepted.
-      quantized    parsed as in the JAX package; the driver refuses it
-                   (the quantized wire is ROADMAP item 6b)
+      quantized    the block-quantized wire (collectives/quant.py) at
+                   quant_bits; an unsupported (method, dtype, bits) is
+                   refused with the JAX package's words
       platform     gpu (the card, default) or cpu
       f64          float64's route: native, or dd, the JAX package's
                    pair planes (also TPU_REDUCTIONS_FORCE_DD=1)
@@ -437,8 +438,10 @@ def build_collective_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", type=str, default="vn", choices=("vn", "co"),
                    help="vn=all devices, co=one per chip (BG/L VN/CO analog)")
     p.add_argument("--quantized", action="store_true",
-                   help="block-quantized wire: parsed, and refused by the "
-                        "driver (not ported yet)")
+                   help="block-quantized ring wire (EQuARX-style): SUM "
+                        "over float/bfloat16/double within a declared "
+                        "bound, MIN/MAX over float/double exact; float64 "
+                        "rides the dd planes")
     p.add_argument("--quant-bits", dest="quant_bits", type=int, default=8,
                    help="wire width for --quantized: 4|8|16 for SUM "
                         "block scaling, 8|16 for MIN/MAX coarse keys "

@@ -1,5 +1,6 @@
 """Log fan-out (console, per-app file, master file), the canonical
-throughput row, the collective `DATATYPE OP NODES GB/sec` row and the
+throughput row, the collective `DATATYPE OP NODES GB/sec` row, the
+quantized curve's `DATATYPE OP BITS NODES WIREX MAXERR BOUND` row and the
 family's `DATATYPE OP IMPL N GBPS STATUS` row, each byte-identical to the
 JAX package's (tpu_reductions/utils/logging.py; templates from its
 lint/grammar.py)."""
@@ -20,6 +21,15 @@ THROUGHPUT_TEMPLATE = (
 COLLECTIVE_COLUMNS = ("DATATYPE", "OP", "NODES", "GB/sec")
 COLLECTIVE_HEADER = " ".join(COLLECTIVE_COLUMNS)
 COLLECTIVE_ROW_TEMPLATE = "{dtype} {op} {ranks} {gbps:.3f}"
+
+# The quantized collectives' accuracy-vs-bandwidth rows
+# (bench/quant_curve.py): wire reduction against the unquantized ring and
+# the measured |err| against its declared bound.
+QUANT_CURVE_COLUMNS = ("DATATYPE", "OP", "BITS", "NODES", "WIREX",
+                       "MAXERR", "BOUND")
+QUANT_CURVE_HEADER = " ".join(QUANT_CURVE_COLUMNS)
+QUANT_CURVE_ROW_TEMPLATE = ("{dtype} {op} {bits} {ranks} {wirex:.3f} "
+                            "{max_err:.3e} {bound:.3e}")
 
 # The reduction family's rows (bench/family_spot.py): the DATATYPE row
 # with the implementation column and the oracle's verdict.
@@ -45,6 +55,15 @@ def collective_row(dtype: str, op: str, ranks: int, gbps: float) -> str:
     return COLLECTIVE_ROW_TEMPLATE.format(
         dtype=_ROW_DTYPES.get(dtype, dtype.upper()), op=op.upper(),
         ranks=ranks, gbps=gbps)
+
+
+def quant_curve_row(dtype: str, op: str, bits: int, ranks: int,
+                    wirex: float, max_err: float, bound: float) -> str:
+    """`DATATYPE OP BITS NODES WIREX MAXERR BOUND`: one row of the
+    accuracy-vs-bandwidth curve."""
+    return QUANT_CURVE_ROW_TEMPLATE.format(
+        dtype=_ROW_DTYPES.get(dtype, dtype.upper()), op=op.upper(),
+        bits=bits, ranks=ranks, wirex=wirex, max_err=max_err, bound=bound)
 
 
 def family_row(dtype: str, op: str, impl: str, n: int, gbps: float,
