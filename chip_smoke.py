@@ -101,7 +101,25 @@ Run from the repository root on a machine with one NVIDIA GPU:
    (102 cells) and the reshard curve (42 cells) at 2^24 over ranks 2..64,
    every row PASSED, each reshard row's measured memory within its
    declared factor and the permute pairs' wire under the naive
-   program's; each stage's seconds printed.
+   program's; each stage's seconds printed; `[exec]`, the cost oracle's
+   decision table (`python -m tpu_reductions_torch.exec --explain`) over
+   this run's own evidence (the first race, the stream probe, warm's
+   ledger, the family grid, the rank sweep and the quantized curve,
+   gathered under out/smoke_evidence): all 19 decisions, the kernel axis
+   priced from the race, the float scan cells from the family grid, the
+   topology axis from the rank sweep; `[serve]`, the serving path
+   (tpu_reductions_torch/serve/) on the card: the closed-loop load
+   generator with 8 clients x 32 requests of SUM/MIN/MAX, coalesced and
+   sequential, at int32 n = 2^16 and at int32 and float32 n = 2^22, every
+   response ok and verified, coalesced batching above 1, the engine's
+   batches equal to its executor's serve-bucket launches, each row
+   printed with its rate, p50/p99, mean batch, launches and the
+   executor's seconds of fill, stack, copy, reduce and verify; then one
+   engine serving a float64 request, the family's three serving cells at
+   2^22 and one oversized int32 request of 2^28 (1 GiB) through the
+   stream route, all ok; then `python -m tpu_reductions_torch.serve` in a
+   process of its own on a port from the OS, driven by the load
+   generator's --connect, every response ok.
    Then the flagship experiment, `tpu_reductions_torch.bench.experiment`,
    into out/smoke_experiment: the n = 2^24 grid (float64 and int32 x
    SUM/MIN/MAX, 3 repeats, 18 cells through k6), the chained SUM curves
@@ -691,6 +709,19 @@ def run_cli(entry, argv) -> tuple[int, str, float]:
     return rc, out.getvalue(), time.perf_counter() - t0
 
 
+# what the port's instruments write in this run, in the layout the cost
+# oracle reads (exec/cost._EVIDENCE), for [exec]
+EVIDENCE_ROOT = OUT / "smoke_evidence"
+
+
+def keep_evidence(path, key: str) -> None:
+    """Copy one instrument's artifact to its place under EVIDENCE_ROOT."""
+    from tpu_reductions_torch.exec.cost import _EVIDENCE
+    dst = EVIDENCE_ROOT / _EVIDENCE[key]
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(path, dst)
+
+
 def drive_main_path(driver, counted, routes) -> dict:
     """Phase 3: every MAIN_ROWS row through the CLI to its status, each
     launching its own kernel and no other; each verified row's payload and
@@ -734,6 +765,8 @@ def drive_races(autotune, counted) -> list:
             print(text, end="")
             print(f"  ({seconds:.1f} s) launches {launches}", flush=True)
             data = json.loads(out.read_text())
+            if i == 0:   # the race the cost oracle prices k6 from
+                keep_evidence(out, "autotune")
             failed = [r for r in data["ranked"]
                       if r["backend"] == "cuda" and r["status"] == "FAILED"]
             best = data["best"] or {}
@@ -791,6 +824,7 @@ def drive_stream(driver, stream_cli, counted, dev) -> dict:
                                     STREAM_PROBE + [f"--out={out}"])
         final = next(r for r in json.loads(out.read_text())["rows"]
                      if r.get("final"))
+        keep_evidence(out, "stream")
     print(text, end="")
     print(f"  ({seconds:.1f} s) {json.dumps(final)}", flush=True)
     if rc != 0 or final["status"] != "PASSED" \
@@ -1139,6 +1173,7 @@ def family_path(driver, counted, kr, registry, config, staging) -> None:
     if rc != 0 or len(rows) != len(family_spot.family_cells()) \
             or any(r["status"] != "PASSED" for r in rows):
         raise AssertionError(f"family_spot: exit {rc}")
+    keep_evidence(out, "family")
 
 
 def firstrow_path(driver, counted, kr, registry, config, staging) -> None:
@@ -1183,6 +1218,7 @@ def warm_path(driver, counted, kr, registry, config, staging) -> None:
             + [s for s, _ in warm.surfaces()] for v in ("cold", "warm")}
     if rc != 0 or {(r["surface"], r["verdict"]) for r in rows} != want:
         raise AssertionError(f"warm: exit {rc}")
+    keep_evidence(out, "compile")
 
 
 # [collective]: the reduce.c grid (int32 and float64 x MAX/MIN/SUM) at
@@ -1499,6 +1535,155 @@ def rank_scaling_path(driver, counted, kr, registry, config,
         raise AssertionError(f"[rank_scaling] exit {rc}, {len(bad)} rows "
                              f"not as required, {len(quant)} quant and "
                              f"{len(reshard)} reshard cells")
+    keep_evidence(RANK_SCALING_OUT / "scaling_shape.json", "scaling")
+    keep_evidence(RANK_SCALING_OUT / "quant_curve.json", "quant")
+
+
+def exec_path(driver, counted, kr, registry, config, staging) -> None:
+    """`python -m tpu_reductions_torch.exec --explain` over this run's own
+    evidence (EVIDENCE_ROOT): every decision printed, the kernel axis
+    priced from the race and the stream probe, the scan axis's float
+    cells from the family grid, and no axis on its static fallback."""
+    from tpu_reductions_torch.exec import __main__ as explain
+    out = OUT / "smoke_exec" / "exec_decisions.json"
+    shutil.rmtree(out.parent, ignore_errors=True)
+    out.parent.mkdir(parents=True)
+    os.environ["TPU_REDUCTIONS_EVIDENCE_ROOT"] = str(EVIDENCE_ROOT)
+    try:
+        rc, text, seconds = run_cli(explain.main, ["--explain",
+                                                   f"--out={out}"])
+    finally:
+        del os.environ["TPU_REDUCTIONS_EVIDENCE_ROOT"]
+    print(text, end="")
+    print(f"  ({seconds:.1f} s)", flush=True)
+    rows = json.loads(out.read_text())["rows"]
+    kernel = [r for r in rows if r["axis"] == "kernel"]
+    scan = [r for r in rows if r["axis"] == "scan"
+            and r["geometry"]["dtype"] != "int32"]
+    unpriced = [r for r in kernel if "out/tune.json" not in r["evidence"]]
+    unpriced += [r for r in scan
+                 if "out/family_spot.json" not in r["evidence"]]
+    unpriced += [r for r in rows if r["axis"] == "topology"
+                 and not r["evidence"]]
+    if rc != 0 or len(rows) != 19 or unpriced:
+        raise AssertionError(f"[exec] exit {rc}: {len(unpriced)} decisions "
+                             "fell back to the static pick")
+
+
+# [serve]: the closed loop at JAX's default size and at 2^22 (16 MiB a
+# request, up to 128 MiB a batch), 8 clients x 32 requests of
+# SUM/MIN/MAX, coalesced and sequential; then through one engine a
+# float64 request, the family's serving cells at 2^22 and one oversized
+# 2^28 int32 request (1 GiB, streamed); and a --connect row against the
+# TCP front end
+SERVE_LOADS = ((1 << 16, "int"), (1 << 22, "int"), (1 << 22, "float"))
+SERVE_LOOP = ["--clients=8", "--requests=32", "--methods=SUM,MIN,MAX"]
+SERVE_N = 1 << 22
+OVERSIZED_N = 1 << 28
+
+
+def serve_row(label, row) -> str:
+    """One load generator row: its rates, and the executor's seconds of
+    each step over the row's batches, in all and a batch."""
+    s = row.get("seconds") or {}
+    per = max(row.get("batches") or 0, 1)
+    return (f"  serve {label} {row['mode']}: {row['rps']} req/s, p50 "
+            f"{row.get('p50_ms')} ms, p99 {row.get('p99_ms')} ms, "
+            f"mean_batch {row['mean_batch']}, ok {row['ok']}/"
+            f"{row['requests']}, batches {row.get('batches')}, launches "
+            f"{row.get('launches')}, copy {row.get('copy_route')}, "
+            "executor s " + " ".join(f"{k} {v:.4f}" for k, v in s.items())
+            + " | ms a batch " + " ".join(f"{k} {1e3 * v / per:.3f}"
+                                          for k, v in s.items()))
+
+
+def serve_path(driver, counted, kr, registry, config, staging) -> None:
+    """The serving path on the card (serve/): the load generator's rows
+    (SERVE_LOADS), every response ok and verified, `coalesced` batching
+    above 1 at 8 clients, and the engine's batches equal to its executor's
+    serve-bucket launches; then one engine serving a float64 request, the
+    family's SERVE_CELLS and an oversized request through the stream
+    route; then the TCP front end in its own process, driven by the load
+    generator's --connect."""
+    from tpu_reductions_torch.bench import family_spot
+    from tpu_reductions_torch.serve import loadgen
+    from tpu_reductions_torch.serve.engine import ServeEngine
+    from tpu_reductions_torch.serve.executor import BatchExecutor
+    from tpu_reductions_torch.serve.request import ReduceRequest
+    out_dir = OUT / "smoke_serve"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    bad = []
+    for n, dtype in SERVE_LOADS:
+        label = f"{dtype} n={n}"
+        out = out_dir / f"curve_{dtype}_{n}.json"
+        rc, text, seconds = run_cli(loadgen.main, SERVE_LOOP + [
+            f"--n={n}", f"--type={dtype}", f"--out={out}"])
+        rows = json.loads(out.read_text())["rows"]
+        print(f"  serve {label}: exit {rc} ({seconds:.1f} s)", flush=True)
+        for r in rows:
+            print(serve_row(label, r), flush=True)
+            if r["ok"] != r["requests"] or r["requests"] != 256 \
+                    or r["batches"] != r["launches"] \
+                    or (r["mode"] == "coalesced"
+                        and not r["mean_batch"] > 1):
+                bad.append((label, r["mode"]))
+        if rc != 0 or len(rows) != 2:
+            bad.append((label, rc))
+    # one engine: float64, the family's cells, the oversized stream
+    executor = BatchExecutor()
+    engine = ServeEngine(executor=executor, coalesce_window_s=0.0).start()
+    t0 = time.perf_counter()
+    try:
+        reqs = [ReduceRequest(method="SUM", dtype="double", n=SERVE_N,
+                              seed=1)]
+        reqs += [ReduceRequest(method=m, dtype=d, n=SERVE_N, seed=s)
+                 for m, d in family_spot.SERVE_CELLS for s in range(3)]
+        reqs += [ReduceRequest(method="SUM", dtype="int", n=OVERSIZED_N,
+                               seed=2)]
+        pending = [engine.submit(r) for r in reqs]
+        resps = [p.result(timeout=300) for p in pending]
+    finally:
+        engine.stop()
+    print(f"  serve engine ({time.perf_counter() - t0:.1f} s): "
+          f"stats {engine.stats}, launches {dict(executor.launches)}",
+          flush=True)
+    for q, r in zip(reqs, resps):
+        print(f"  serve {q.method} {q.dtype} n={q.n}: {r.status} result "
+              f"{r.result} batch {r.batch_size} latency {r.latency_s} s"
+              + (f" error {r.error}" if r.error else ""), flush=True)
+    if any(r.status != "ok" for r in resps) \
+            or executor.launches["serve-stream/sum"] != 1 \
+            or engine.stats["batches"] != sum(executor.launches.values()):
+        bad.append(("engine", engine.stats))
+    # the TCP front end, in a process of its own
+    port_file = out_dir / "port"
+    server = subprocess.Popen(
+        [sys.executable, "-m", "tpu_reductions_torch.serve", "--port=0",
+         f"--port-file={port_file}", "--max-seconds=300"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while not (port_file.exists() and port_file.read_text().strip()):
+            if server.poll() is not None or time.perf_counter() - t0 > 120:
+                raise AssertionError(f"[serve] the front end did not "
+                                     f"start: {server.stderr.read()}")
+            time.sleep(0.1)
+        port = int(port_file.read_text())
+        out = out_dir / "curve_connect.json"
+        rc, text, seconds = run_cli(loadgen.main, SERVE_LOOP + [
+            f"--connect=127.0.0.1:{port}", f"--out={out}"])
+    finally:
+        server.terminate()
+        server.wait(60)
+    rows = json.loads(out.read_text())["rows"]
+    for r in rows:
+        print(serve_row(f"int n={1 << 16} (TCP)", r), flush=True)
+    if rc != 0 or [(r["mode"], r["ok"]) for r in rows] != [("remote",
+                                                             256)]:
+        bad.append(("connect", rc))
+    if bad:
+        raise AssertionError(f"[serve] not as required: {bad}")
 
 
 CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
@@ -1507,6 +1692,7 @@ CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
              "trace": trace_path, "staging": staging_path,
              "collective": collective_path, "round": round_path,
              "quant": quant_path, "rank_scaling": rank_scaling_path,
+             "exec": exec_path, "serve": serve_path,
              "experiment": experiment_path}
 
 
@@ -1567,6 +1753,7 @@ def main() -> int:
     print(f"[main path] {time.perf_counter() - t0:.1f} s, launches "
           f"{paths['main_path']}", flush=True)
     print("[races]", flush=True)
+    shutil.rmtree(EVIDENCE_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
     for i, launches in enumerate(drive_races(autotune, counted)):
         paths[f"race_{i + 1}"] = launches
@@ -1619,7 +1806,12 @@ def main() -> int:
                  "XLA collectives and jnp")
     print(json.dumps({"kernels": kernels, "notes": {
         "collective": no_kernel, "quant": no_kernel,
-        "rank_scaling": no_kernel}}))
+        "rank_scaling": no_kernel,
+        "exec": "no kernel: the cost oracle reads JSON and touches no "
+                "device",
+        "serve": "no kernel of the repository: the bucket row-reduce is "
+                 "one torch reduction along dim 1, as the JAX package's is "
+                 "jnp_reduce under jax.jit"}}))
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

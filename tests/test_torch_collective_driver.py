@@ -28,6 +28,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -438,9 +439,34 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+# what a process prints when the group's rendezvous itself failed (the
+# TCP store's socket, gloo's connect), before any of the CLI ran: under a
+# loaded host the free port can be taken between _free_port and the bind,
+# or the store's client socket can fail its hostname lookup and abort
+_RENDEZVOUS_FAULT = re.compile(
+    r"Address already in use|EADDRINUSE|DistNetworkError|"
+    r"\[c10d\].*(socket|connect|hostname)|Connection (refused|reset)")
+
+
+def _rendezvous_failed(results: list) -> bool:
+    """Whether a process died in the rendezvous: it failed, printed no row
+    and its stderr names the store's or gloo's socket."""
+    return any(rc != 0 and not out.strip() and _RENDEZVOUS_FAULT.search(err)
+               for rc, out, err in results)
+
+
 def _run_group(nproc: int, argv: list, timeout: float = 180) -> list:
     """`nproc` processes of the port's collective CLI over gloo; their
-    (exit code, stdout, stderr). Every process is killed if one fails to
+    (exit code, stdout, stderr). A group whose rendezvous failed (not the
+    CLI) is started once more on a fresh port."""
+    results = _start_group(nproc, argv, timeout)
+    if _rendezvous_failed(results):
+        results = _start_group(nproc, argv, timeout)
+    return results
+
+
+def _start_group(nproc: int, argv: list, timeout: float) -> list:
+    """One group on a fresh port. Every process is killed if one fails to
     finish in time."""
     port = _free_port()
     procs = [subprocess.Popen(

@@ -299,9 +299,10 @@ def test_incremental_oracle_equals_jax(method, dtype):
 # ------------------------------------------------------------ family_spot
 
 def test_family_cells_are_the_jax_cells_without_serving():
-    jax_cells = [c for c in jax_family_spot.family_cells()
-                 if c[0] != "serve"]
-    assert family_spot.family_cells() == jax_cells
+    # the serving rows are ported now: the grids are equal, serving
+    # rows included
+    assert family_spot.family_cells() == jax_family_spot.family_cells()
+    assert family_spot.SERVE_CELLS == jax_family_spot.SERVE_CELLS
 
 
 @pytest.mark.parametrize("cell", [c for c in jax_family_spot.family_cells()
@@ -362,7 +363,9 @@ def test_family_spot_cli_writes_rows_and_resumes(tmp_path, capsys,
                         lambda m, d, i, *a: measured.append((m, d, i))
                         or real(m, d, i, *a))
     assert family_spot.main(argv) == 0
-    assert len(measured) == len(family_spot.family_cells()) - 4
+    # the three serving rows go through measure_serve
+    assert len(measured) == len(family_spot.family_cells()) - 4 - len(
+        family_spot.SERVE_CELLS)
     assert measured[0] == tuple(family_spot.family_cells()[4][1:])
 
 

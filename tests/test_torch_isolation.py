@@ -1,7 +1,8 @@
 """The port stands alone: tpu_reductions_torch/ and chip_smoke.py import
 neither jax nor any tpu_reductions module, and without a card and without
-an explicit CPU request the entry points (the benchmark, collective and
-round CLIs) and kernel wrappers raise rather than run on the CPU. Every kernel wrapper (k6-k10 and the pair kernel dd)
+an explicit CPU request the entry points (the benchmark, collective,
+round, exec, serve, loadgen and ledger CLIs), the serving executor and
+the kernel wrappers raise rather than run on the CPU. Every kernel wrapper (k6-k10 and the pair kernel dd)
 takes its plain version only for a CPU tensor."""
 
 import ast
@@ -119,6 +120,59 @@ def test_collective_and_round_clis_raise_without_card(no_card, argv):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert "PASSED" not in proc.stdout
+
+
+# the subpackages of the execution core and the serving path
+SUBPACKAGES = ("obs", "faults", "exec", "sched", "serve")
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_new_subpackages_are_checked(sub):
+    """Each subpackage's modules are among the files the import check
+    walks, and importing them loads neither jax nor tpu_reductions."""
+    files = [p for p in PORT_FILES
+             if p.parent == REPO / "tpu_reductions_torch" / sub]
+    assert REPO / "tpu_reductions_torch" / sub / "__init__.py" in files
+    assert len(files) >= 2
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"import tpu_reductions_torch.{sub} as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'tpu_reductions')]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["tpu_reductions_torch.exec", "--explain"],
+    ["tpu_reductions_torch.serve", "--max-seconds=1"],
+    ["tpu_reductions_torch.serve.loadgen", "--clients=1", "--requests=1"],
+    ["tpu_reductions_torch.obs.ledger", "note.x"],
+], ids=["exec", "serve", "loadgen", "obs"])
+def test_exec_serve_and_obs_entry_points_raise_without_card(no_card, argv):
+    """Without --platform=cpu they need the card: no CPU fallback."""
+    proc = subprocess.run(
+        [sys.executable, "-m", *argv], cwd=REPO, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "serving on" not in proc.stdout and "decisions" not in proc.stdout
+
+
+def test_the_serving_executor_has_no_cpu_fallback(no_card):
+    from tpu_reductions_torch.serve.engine import ServeEngine
+    from tpu_reductions_torch.serve.executor import BatchExecutor
+    from tpu_reductions_torch.serve.request import ReduceRequest
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchExecutor().run_batch("SUM", "int32", 8, [0])
+    eng = ServeEngine().start()
+    r = eng.submit(ReduceRequest(method="SUM", dtype="int", n=8)).result(30)
+    eng.stop()
+    assert r.status == "error" and "no CUDA device" in r.error
 
 
 def test_chip_smoke_fails_without_card(no_card):

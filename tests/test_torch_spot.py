@@ -31,9 +31,7 @@ DIFFERENT = {
              "--backend": "auto|cuda|torch against the JAX auto|pallas|xla",
              "--f64": "the port only: float64's native or pair route"},
     "smoke": {"--platform": PLATFORM},
-    "family_spot": {"--platform": PLATFORM,
-                    "--serve-n": "the JAX only: the serving rows wait for "
-                                 "the port's serving engine"},
+    "family_spot": {"--platform": PLATFORM},
     "firstrow": {"--platform": PLATFORM,
                  "--out": "out/FIRSTROW.json against FIRSTROW.json in the "
                           "working directory"},

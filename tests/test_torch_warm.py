@@ -26,8 +26,7 @@ JAX_ROW_KEYS = {"surface", "platform", "verdict", "dur_s", "lower_s",
 def test_surfaces_are_the_jax_registrys():
     port = [s for s, _ in warm.surfaces()]
     jax = [s for s, _ in jax_warm.surfaces()]
-    assert port == [("torch" if s == "xla" else s) for s in jax
-                    if s != "serve-bucket/sum"]
+    assert port == [("torch" if s == "xla" else s) for s in jax]
 
 
 def test_warm_cli_writes_cold_and_warm_rows(tmp_path, monkeypatch):

@@ -29,6 +29,8 @@ from tpu_reductions_torch.bench.driver import (BenchResult, crash_result,
                                                run_benchmark,
                                                run_benchmark_batch)
 from tpu_reductions_torch.bench.resume import Checkpoint, result_from_row
+from tpu_reductions_torch.exec import core as exec_core
+from tpu_reductions_torch.exec.plan import device_task
 from tpu_reductions_torch.config import (DTYPE_ALIASES, KERNEL_ELEMENTWISE,
                                          KERNEL_MXU, KERNEL_SINGLE_PASS,
                                          KERNEL_STREAM, KERNEL_TWO_PASS,
@@ -123,7 +125,12 @@ def autotune(base: ReduceConfig,
                 res = prior
             else:
                 try:
-                    res = run_benchmark(cfg, logger=logger)
+                    res = exec_core.run(device_task(
+                        f"autotune/k{cfg.kernel}",
+                        lambda: run_benchmark(cfg, logger=logger),
+                        retry_log=logger.log, method=cfg.method,
+                        dtype=cfg.dtype, n=cfg.n, threads=cfg.threads,
+                        max_blocks=cfg.max_blocks))
                 except Exception as e:  # contained to this candidate's row
                     res = crash_result(cfg, e, logger)
             if on_result is not None:

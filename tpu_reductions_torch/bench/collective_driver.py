@@ -298,10 +298,21 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
     def sync():
         device_mod.synchronize(mesh.device)
 
-    out = None
-    for _ in range(max(cfg.warmup, 1)):      # reduce.c:61-64
-        out = run(x_dev)
-        sync()
+    from tpu_reductions_torch.exec import core as exec_core
+    from tpu_reductions_torch.exec.plan import launch_plan
+
+    def warmup(ctx):
+        out = None
+        for _ in range(max(cfg.warmup, 1)):      # reduce.c:61-64
+            out = run(x_dev)
+            sync()
+            ctx.tick()
+        return out
+
+    out = exec_core.run(launch_plan(
+        f"collective/{algorithm}", "collective", warmup,
+        timing="chained", heartbeat_phase="collective.warmup",
+        method=method, dtype=dtype, ranks=k, n=int(cfg.n)))
 
     expect = host_collective_oracle(x_host, k, method) if cfg.verify \
         else None

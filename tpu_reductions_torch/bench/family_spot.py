@@ -1,10 +1,10 @@
 """The reduction family's spot grid: SCAN / SEG* / ARG* measured and
 verified.
 
-The counterpart of tpu_reductions/bench/family_spot.py, without its three
-serving rows (they need the serving engine, which the port does not have
-yet). Every (method, dtype, impl) cell is verified against the host
-oracle by a launch of its own before any time is taken: SCAN element by
+The counterpart of tpu_reductions/bench/family_spot.py. Every (method,
+dtype, impl) cell is verified against the host oracle by a launch of its
+own, one retried task of the execution core (exec/core.py), before any
+time is taken: SCAN element by
 element against the float64/int64 prefix (family.host_scan; int32
 bit-exact through the mod-2^32 wrap), SEG* segment by segment against
 host_segment_reduce (ragged random offsets, empty segments included),
@@ -15,7 +15,10 @@ whose only job is the data dependence; verification never reads it. The
 chain's span is the JAX package's rate-model span, cut to about 6 ms of
 the digest's measured time where a cell runs far below the memory rate
 (the segmented cells). The SCAN cells race both implementations,
-mxu-scan against xla-cumsum.
+mxu-scan against xla-cumsum; their rates price the cost oracle's scan
+axis (exec/cost.pick_scan). Then the three serving rows (SERVE_CELLS):
+`--serve-n`-element requests of one method per family group through an
+in-process serving engine (serve/), each of which must resolve `ok`.
 
 Every cell persists the moment it lands and resumes (bench/resume,
 keyed by (kind, method, dtype, impl)). Rows print in the
@@ -24,7 +27,7 @@ into report.md.
 
 CLI:
     python -m tpu_reductions_torch.bench.family_spot [--platform=cpu] \\
-        [--n=1048576 --segments=64 --seed=0 --reps=5] \\
+        [--n=1048576 --serve-n=16384 --segments=64 --seed=0 --reps=5] \\
         --out=family_spot.json
 
 Exit 0 when every cell PASSED, else 1.
@@ -51,11 +54,14 @@ from tpu_reductions_torch.utils.logging import (FAMILY_HEADER, BenchLogger,
 FAMILY_DTYPES = ("int32", "float32")
 SEG_METHODS = ("SEGSUM", "SEGMIN", "SEGMAX")
 ARG_METHODS = ("ARGMIN", "ARGMAX")
+# the serving rows: one method per family group, served end to end
+SERVE_CELLS = (("SCAN", "float32"), ("SEGSUM", "int32"),
+               ("ARGMAX", "float32"))
 
 
 def family_cells() -> List[tuple]:
     """The (kind, method, dtype, impl) grid in artifact order: scan, then
-    the segmented group, then arg."""
+    the segmented group, then arg, then the serving rows."""
     from tpu_reductions_torch.ops.family import scan_impls
     cells = []
     for dtype in FAMILY_DTYPES:
@@ -67,6 +73,8 @@ def family_cells() -> List[tuple]:
     for method in ARG_METHODS:
         for dtype in FAMILY_DTYPES:
             cells.append(("cell", method, dtype, "argk"))
+    for method, dtype in SERVE_CELLS:
+        cells.append(("serve", method, dtype, "serve"))
     return cells
 
 
@@ -160,7 +168,10 @@ def measure_cell(method: str, dtype: str, impl: str, n: int, segments: int,
                  seed: int, reps: int, device: torch.device) -> dict:
     """One grid cell: a verification launch (the full result against the
     host oracle), then the chained slope of the scalar digest."""
+    from tpu_reductions_torch.exec import core as exec_core
+    from tpu_reductions_torch.exec.plan import device_task
     from tpu_reductions_torch.ops.chain import make_chained_reduce
+    from tpu_reductions_torch.ops.family import family_surface
     from tpu_reductions_torch.ops.oracle import host_value
     from tpu_reductions_torch.ops.registry import get_op
     from tpu_reductions_torch.utils.rng import host_data
@@ -169,7 +180,9 @@ def measure_cell(method: str, dtype: str, impl: str, n: int, segments: int,
     x_host = host_data(n, dtype, rank=0, seed=seed)
     x = x_host.to(device)
     full, core, offsets = _cell_fns(method, dtype, impl, x, segments, seed)
-    got = host_value(full(x))
+    got = host_value(exec_core.run(device_task(
+        family_surface(method, impl if method == "SCAN" else None),
+        lambda: full(x), method=method, dtype=dtype, n=n)))
     ok, max_err = _verify(method, dtype, x_host.numpy(), got, offsets)
 
     x2d = x.reshape(-1, 128)
@@ -190,15 +203,45 @@ def measure_cell(method: str, dtype: str, impl: str, n: int, segments: int,
             "status": "PASSED" if ok else "FAILED"}
 
 
+def measure_serve(method: str, dtype: str, n: int, requests: int = 3,
+                  platform: str = "gpu") -> dict:
+    """One serving row: `requests` ReduceRequests submitted to an
+    in-process ServeEngine on the platform's device, each of which must
+    resolve `ok` through the coalescing path
+    (serve/executor._run_family_batch)."""
+    from tpu_reductions_torch.serve.engine import ServeEngine
+    from tpu_reductions_torch.serve.request import ReduceRequest
+
+    eng = ServeEngine(coalesce_window_s=0.0, platform=platform).start()
+    try:
+        t0 = time.perf_counter()
+        pends = [eng.submit(ReduceRequest(method=method, dtype=dtype,
+                                          n=n, seed=s))
+                 for s in range(requests)]
+        resps = [p.result(timeout=120.0) for p in pends]
+        wall = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    ok_n = sum(1 for r in resps if r.status == "ok")
+    return {"kind": "serve", "method": method, "dtype": dtype,
+            "impl": "serve", "n": int(n), "requests": requests,
+            "ok_count": ok_n, "gbps": 0.0,
+            "latency_s": round(wall, 6),
+            "status": "PASSED" if ok_n == requests else "FAILED"}
+
+
 def run_family_spot(*, n: int, segments: int, seed: int, reps: int,
+                    serve_n: int = 1 << 14,
                     out: Optional[str] = None, platform: str = "gpu",
                     logger: Optional[BenchLogger] = None) -> List[dict]:
-    """The grid, persisted and resumed a cell at a time."""
+    """The grid and the serving rows, persisted and resumed a cell at a
+    time."""
     from tpu_reductions_torch.bench.resume import (Checkpoint,
                                                    run_checkpointed_cells)
     device = device_mod.resolve(platform)
     logger = logger or BenchLogger(None, None)
-    ck = Checkpoint(out, {"n": n, "segments": segments, "seed": seed,
+    ck = Checkpoint(out, {"n": n, "serve_n": serve_n,
+                          "segments": segments, "seed": seed,
                           "reps": reps, "timing": "chained",
                           "stat": "median"},
                     key_fn=lambda r: (r.get("kind", "cell"), r.get("method"),
@@ -206,7 +249,9 @@ def run_family_spot(*, n: int, segments: int, seed: int, reps: int,
     logger.log(FAMILY_HEADER)
 
     def measure(key):
-        _kind, method, dtype, impl = key
+        kind, method, dtype, impl = key
+        if kind == "serve":
+            return measure_serve(method, dtype, serve_n, platform=platform)
         return measure_cell(method, dtype, impl, n, segments, seed, reps,
                             device)
 
@@ -219,12 +264,13 @@ def run_family_spot(*, n: int, segments: int, seed: int, reps: int,
 
 def family_spot_markdown(data: dict) -> str:
     """The family grid as one report.md table (bench/regen.py): GB/s per
-    (method, dtype, impl) with its verdict. Empty when there are no
-    rows."""
+    (method, dtype, impl) with its verdict, then the serving rows. Empty
+    when there are no rows."""
     rows = [r for r in data.get("rows", []) if isinstance(r, dict)]
     if not rows:
         return ""
     cells = [r for r in rows if r.get("kind") != "serve"]
+    serves = [r for r in rows if r.get("kind") == "serve"]
     n_fail = sum(1 for r in rows if r.get("status") != "PASSED")
     lines = [
         "### Reduction family (SCAN / segmented / argmin-argmax)",
@@ -242,6 +288,14 @@ def family_spot_markdown(data: dict) -> str:
             f"| {r['method']} | {r['dtype']} | {r['impl']} "
             f"| {r['gbps']:.3f} | {r.get('max_err', 0.0):.3e} "
             f"| {r['status']} |")
+    if serves:
+        lines += ["",
+                  "| served method | dtype | n | requests ok | status |",
+                  "|---|---|---|---|---|"]
+        for r in serves:
+            lines.append(
+                f"| {r['method']} | {r['dtype']} | {r['n']} "
+                f"| {r['ok_count']}/{r['requests']} | {r['status']} |")
     return "\n".join(lines)
 
 
@@ -255,6 +309,9 @@ def main(argv=None) -> int:
     p.add_argument("--n", type=int, default=1 << 20,
                    help="Cell payload elements (a multiple of 128, for the "
                         "chained 2-D view)")
+    p.add_argument("--serve-n", dest="serve_n", type=int,
+                   default=1 << 14,
+                   help="Per-request elements of the serving rows")
     p.add_argument("--segments", type=int, default=64,
                    help="Segment count of the SEG* cells (ragged random "
                         "offsets; empty segments occur)")
@@ -266,10 +323,11 @@ def main(argv=None) -> int:
     ns = p.parse_args(argv)
     if ns.n <= 0 or ns.n % 128:
         p.error(f"--n must be a positive multiple of 128, got {ns.n}")
-    if ns.segments < 2 or ns.reps < 1:
-        p.error("--segments >= 2 and --reps >= 1 required")
+    if ns.segments < 2 or ns.serve_n <= 0 or ns.reps < 1:
+        p.error("--segments >= 2, --serve-n > 0, --reps >= 1 required")
     rows = run_family_spot(n=ns.n, segments=ns.segments, seed=ns.seed,
-                           reps=ns.reps, out=ns.out, platform=ns.platform,
+                           reps=ns.reps, serve_n=ns.serve_n, out=ns.out,
+                           platform=ns.platform,
                            logger=BenchLogger(None, None,
                                               console=sys.stdout))
     if ns.out:

@@ -114,8 +114,14 @@ def main(argv=None) -> int:
         _mark(marks, f"int row resumed from interrupted {ns.out}: "
                      f"{row['gbps']} GB/s [{row['status']}]")
     else:
+        from tpu_reductions_torch.exec import core as exec_core
+        from tpu_reductions_torch.exec.plan import device_task
         try:
-            res = run_benchmark(cfg, logger=logger)
+            res = exec_core.run(device_task(
+                "firstrow",
+                lambda: run_benchmark(cfg, logger=logger),
+                retry_log=logger.log, method=cfg.method,
+                dtype=cfg.dtype, n=cfg.n))
         except Exception as e:   # contained: a crash still leaves a row
             res = crash_result(cfg, e, logger)
         row = res.to_dict()

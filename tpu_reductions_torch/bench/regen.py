@@ -14,11 +14,14 @@ The grid's averages prefer cells measured under the flagship contract
 PASSED cells of another discipline at the flagship geometry, and say so.
 
 Of the JAX regenerator's report folds, the stream probes' table, the
-reduction family's (family_spot.json) and the two rank-axis curves
-(quant_curve.json, reshard_curve.json, read from the experiment dir or
-from its sibling `rank_scaling/`, where bench/rank_scaling.py writes
-them) are here; the others come with the port of the modules that write
-their artifacts. Its cross-round
+reduction family's (family_spot.json), the serving curve
+(serving_curve.json, serve/loadgen.py), the execution core's decision
+audit (exec_decisions.json, `python -m tpu_reductions_torch.exec
+--explain --out`) and the two rank-axis curves (quant_curve.json,
+reshard_curve.json) are here, each read from the experiment dir or from
+its sibling `rank_scaling/`, where bench/rank_scaling.py writes the
+curves; the others come with the port of the modules that write their
+artifacts. Its cross-round
 trajectory table is left out: the rounds it collates are TPU runs.
 """
 
@@ -86,6 +89,16 @@ def collect_averages(grid_dir: Path, grid: dict | None = None,
 def _quant_curve_table(data: dict) -> str:
     from tpu_reductions_torch.bench.quant_curve import quant_curve_markdown
     return quant_curve_markdown(data)
+
+
+def _serving_curve_table(data: dict) -> str:
+    from tpu_reductions_torch.serve.loadgen import curve_markdown
+    return curve_markdown(data)
+
+
+def _decisions_table(data: dict) -> str:
+    from tpu_reductions_torch.exec.cost import decisions_markdown
+    return decisions_markdown(data)
 
 
 def _reshard_curve_table(data: dict) -> str:
@@ -192,7 +205,9 @@ def regenerate(out_dir: str | Path, device_kind: str | None = None,
                                  + "\n" + table + "\n")
                 log("regen: appended the reduction-family table "
                     "(family_spot.json)")
-    for name, fold in (("quant_curve", _quant_curve_table),
+    for name, fold in (("serving_curve", _serving_curve_table),
+                       ("exec_decisions", _decisions_table),
+                       ("quant_curve", _quant_curve_table),
                        ("reshard_curve", _reshard_curve_table)):
         # an experiment dir's own copy wins over the sibling rank_scaling/
         src = out / f"{name}.json"

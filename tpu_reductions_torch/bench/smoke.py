@@ -8,8 +8,9 @@ of a kernel geometry the races use (k10 at depths 2, 4, 8; k9 on f32 and
 bf16; k8's largest tile; the f64 pair kernel for SUM and MIN), and each
 family case one verified run of a family surface. The manifest records a
 verdict per case; a case that raises is a FAILED row and the rest still
-run (the JAX package retries a transient relay fault first; the port
-has no execution core, so a case is one plain call).
+run. Each case is one retried task of the execution core
+(exec/core.py), whose retry never fires on a card, which is untunneled
+(docs/PORT.md "Serving on one card").
 
 The dd cases carry kernel=None, as in the JAX package, and run the f64
 pair route (`--f64=dd`): float64 runs natively on the card by default,
@@ -97,10 +98,11 @@ def _family_case(surface: str, n: int, device: torch.device) -> bool:
 
 
 def _case_row(name: str, surface: str, run) -> dict:
-    """Run one case; its manifest row (a raise is a FAILED row)."""
+    """Run one case, `run(surface)`; its manifest row (a raise is a FAILED
+    row)."""
     t0 = time.perf_counter()
     try:
-        status = run()
+        status = run(surface)
         row = {"name": name, "surface": surface, "status": status,
                "ok": status in ("PASSED", "WAIVED"), "error": None}
     except Exception as e:   # the manifest is the product
@@ -118,6 +120,8 @@ def run_smoke(n: int = 1 << 20, logger: Optional[BenchLogger] = None,
     reused."""
     # imported here, so that tests can replace driver.run_benchmark
     from tpu_reductions_torch.bench import driver
+    from tpu_reductions_torch.exec import core as exec_core
+    from tpu_reductions_torch.exec.plan import device_task
 
     logger = logger or BenchLogger(None, None)
     device = device_mod.resolve(platform)
@@ -132,15 +136,20 @@ def run_smoke(n: int = 1 << 20, logger: Optional[BenchLogger] = None,
         else:
             kw["backend"] = "cuda"
             kw["kernel"] = kernel
-        return lambda: driver.run_benchmark(ReduceConfig(**kw),
-                                            logger=logger).status.name
+        return lambda surface: exec_core.run(device_task(
+            surface,
+            lambda: driver.run_benchmark(ReduceConfig(**kw),
+                                         logger=logger),
+            retry_log=logger.log, method=method,
+            dtype=dtype)).status.name
 
-    def family(surface):
-        return lambda: ("PASSED" if _family_case(surface, n, device)
-                        else "FAILED")
+    def family(name):
+        return lambda surface: ("PASSED" if exec_core.run(device_task(
+            surface, lambda: _family_case(surface, n, device),
+            retry_log=logger.log, case=name)) else "FAILED")
 
     cases = [(c[0], c[6], classic(*c[:6])) for c in CASES]
-    cases += [(name, surface, family(surface))
+    cases += [(name, surface, family(name))
               for name, surface in FAMILY_CASES]
     rows: List[dict] = []
     for name, surface, run in cases:

@@ -8,9 +8,9 @@ slower than SUM at one geometry?) and gives the double scoreboard (f64
 SUM/MIN/MAX at n = 2^24). Backends are the port's: `cuda` (`auto` picks
 it) where the JAX package has `pallas`, `torch` where it has `xla`; f64
 takes the driver's `--f64` route. A method whose run raises is a FAILED
-row and the others still run (the JAX package retries a transient relay
-fault first; the port has no execution core, so a method is one plain
-call). A re-invocation against an interrupted artifact (`complete:
+row and the others still run. Each method is one retried task of the
+execution core (exec/core.py), whose retry never fires on a card, which
+is untunneled. A re-invocation against an interrupted artifact (`complete:
 false`, the same meta) reuses its rows, keyed by method.
 
 CLI:
@@ -53,6 +53,8 @@ def run_spots(base: ReduceConfig, methods: List[str],
     measured again."""
     # imported here, so that tests can replace driver.run_benchmark
     from tpu_reductions_torch.bench.driver import crash_result, run_benchmark
+    from tpu_reductions_torch.exec import core as exec_core
+    from tpu_reductions_torch.exec.plan import device_task
 
     logger = logger or BenchLogger(None, None)
     rows = []
@@ -67,7 +69,11 @@ def run_spots(base: ReduceConfig, methods: List[str],
             continue
         cfg = dataclasses.replace(base, method=method)
         try:
-            res = run_benchmark(cfg, logger=logger)
+            res = exec_core.run(device_task(
+                f"spot/{method.lower()}",
+                lambda: run_benchmark(cfg, logger=logger),
+                retry_log=logger.log, method=method, dtype=cfg.dtype,
+                n=cfg.n))
         except Exception as e:  # contained to this method's row
             res = crash_result(cfg, e, logger)
         row = _row(cfg, res)

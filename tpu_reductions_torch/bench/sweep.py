@@ -122,15 +122,19 @@ def run_shmoo(cfg: ReduceConfig, *, min_pow: int = 10, max_pow: int = 24,
 def _run_cells(cfgs, logger, on_result,
                log_row=None) -> List[BenchResult]:
     """One cell at a time, a cell that raises becoming a FAILED row; so
-    on_result fires, and can persist the row, after every cell.
-
-    The JAX package runs each cell through its execution core, which
-    retries a cell after a transient relay fault; the port has no
-    execution core yet, so a cell is one plain call."""
+    on_result fires, and can persist the row, after every cell. Each cell
+    is one retried task of the execution core (exec/core.py); on a card,
+    which is untunneled, an error re-raises at once into the row."""
+    from tpu_reductions_torch.exec import core as exec_core
+    from tpu_reductions_torch.exec.plan import device_task
     results = []
     for sub in cfgs:
         try:
-            res = run_benchmark(sub, logger=logger)
+            res = exec_core.run(device_task(
+                "sweep-cell",
+                lambda: run_benchmark(sub, logger=logger),
+                retry_log=logger.log, method=sub.method,
+                dtype=sub.dtype, n=sub.n))
         except Exception as e:  # contained to this cell's row
             res = crash_result(sub, e, logger)
         if log_row is not None:

@@ -20,8 +20,7 @@ shape (`{"kind": "compile-observatory", "version": 1, "complete": ...,
 platform. There is no lowering: `lower_s` is null, and `compile_s` is
 nvcc's seconds on the build rows. What has no counterpart (the
 obs/compile ledger events and the persistent `.jax_cache`) is in
-docs/PORT.md. The serving engine's bucket surface waits for the serving
-engine. On the CPU (`--platform=cpu`) there is no build and the chain is
+docs/PORT.md. On the CPU (`--platform=cpu`) there is no build and the chain is
 the eager loop, so the rows time the plain versions' first calls.
 
 A surface that fails is reported and the pass goes on. An artifact left
@@ -112,6 +111,18 @@ def _stream_surface() -> Surface:
     return "stream", build
 
 
+def _serve_surface() -> Surface:
+    """The serving engine's batch-1 bucket: one torch reduction along dim
+    1 of a (1, n) int32 stack on the device (serve/executor.py; what
+    engine.prewarm calls first)."""
+    def build(n, device):
+        from tpu_reductions_torch.ops.registry import get_op
+        from tpu_reductions_torch.utils.rng import host_data
+        x = host_data(n, "int32").reshape(1, n).to(device)
+        return (lambda: get_op("SUM").reduce_dim(x, 1)), ()
+    return "serve-bucket/sum", build
+
+
 def _family_surface(surface: str, method: str, dtype: str,
                     impl: str) -> Surface:
     """A family cell's chained digest (bench/family_spot.py)."""
@@ -141,6 +152,7 @@ def surfaces() -> List[Surface]:
         _dd_surface(),
         _torch_surface(),
         _stream_surface(),
+        _serve_surface(),
         _family_surface("mxu-scan", "SCAN", "float32", "mxu-scan"),
         _family_surface("xla-cumsum", "SCAN", "int32", "xla-cumsum"),
         _family_surface("seg/segsum", "SEGSUM", "int32", "seg"),

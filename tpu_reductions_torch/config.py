@@ -118,6 +118,32 @@ def stage_threshold_bytes(override: Optional[int] = None) -> int:
         or 2 * stage_chunk_bytes()
 
 
+# The serving engine's knobs (serve/engine.py), the JAX package's: the
+# device-parallel shard threshold (one engine on one card never shards,
+# serve/executor.capabilities) and the bound of the settled-response
+# dedup cache.
+DEFAULT_SHARD_THRESHOLD_BYTES = 512 << 20
+DEFAULT_DEDUP_CACHE_SIZE = 1024
+
+
+def shard_threshold_bytes(override: Optional[int] = None) -> int:
+    """`override` when positive, else TPU_REDUCTIONS_SHARD_THRESHOLD_BYTES,
+    else 512 MiB."""
+    if override is not None and override > 0:
+        return int(override)
+    return _env_bytes("TPU_REDUCTIONS_SHARD_THRESHOLD_BYTES") \
+        or DEFAULT_SHARD_THRESHOLD_BYTES
+
+
+def dedup_cache_size(override: Optional[int] = None) -> int:
+    """Entries of each engine's dedup cache: `override` when positive,
+    else TPU_REDUCTIONS_DEDUP_CACHE_SIZE, else 1024 (LRU eviction)."""
+    if override is not None and override > 0:
+        return int(override)
+    return _env_bytes("TPU_REDUCTIONS_DEDUP_CACHE_SIZE") \
+        or DEFAULT_DEDUP_CACHE_SIZE
+
+
 @dataclasses.dataclass
 class ReduceConfig:
     """Single-chip reduction benchmark configuration (the driver's input)."""

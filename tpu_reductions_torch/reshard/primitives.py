@@ -357,8 +357,12 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
                            what the card held, the ops' temporaries
                            included. None on the CPU.
 
-    The program is one plain call here: the JAX package runs it through
-    its execution core's retry wrapper, which the port has not yet."""
+    The whole program is one LaunchPlan of the execution core
+    (exec/core.py) whose steps each run under their own heartbeat guard,
+    as the JAX package's do."""
+    from tpu_reductions_torch.exec import core as exec_core
+    from tpu_reductions_torch.exec.plan import launch_plan
+
     if repeats < 1:
         raise ValueError(f"repeats must be >= 1, got {repeats}")
     x_np = np.asarray(carried)
@@ -367,12 +371,20 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
     g_bytes = int(np.prod(global_shape)) * x_np.dtype.itemsize
     dev = mesh.device
     on_card = dev.type == "cuda"
-    x = place_spec(x_np, plan.source, mesh)
-    measured = _row_bytes(x) / g_bytes
-    device_peak = measured if on_card else None
     step_rows = []
-    total = 0.0
-    for step in plan.steps:
+
+    def program(ctx):
+        x = place_spec(x_np, plan.source, mesh)
+        measured = _row_bytes(x) / g_bytes
+        device_peak = measured if on_card else None
+        total = 0.0
+        for step in plan.steps:
+            with ctx.guard("reshard.step"):
+                x, total, measured, device_peak = _run_step(
+                    step, x, total, measured, device_peak)
+        return x, total, measured, device_peak
+
+    def _run_step(step, x, total, measured, device_peak):
         fn, aux = build_step(step, mesh, global_shape, x_np.dtype)
         y = None
         watch = Stopwatch()
@@ -403,7 +415,11 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
             row["device_mem_factor"] = round(held / g_bytes, 6)
             device_peak = max(device_peak, held / g_bytes)
         step_rows.append(row)
-        x = y
+        return y, total, measured, device_peak
+
+    x, total, measured, device_peak = exec_core.run(launch_plan(
+        "reshard", "reshard", program, timing="steps",
+        heartbeat_phase=None, ranks=int(mesh.k), steps=len(plan.steps)))
     return {"shards": collect_shards(x, mesh), "wall_s": total,
             "steps": step_rows, "measured_mem_factor": measured,
             "device_mem_factor": device_peak}
