@@ -119,7 +119,23 @@ Run from the repository root on a machine with one NVIDIA GPU:
    2^22 and one oversized int32 request of 2^28 (1 GiB) through the
    stream route, all ok; then `python -m tpu_reductions_torch.serve` in a
    process of its own on a port from the OS, driven by the load
-   generator's --connect, every response ok.
+   generator's --connect, every response ok; `[fleet]`, the replica fleet
+   (serve/router.py, journal.py, autoscale.py and the executor's shard
+   route, docs/PORT.md "The fleet on one card") into out/smoke_fleet:
+   the load generator's --scale at --devices=8 --replicas=4 over 64, 256
+   and 1024 open-loop clients (every series' requests resolved ok; the
+   sharded row of 160,000,000 int32 ok over 8 ranks with its algorithm
+   and its seconds of fill, fold, combine and verify), --elastic
+   --plan=diurnal --devices=8 (the replica count rises and falls, the
+   drain sheds nothing where the kill sheds, the drain's reshard verified
+   within its declared memory), --recovery --recovery-requests=48
+   --crash-after=16 with its router and replica children on the card
+   (every key settles ok once, no duplicate device execution across the
+   router's death or the drain, both live children adopted), then
+   `python -m tpu_reductions_torch.serve.router --replicas=2` in a
+   process of its own driven by --connect (256 responses, all ok); and
+   then no process of the phase may be alive, nor among the card's
+   compute processes (nvidia-smi --query-compute-apps).
    Then the flagship experiment, `tpu_reductions_torch.bench.experiment`,
    into out/smoke_experiment: the n = 2^24 grid (float64 and int32 x
    SUM/MIN/MAX, 3 repeats, 18 cells through k6), the chained SUM curves
@@ -1686,6 +1702,196 @@ def serve_path(driver, counted, kr, registry, config, staging) -> None:
         raise AssertionError(f"[serve] not as required: {bad}")
 
 
+# [fleet]: the replica fleet on the card (serve/router.py, journal.py,
+# autoscale.py, the executor's shard route): the load generator's --scale,
+# --elastic and --recovery as the JAX package's scripts/run_serving_*.sh
+# run them, the router in a process of its own driven by --connect, and
+# then no process of the phase may be left alive
+FLEET_CLIENTS = "64,256,1024"
+FLEET_RANKS = 8
+
+
+def fleet_rows(label, rows) -> None:
+    """Each row of a fleet artifact on a line of its own."""
+    for r in rows:
+        fields = {k: v for k, v in r.items()
+                  if k not in ("trajectory", "epochs", "by_status",
+                               "drains", "ledger")}
+        print(f"  fleet {label}: {json.dumps(fields)}", flush=True)
+
+
+def fleet_pids(out_dir) -> set:
+    """Every process that wrote a line to a ledger of the phase: the
+    routers and their replica children (each arms the ledger it inherits)
+    and this process."""
+    pids = set()
+    for path in out_dir.glob("*.jsonl*"):
+        for line in path.read_text(errors="replace").splitlines():
+            try:
+                pids.add(int(json.loads(line)["pid"]))
+            except (ValueError, KeyError, TypeError):
+                continue
+    return pids - {os.getpid()}
+
+
+def fleet_path(driver, counted, kr, registry, config, staging) -> None:
+    """The fleet on the card: `--scale` (every series' rows resolved and
+    ok; the sharded row ok over FLEET_RANKS ranks with its algorithm and
+    its fill, fold and combine seconds), `--elastic` (the replica count
+    rises and falls; the drain sheds nothing where the kill sheds; the
+    drain's reshard verified within its memory bound), `--recovery`
+    (every idempotency key settles once, ok; no duplicate device execution
+    across the controller's death or the drain; the restarted router
+    adopts both live children), the router in its own process serving
+    256 --connect requests, all ok; then no pid of the phase alive, nor
+    among the card's compute processes."""
+    from tpu_reductions_torch.obs import ledger
+    from tpu_reductions_torch.serve import loadgen
+    out_dir = (OUT / "smoke_fleet").resolve()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    bad = []
+
+    def mode(name, argv):
+        out = out_dir / f"serving_{name}.json"
+        rc, text, seconds = run_cli(loadgen.main, argv + [f"--out={out}"])
+        ledger.disarm()              # the next mode runs unrecorded
+        rows = json.loads(out.read_text())["rows"]
+        print(f"  fleet {name}: exit {rc}, {len(rows)} rows "
+              f"({seconds:.1f} s)", flush=True)
+        fleet_rows(name, rows)
+        if rc != 0:
+            bad.append((name, rc))
+        return rows
+
+    rows = mode("scale", ["--scale", f"--devices={FLEET_RANKS}",
+                          "--replicas=4", "--seed=0",
+                          f"--scale-clients={FLEET_CLIENTS}"])
+    grid = [r for r in rows if r.get("series") != "sharded"]
+    sharded = [r for r in rows if r.get("series") == "sharded"]
+    if len(grid) != 11 or any(r["requests"] != r["clients"]
+                              or r["ok"] != r["requests"] for r in grid):
+        bad.append(("scale", "grid"))
+    if len(sharded) != 1 or sharded[0]["status"] != "ok" \
+            or sharded[0].get("devices") != FLEET_RANKS \
+            or not sharded[0].get("algorithm"):
+        bad.append(("scale", "sharded"))
+    else:
+        s = sharded[0]["seconds"]
+        print(f"  fleet sharded n={sharded[0]['n']}: latency "
+              f"{sharded[0]['latency_s']} s, fill {s['fill']:.4f} s, fold "
+              f"{s['fold']:.4f} s, combine {s['combine']:.4f} s, verify "
+              f"{s['verify']:.4f} s", flush=True)
+
+    rows = mode("elastic", ["--elastic", "--plan=diurnal",
+                            f"--devices={FLEET_RANKS}", "--seed=0",
+                            f"--scale-clients={FLEET_CLIENTS}"])
+    cells = [r for r in rows if r["key"].startswith("elastic@")]
+    by_key = {r["key"]: r for r in rows}
+    for r in cells:
+        print(f"  fleet elastic {r['key']} trajectory "
+              f"{json.dumps(r['trajectory'])}", flush=True)
+    drain, kill = by_key.get("drain", {}), by_key.get("kill", {})
+    reshard = drain.get("reshard") or {}
+    if any(r["ok"] != r["requests"] for r in rows) \
+            or not any(r["scale_ups"] and r["scale_downs"] for r in cells) \
+            or drain.get("victim_shed") != 0 \
+            or not kill.get("victim_shed") \
+            or reshard.get("ok") is not True \
+            or reshard.get("ranks") != FLEET_RANKS \
+            or not reshard["measured_mem_factor"] <= reshard["mem_factor"]:
+        bad.append(("elastic", [(r["key"], r.get("scale_ups"),
+                                 r.get("scale_downs"),
+                                 r.get("victim_shed")) for r in rows]))
+
+    rows = mode("recovery", ["--recovery", "--recovery-requests=48",
+                             "--crash-after=16", "--seed=0"])
+    by_key = {r["key"]: r for r in rows}
+    kr_row = by_key.get("kill_router", {})
+    if sorted(by_key) != ["drain", "kill_replica", "kill_router"] \
+            or any(r["requests"] != 48 or r["ok"] != 48 for r in rows) \
+            or kr_row.get("executed_keys") != 48 \
+            or kr_row.get("duplicates") != 0 \
+            or by_key["drain"].get("duplicates") != 0 \
+            or kr_row.get("adopted") != 2 or kr_row.get("reaped") != 0:
+        bad.append(("recovery", [(k, r.get("ok"), r.get("duplicates"),
+                                  r.get("adopted")) for k, r in
+                                 by_key.items()]))
+
+    # the router in a process of its own, its replicas children of it
+    port_file = out_dir / "router.port"
+    env = dict(os.environ,
+               TPU_REDUCTIONS_LEDGER=str(out_dir / "router.ledger.jsonl"))
+    t0 = time.perf_counter()
+    with open(out_dir / "router.log", "wb") as log:
+        router = subprocess.Popen(
+            [sys.executable, "-m", "tpu_reductions_torch.serve.router",
+             "--replicas=2", "--port=0", f"--port-file={port_file}",
+             "--max-seconds=300"], stdout=log, stderr=subprocess.STDOUT,
+            env=env)
+    try:
+        while not (port_file.exists() and port_file.read_text().strip()):
+            if router.poll() is not None or time.perf_counter() - t0 > 240:
+                raise AssertionError(
+                    "[fleet] the router did not start: "
+                    + (out_dir / "router.log").read_text()[-2000:])
+            time.sleep(0.1)
+        print(f"  fleet router up in {time.perf_counter() - t0:.1f} s: "
+              + (out_dir / "router.log").read_text().strip(), flush=True)
+        # what each replica's context holds of the card while it serves
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        print(f"  fleet compute apps with the router up: {apps or 'none'}",
+              flush=True)
+        out = out_dir / "curve_router.json"
+        rc, text, seconds = run_cli(loadgen.main, SERVE_LOOP + [
+            f"--connect=127.0.0.1:{int(port_file.read_text())}",
+            f"--out={out}"])
+    finally:
+        router.send_signal(2)        # SIGINT: the router reaps INT first
+        try:
+            router.wait(90)
+        except subprocess.TimeoutExpired:
+            router.kill()
+            router.wait(30)
+    rows = json.loads(out.read_text())["rows"]
+    for r in rows:
+        print(serve_row("int n=65536 (router, 2 process replicas)", r),
+              flush=True)
+    if rc != 0 or [(r["mode"], r["ok"]) for r in rows] != [("remote",
+                                                             256)]:
+        bad.append(("router", rc, router.returncode))
+
+    # no process of the phase is left: not as a pid, not on the card
+    pids = fleet_pids(out_dir)
+    deadline = time.monotonic() + 30
+    alive = pids
+    while alive and time.monotonic() < deadline:
+        alive = set()
+        for pid in pids:
+            try:
+                os.kill(pid, 0)
+                alive.add(pid)
+            except ProcessLookupError:
+                pass
+        time.sleep(0.2)
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout
+    on_card = {int(line.split(",")[0]) for line in apps.splitlines()
+               if line.strip() and line.split(",")[0].strip().isdigit()}
+    print(f"  fleet processes: {len(pids)} pids of the phase, alive "
+          f"{sorted(alive)}, on the card {sorted(on_card & pids)}; "
+          f"compute apps now: {apps.strip() or 'none'}", flush=True)
+    if not pids or alive or on_card & pids:
+        bad.append(("orphans", sorted(alive), sorted(on_card & pids)))
+    if bad:
+        raise AssertionError(f"[fleet] not as required: {bad}")
+
+
 CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
              "family": family_path, "firstrow": firstrow_path,
              "warm": warm_path, "shmoo": shmoo_path, "check": check_path,
@@ -1693,7 +1899,7 @@ CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
              "collective": collective_path, "round": round_path,
              "quant": quant_path, "rank_scaling": rank_scaling_path,
              "exec": exec_path, "serve": serve_path,
-             "experiment": experiment_path}
+             "fleet": fleet_path, "experiment": experiment_path}
 
 
 def main() -> int:
@@ -1809,6 +2015,13 @@ def main() -> int:
         "rank_scaling": no_kernel,
         "exec": "no kernel: the cost oracle reads JSON and touches no "
                 "device",
+        "fleet": "no kernel of the repository: the fleet computes with "
+                 "torch ops (the shard route's fold, its rank-axis "
+                 "combine, the drain's reshard), as the JAX package's "
+                 "fleet computes with jnp under jax.jit and XLA "
+                 "collectives and never reaches pl.pallas_call; every "
+                 "kernel is launched and held against its plain version "
+                 "by the phases that do so",
         "serve": "no kernel of the repository: the bucket row-reduce is "
                  "one torch reduction along dim 1, as the JAX package's is "
                  "jnp_reduce under jax.jit"}}))

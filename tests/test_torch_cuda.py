@@ -1128,3 +1128,37 @@ def test_reshard_cell_on_card(cuda_device, pair, wire):
             np.testing.assert_allclose(g, w, rtol=0, atol=row["bound"])
         else:
             assert np.array_equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,dtype,quantized", [
+    ("SUM", "int32", False), ("MIN", "int32", False),
+    ("MAX", "int32", False), ("SUM", "float32", False),
+    ("MAX", "bfloat16", False), ("SUM", "float32", True)])
+def test_run_sharded_on_card_gives_the_cpu_result(cuda_device, method, dtype,
+                                                  quantized):
+    """The shard route at ranks=8 on the card: the same selection as the
+    CPU run, int32 and MIN/MAX the same value, float SUM within the
+    registry's tolerance (the card folds in another order), every
+    response verified; the drain's reshard at 8 ranks verified with its
+    measured memory factor at or under the declared one."""
+    from tpu_reductions_torch.ops.registry import tolerance
+    from tpu_reductions_torch.serve.autoscale import _reshard_partials
+    from tpu_reductions_torch.serve.executor import BatchExecutor
+    n = (1 << 20) + 37
+    got, want = (BatchExecutor(p, ranks=8).run_sharded(
+        method, dtype, n, 3, chunk_bytes=1 << 16, quantized=quantized)
+        for p in ("gpu", "cpu"))
+    assert got["ok"] is want["ok"] is True
+    for key in ("algorithm", "wire_factor", "quantized", "devices",
+                "per_device_chunks", "host"):
+        assert got[key] == want[key], key
+    assert got["note"] == "the 8 ranks are rows of one tensor on cuda"
+    if dtype == "int32" or method != "SUM":
+        assert got["result"] == want["result"]
+    elif not quantized:
+        assert abs(got["result"] - want["result"]) <= \
+            2 * tolerance(method, dtype, n)
+    res = _reshard_partials("v", executor=BatchExecutor("gpu", ranks=8),
+                            mem_bound=2.0, seed=3)
+    assert res["ok"] and res["measured_mem_factor"] <= res["mem_factor"]

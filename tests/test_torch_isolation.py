@@ -1,8 +1,9 @@
 """The port stands alone: tpu_reductions_torch/ and chip_smoke.py import
 neither jax nor any tpu_reductions module, and without a card and without
 an explicit CPU request the entry points (the benchmark, collective,
-round, exec, serve, loadgen and ledger CLIs), the serving executor and
-the kernel wrappers raise rather than run on the CPU. Every kernel wrapper (k6-k10 and the pair kernel dd)
+round, exec, serve, loadgen, ledger, router and relay CLIs), the serving
+executor, its shard route and the fleet's process replicas, and the kernel
+wrappers raise rather than run on the CPU. Every kernel wrapper (k6-k10 and the pair kernel dd)
 takes its plain version only for a CPU tensor."""
 
 import ast
@@ -152,7 +153,13 @@ def test_new_subpackages_are_checked(sub):
     ["tpu_reductions_torch.serve", "--max-seconds=1"],
     ["tpu_reductions_torch.serve.loadgen", "--clients=1", "--requests=1"],
     ["tpu_reductions_torch.obs.ledger", "note.x"],
-], ids=["exec", "serve", "loadgen", "obs"])
+    ["tpu_reductions_torch.serve.router", "--replicas=1",
+     "--max-seconds=1"],
+    ["tpu_reductions_torch.faults.relay", '--schedule=[{"behavior": '
+     '"accept"}]', "--max-seconds=1"],
+    ["tpu_reductions_torch.serve.loadgen", "--scale",
+     "--scale-clients=1"],
+], ids=["exec", "serve", "loadgen", "obs", "router", "relay", "fleet"])
 def test_exec_serve_and_obs_entry_points_raise_without_card(no_card, argv):
     """Without --platform=cpu they need the card: no CPU fallback."""
     proc = subprocess.run(
@@ -161,6 +168,43 @@ def test_exec_serve_and_obs_entry_points_raise_without_card(no_card, argv):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert "serving on" not in proc.stdout and "decisions" not in proc.stdout
+    assert "routing" not in proc.stdout and "listening" not in proc.stdout
+
+
+# the replica fleet's modules
+FLEET_MODULES = ("serve.router", "serve.journal", "serve.autoscale",
+                 "serve.transport", "faults.relay")
+
+
+@pytest.mark.parametrize("mod", FLEET_MODULES)
+def test_fleet_modules_are_checked_and_import_alone(mod):
+    """Each of the fleet's modules is among the files the import check
+    walks, and importing it alone loads neither jax nor tpu_reductions."""
+    path = REPO / "tpu_reductions_torch" / (mod.replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    code = (f"import tpu_reductions_torch.{mod}, sys\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'tpu_reductions')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_a_process_replica_fails_its_spawn_without_a_card(no_card):
+    """A child that cannot reach the card exits: the spawn fails with its
+    reason instead of the child coming up on the CPU."""
+    from tpu_reductions_torch.serve.router import ProcessReplica
+    rep = ProcessReplica("r0")                    # platform gpu
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rep.start()
+    assert not rep.alive()
+
+
+def test_the_sharded_route_has_no_cpu_fallback(no_card):
+    from tpu_reductions_torch.serve.executor import BatchExecutor
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchExecutor(ranks=8).run_sharded("SUM", "int32", 1 << 12, 0)
 
 
 def test_the_serving_executor_has_no_cpu_fallback(no_card):

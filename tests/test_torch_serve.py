@@ -207,10 +207,13 @@ def test_capabilities_on_one_device():
     caps = port_executor.BatchExecutor("cpu").capabilities()
     assert caps == {"backend": "cpu", "supports_f64": True,
                     "device_count": 1}
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        port_executor.BatchExecutor("cpu").run_sharded("SUM", "int32", 4, 0)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        port_executor.BatchExecutor("cpu").run_reshard()
+    # one rank: the shard route is the stream, as in JAX on one device
+    ex = port_executor.BatchExecutor("cpu")
+    got = ex.run_sharded("SUM", "int32", 4, 0)
+    want = ex.run_stream("SUM", "int32", 4, 0)
+    assert {k: got[k] for k in ("result", "ok", "host", "chunks")} == \
+        {k: want[k] for k in ("result", "ok", "host", "chunks")}
+    assert "devices" not in got
 
 
 @pytest.mark.parametrize("k", [1, 3])
@@ -525,8 +528,10 @@ def test_loadgen_writes_jax_columns_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,words", [
-    (["--scale"], "item 8b"), (["--elastic"], "item 8b"),
-    (["--recovery"], "item 8b"), (["--launch-latency-ms=2"], "item 9"),
+    (["--scale", "--connect=h:1"], "--scale drives in-process"),
+    (["--elastic", "--connect=h:1"], "--elastic drives in-process"),
+    (["--recovery", "--connect=h:1"], "--recovery drives its own router"),
+    (["--launch-latency-ms=-1"], "--launch-latency-ms must be >= 0"),
     (["--methods=SCAN"], "--methods must name only"),
     (["--type=int64"], "unknown --type")])
 def test_loadgen_refusals(argv, words, capsys):

@@ -14,8 +14,10 @@ The grid's averages prefer cells measured under the flagship contract
 PASSED cells of another discipline at the flagship geometry, and say so.
 
 Of the JAX regenerator's report folds, the stream probes' table, the
-reduction family's (family_spot.json), the serving curve
-(serving_curve.json, serve/loadgen.py), the execution core's decision
+reduction family's (family_spot.json), the serving curve and the
+fleet's three artifacts (serving_curve.json, serving_scale.json,
+serving_elastic.json, serving_recovery.json: serve/loadgen.py), the
+execution core's decision
 audit (exec_decisions.json, `python -m tpu_reductions_torch.exec
 --explain --out`) and the two rank-axis curves (quant_curve.json,
 reshard_curve.json) are here, each read from the experiment dir or from
@@ -94,6 +96,15 @@ def _quant_curve_table(data: dict) -> str:
 def _serving_curve_table(data: dict) -> str:
     from tpu_reductions_torch.serve.loadgen import curve_markdown
     return curve_markdown(data)
+
+
+def _fleet_table(name: str):
+    """The load generator's fold of a fleet artifact (serving_scale,
+    serving_elastic, serving_recovery)."""
+    def fold(data: dict) -> str:
+        from tpu_reductions_torch.serve import loadgen
+        return getattr(loadgen, f"{name}_markdown")(data)
+    return fold
 
 
 def _decisions_table(data: dict) -> str:
@@ -206,6 +217,9 @@ def regenerate(out_dir: str | Path, device_kind: str | None = None,
                 log("regen: appended the reduction-family table "
                     "(family_spot.json)")
     for name, fold in (("serving_curve", _serving_curve_table),
+                       ("serving_scale", _fleet_table("scale")),
+                       ("serving_elastic", _fleet_table("elastic")),
+                       ("serving_recovery", _fleet_table("recovery")),
                        ("exec_decisions", _decisions_table),
                        ("quant_curve", _quant_curve_table),
                        ("reshard_curve", _reshard_curve_table)):

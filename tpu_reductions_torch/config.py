@@ -144,6 +144,58 @@ def dedup_cache_size(override: Optional[int] = None) -> int:
         or DEFAULT_DEDUP_CACHE_SIZE
 
 
+def _env_float(name: str) -> Optional[float]:
+    """A non-negative float from the environment, else None."""
+    try:
+        v = float(os.environ[name])
+    except (KeyError, ValueError):
+        return None
+    return v if v >= 0 else None
+
+
+# The replica fleet's knobs (serve/autoscale.py, serve/journal.py), the
+# JAX package's: the autoscaler's replica bounds and cooldown, and where
+# the fleet journal persists.
+DEFAULT_AUTOSCALE_MIN = 1
+DEFAULT_AUTOSCALE_MAX = 8
+DEFAULT_AUTOSCALE_COOLDOWN_S = 5.0
+
+
+def autoscale_min(override: Optional[int] = None) -> int:
+    """The fleet's floor: `override` when positive, else
+    TPU_REDUCTIONS_AUTOSCALE_MIN, else 1."""
+    if override is not None and override > 0:
+        return int(override)
+    return _env_bytes("TPU_REDUCTIONS_AUTOSCALE_MIN") \
+        or DEFAULT_AUTOSCALE_MIN
+
+
+def autoscale_max(override: Optional[int] = None) -> int:
+    """The fleet's ceiling: `override` when positive, else
+    TPU_REDUCTIONS_AUTOSCALE_MAX, else 8."""
+    if override is not None and override > 0:
+        return int(override)
+    return _env_bytes("TPU_REDUCTIONS_AUTOSCALE_MAX") \
+        or DEFAULT_AUTOSCALE_MAX
+
+
+def autoscale_cooldown_s(override: Optional[float] = None) -> float:
+    """Seconds between scaling actions: `override` when >= 0, else
+    TPU_REDUCTIONS_AUTOSCALE_COOLDOWN_S, else 5."""
+    if override is not None and override >= 0:
+        return float(override)
+    env = _env_float("TPU_REDUCTIONS_AUTOSCALE_COOLDOWN_S")
+    return env if env is not None else DEFAULT_AUTOSCALE_COOLDOWN_S
+
+
+def fleet_journal_path(override: Optional[str] = None) -> Optional[str]:
+    """The fleet journal's file: `override` (the router's --journal),
+    else TPU_REDUCTIONS_FLEET_JOURNAL, else None (journaling in memory)."""
+    if override:
+        return str(override)
+    return os.environ.get("TPU_REDUCTIONS_FLEET_JOURNAL") or None
+
+
 @dataclasses.dataclass
 class ReduceConfig:
     """Single-chip reduction benchmark configuration (the driver's input)."""

@@ -1,7 +1,7 @@
-"""Deterministic fault injection: `fault_point` and its env-armed plan.
+"""Deterministic fault injection and the chaos relay.
 
-The counterpart of tpu_reductions/faults/inject.py and the schedule
-parser of faults/schedule.py. The chaos relay (faults/relay.py) and the
-seams other than `exec.launch`, `serve.batch` and `heartbeat.tick` wait
-for ROADMAP Queue A item 9 (docs/PORT.md).
+The counterpart of tpu_reductions/faults/: `fault_point` and its
+env-armed plan (inject.py), the schedule parser (schedule.py), and the
+schedule-driven relay (relay.py), which in the port models a launch's
+round trip. The seams the port declares are listed in inject.py.
 """

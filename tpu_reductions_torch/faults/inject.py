@@ -16,9 +16,11 @@ heartbeat mark).
 
 The port's points: `exec.launch` (exec/core.run, between the plan's
 `exec.plan` event and its `exec.launch` event, before any device work),
-`serve.batch` (one serving launch, serve/executor.py) and
-`heartbeat.tick` (every progress mark, utils/heartbeat.py). Each firing
-is recorded as a `fault.fire` event before its side effect.
+`serve.batch` (one serving launch, serve/executor.py), `heartbeat.tick`
+(every progress mark, utils/heartbeat.py), `router.crash` (each routed
+submit, serve/router.py: an `exit` there is a controller death) and
+`drain.step` (a drain after its queue emptied, serve/autoscale.py). Each
+firing is recorded as a `fault.fire` event before its side effect.
 
 Counters are process-global; `reset()` re-arms them for tests.
 """

@@ -7,8 +7,8 @@ schedule.py): a JSON list of relay phases stepped through in order,
 
 with `behavior` one of accept / refuse / stall / slow, `delay_s` the hold
 of a slow phase (default 0.25 s), and at most one of `duration_s` and
-`connections` to advance on. The chaos relay that steps through it waits
-for ROADMAP Queue A item 9; the parser comes now with the fault plan.
+`connections` to advance on. The chaos relay (faults/relay.py) steps
+through it.
 """
 
 from __future__ import annotations

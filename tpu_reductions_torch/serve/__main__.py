@@ -11,16 +11,20 @@ line, one response line back:
 and the `{"op": ...}` control plane: `ping`, `drain` (close admission),
 `drain_status` (draining, queued, warm keys, stats) and `prewarm`. The
 engine runs on the card; without one it raises unless --platform=cpu.
-The flight recorder arms from TPU_REDUCTIONS_LEDGER.
+The flight recorder arms from TPU_REDUCTIONS_LEDGER. --devices K gives
+the executor K ranks for the shard route; --relay-port gates each launch
+on a chaos relay (the replica fleet's modeled round trip).
 
     python -m tpu_reductions_torch.serve [--port 0] [--port-file PATH] \
-        [--platform cpu] [--max-seconds S] [engine knobs]
+        [--platform cpu] [--devices K] [--relay-port P] \
+        [--max-seconds S] [engine knobs]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 import socketserver
 import sys
 import threading
@@ -127,19 +131,42 @@ def main(argv=None) -> int:
     p.add_argument("--max-seconds", type=float, default=None,
                    help="total runtime bound (default: until killed)")
     p.add_argument("--platform", default="gpu", choices=PLATFORMS)
+    p.add_argument("--devices", dest="num_devices", type=int,
+                   default=None,
+                   help="ranks of the shard route: a request over the "
+                        "shard threshold is split over this many rows "
+                        "of one tensor on the device (default 1: "
+                        "oversized requests stream)")
+    p.add_argument("--relay-port", type=int, default=None,
+                   help="gate launches against this relay port (a "
+                        "router parent's chaos relay: every replica pays "
+                        "the same modeled round trip)")
     ns = p.parse_args(argv)
+    if ns.num_devices is not None and ns.num_devices < 1:
+        p.error("--devices must be positive")
 
     from tpu_reductions_torch import device as device_mod
     device_mod.resolve(ns.platform)      # no card, no server
+    # SIGINT drains the engine through KeyboardInterrupt, even when this
+    # process was started with SIGINT ignored (a router's reap sends it)
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGINT, signal.default_int_handler)
     from tpu_reductions_torch.obs.ledger import arm_session
     arm_session("serve", argv=list(argv) if argv else sys.argv[1:])
 
     from tpu_reductions_torch.serve.engine import ServeEngine
+    from tpu_reductions_torch.serve.executor import BatchExecutor
+    transport = None
+    if ns.relay_port is not None:
+        from tpu_reductions_torch.serve.transport import RelayTransport
+        transport = RelayTransport(ports=(ns.relay_port,),
+                                   assume_tunneled=True, drain=True)
     engine = ServeEngine(
         max_queue=ns.max_queue, max_batch=ns.max_batch,
         coalesce_window_s=ns.coalesce_window_ms / 1e3,
         device_window_s=ns.device_window_ms / 1e3,
-        platform=ns.platform).start()
+        executor=BatchExecutor(ns.platform, ranks=ns.num_devices or 1),
+        transport=transport, platform=ns.platform).start()
 
     server = _Server((ns.host, ns.port),
                      _make_handler(engine, ns.request_timeout_s))

@@ -27,10 +27,10 @@ The counterpart of tpu_reductions/serve/engine.py, whole: one
 
 The engine makes no device call: all device work goes through
 serve/executor.py, built lazily, from the worker thread (and from
-`prewarm`). No lock of the engine is held around an executor call. On
-one card the transport gate is `NullTransport` and the executor reports
-one device, so the shard route (`_launch_sharded`, item 8b) is never
-taken.
+`prewarm`). No lock of the engine is held around an executor call. The
+transport gate defaults to `NullTransport` (a local card has no relay);
+the shard route (`_launch_sharded`) is taken when the executor reports
+more than one rank (BatchExecutor(ranks=K), serve --devices K).
 """
 
 
@@ -157,8 +157,8 @@ class ServeEngine:
         # ...and above the shard threshold they go device-PARALLEL when
         # the backend has >1 device: staging-bounded per-device chunk
         # folds finished by a collective combine picked through
-        # collectives/algorithms.select_algorithm (executor.run_sharded;
-        # the replica fleet, item 8b). f64 stays on the stream/dd
+        # collectives/algorithms.select_algorithm (executor.run_sharded,
+        # over the executor's ranks). f64 stays on the stream/dd
         # path — the collective registry's dd planes are a different
         # launch shape than the per-device fold accumulators.
         self._shard_oversized = shard_oversized
@@ -210,7 +210,7 @@ class ServeEngine:
         self._dedup_lock = threading.Lock()
         # jit-bucket keys this engine has warmed or launched — the warm
         # state a planned drain hands to the surviving replicas
-        # (the fleet's drain, item 8b)
+        # (serve/autoscale.drain_replica)
         self._warm_keys: set = set()
 
     def _bump(self, key: str, delta: int = 1) -> None:
@@ -773,7 +773,7 @@ class ServeEngine:
         local devices in utils/staging-bounded per-device chunks,
         per-device fold, then a collective combine whose algorithm
         comes from collectives/algorithms.select_algorithm
-        (executor.run_sharded, item 8b — all device work stays in the
+        (executor.run_sharded — all device work stays in the
         executor). Same transport gate, deadline checks, crash
         containment and response vocabulary as every other launch."""
         now = time.monotonic()

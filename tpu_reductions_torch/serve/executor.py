@@ -28,9 +28,22 @@ of each bucket key. `seconds` accumulates the host seconds of each
 batch's steps (fill, stack, copy, reduce, verify) and `launches` counts
 launches per surface.
 
-`run_sharded` and `run_reshard` belong to the replica fleet (ROADMAP
-Queue A item 8b); one engine on one card never calls them
-(`capabilities()["device_count"]` is 1).
+The shard route and the drain's reshard, on the rank axis of one card
+(docs/PORT.md "The fleet on one card"): `BatchExecutor(ranks=K)` reports
+`device_count: K`, and the engine then sends a request over the shard
+threshold to `run_sharded`, which splits the payload into K contiguous
+shards, folds each chunk by chunk (every host-to-device copy bounded by
+ops/stream.plan_chunks) into its row of one (K, width*8, 128) tensor on
+the device, and combines the K rows with the collective that
+collectives/algorithms.select_algorithm names (`collective.select`,
+`collective.launch` and `collective.done` events): the JAX package's
+per-device folds and XLA collective over a device mesh, with the ranks
+rows of one tensor, as the collective driver's are. The fold is one torch
+reduction over a chunk's blocks, as JAX's `_jit_shard_fold` is jnp under
+jit; no kernel of the repository runs here. `last_shard` keeps the
+seconds of the last sharded request's fill, fold, combine and verify.
+`run_reshard` runs a planner program (reshard/primitives.execute_plan) on
+a rank mesh of the same device, the drain's device seam.
 """
 
 from __future__ import annotations
@@ -88,8 +101,12 @@ class BatchExecutor:
     `platform` is "gpu" (the card, the default) or "cpu"; constructing
     one touches no device."""
 
-    def __init__(self, platform: str = "gpu") -> None:
+    def __init__(self, platform: str = "gpu", ranks: int = 1) -> None:
+        if ranks < 1:
+            raise ValueError(f"ranks must be >= 1, got {ranks}")
         self.platform = platform
+        self.ranks = int(ranks)
+        self.last_shard: Optional[Dict[str, float]] = None
         self._device: Optional[torch.device] = None
         self._caps: Optional[dict] = None
         self.seconds: Dict[str, float] = dict.fromkeys(STEPS, 0.0)
@@ -111,12 +128,12 @@ class BatchExecutor:
 
     def capabilities(self) -> dict:
         """{'backend', 'supports_f64', 'device_count'}: the card adds
-        float64 natively and so does the CPU; one engine serves one
-        device, so the shard route never applies."""
+        float64 natively and so does the CPU; `device_count` is the
+        ranks of the shard route (the engine shards only above 1)."""
         if self._caps is None:
             self._caps = {"backend": self.device.type,
                           "supports_f64": True,
-                          "device_count": 1}
+                          "device_count": self.ranks}
         return self._caps
 
     @contextlib.contextmanager
@@ -424,14 +441,216 @@ class BatchExecutor:
                 "gbps": round(x.numel() * x.element_size()
                               / max(wall, 1e-9) / 1e9, 4)}
 
-    def run_sharded(self, *args, **kwargs) -> Dict:
-        """Device-parallel oversized requests: ROADMAP Queue A item 8b."""
-        raise NotImplementedError(
-            "run_sharded belongs to the replica fleet (ROADMAP Queue A "
-            "item 8b); one engine on one card streams oversized requests")
+    def run_sharded(self, method: str, dtype: str, n: int, seed: int,
+                    *, chunk_bytes: Optional[int] = None,
+                    quantized: bool = False, quant_bits: int = 8,
+                    devices: Optional[int] = None) -> Dict:
+        """One oversized request over the rank axis (module docstring):
+        K contiguous shards folded chunk by chunk into K resident
+        (width*8, 128) partials, then one collective combine. With
+        `quantized` the combine rides the block-scaled wire
+        (collectives/quant.py) where the geometry carries it, and the
+        check accepts its declared bound. `devices`, a rank count,
+        overrides `ranks` (JAX's takes the devices themselves). Same
+        response as run_batch, plus the selection and `devices`."""
+        from tpu_reductions_torch.collectives.algorithms import \
+            select_algorithm
+        from tpu_reductions_torch.collectives.core import \
+            make_collective_reduce
+        from tpu_reductions_torch.collectives.quant import (
+            make_quant_sum_all_reduce, quant_error_bound, quant_supported)
+        from tpu_reductions_torch.config import DTYPE_ALIASES, FAMILY_METHODS
+        from tpu_reductions_torch.exec import core as exec_core
+        from tpu_reductions_torch.exec.plan import launch_plan
+        from tpu_reductions_torch.obs import ledger, trace
+        from tpu_reductions_torch.ops import oracle as oracle_mod
+        from tpu_reductions_torch.ops.registry import (accum_dtype, get_op,
+                                                       torch_dtype)
+        from tpu_reductions_torch.ops.stream import (_BLOCK, _LANES,
+                                                     _SUBLANES, dtype_name,
+                                                     iter_chunks,
+                                                     plan_chunks)
+        from tpu_reductions_torch.parallel.mesh import build_mesh
 
-    def run_reshard(self, *args, **kwargs) -> Dict:
-        """A drain's partial reshard: ROADMAP Queue A item 8b."""
-        raise NotImplementedError(
-            "run_reshard belongs to the replica fleet's drain (ROADMAP "
-            "Queue A item 8b)")
+        fault_point("serve.batch")
+
+        method = method.upper()
+        dtype = DTYPE_ALIASES.get(dtype, dtype)
+        if method in FAMILY_METHODS:
+            if method == "SCAN":
+                # an oversized SCAN chunk-carries; its digest is the same
+                # scalar
+                return self.run_stream(method, dtype, n, seed,
+                                       chunk_bytes=chunk_bytes)
+            raise ValueError(f"{method} has no device-parallel path; "
+                             "family methods serve via the coalesced "
+                             "batch (docs/FAMILY.md)")
+        if dtype == "float64":
+            raise ValueError("float64 shards through the dd stream "
+                             "path, not run_sharded (serve/engine.py "
+                             "_should_shard)")
+        k = min(self.ranks if devices is None else int(devices), n)
+        if k <= 1:
+            # one rank: the streaming path is the sharded path
+            return self.run_stream(method, dtype, n, seed,
+                                   chunk_bytes=chunk_bytes)
+
+        t0 = time.perf_counter()
+        x = _fill(n, dtype, seed).reshape(-1)
+        t1 = time.perf_counter()
+        op = get_op(method)
+        acc_dt = accum_dtype(torch_dtype(dtype)) if method == "SUM" \
+            else torch_dtype(dtype)
+        base = -(-n // k)                       # a shard's length
+        plan = plan_chunks(base, dtype, chunk_bytes)
+        # 16 blocks wide where the chunk allows: a per-rank length that
+        # divides by k * QUANT_BLOCK at k = 8, so the quantized ring
+        # applies to the combine, as in JAX
+        width = min(16, plan.chunk_elems // _BLOCK)
+        per_rank = width * _BLOCK
+        dev = self.device
+        pad_value = op.identity(x.dtype)
+        surface = f"serve-shard/{method.lower()}"
+
+        def fold_shard(rank: int) -> torch.Tensor:
+            # shard `rank`, one bounded copy a chunk, folded into its
+            # partial; a ragged chunk pads to whole fold blocks with the
+            # identity
+            shard = x[rank * base:min(n, (rank + 1) * base)]
+            with self._on_card():
+                acc = torch.full((width * _SUBLANES, _LANES),
+                                 op.identity(acc_dt), dtype=acc_dt,
+                                 device=dev)
+                for c in range(-(-shard.numel() // plan.chunk_elems)):
+                    piece = shard[c * plan.chunk_elems:
+                                  (c + 1) * plan.chunk_elems]
+                    pad = -piece.numel() % per_rank
+                    if pad:
+                        piece = torch.cat([piece, piece.new_full(
+                            (pad,), pad_value)])
+                    staged = piece.to(dev).view(-1, width * _SUBLANES,
+                                                _LANES)
+                    acc = op.combine(acc,
+                                     op.reduce_dim(staged, 0).to(acc_dt))
+                self._sync()
+            return acc
+
+        def launch(ctx):
+            # the k partials: rows of one tensor on the device
+            self.launches[surface] += 1
+            parts = [ctx.call(lambda r=r: fold_shard(r), phase="serve")
+                     for r in range(k)]
+            with self._on_card():
+                return torch.stack(parts).view(k, per_rank)
+
+        rows = exec_core.run(launch_plan(
+            surface, "serve", launch, timing="serve",
+            heartbeat_phase=None, drain=True,
+            staging_bound=int(plan.chunk_bytes), method=method,
+            dtype=dtype, n=n, devices=k))
+        t2 = time.perf_counter()
+
+        # the combine's dtype is what the partials hold (bfloat16 SUM
+        # accumulates in float32)
+        combine_dtype = dtype_name(acc_dt)
+        use_quant = bool(quantized) and method == "SUM" \
+            and quant_supported(method, combine_dtype, quant_bits)
+        selection = select_algorithm(method, combine_dtype, k, per_rank,
+                                     quantized=use_quant,
+                                     bits=quant_bits)
+        ledger.emit("collective.select", algorithm=selection.algorithm,
+                    method=method, dtype=combine_dtype, ranks=k,
+                    wire_factor=round(selection.wire_factor, 6),
+                    quantized=use_quant,
+                    bits=(quant_bits if use_quant else None))
+        mesh = build_mesh(num_devices=k, platform=self.platform,
+                          local_ranks=k, device=dev)
+        coll = (make_quant_sum_all_reduce(mesh, bits=quant_bits,
+                                          dtype=combine_dtype)
+                if use_quant else
+                make_collective_reduce(method, mesh, rooted="none"))
+
+        def combine():
+            with self._on_card():
+                # numpy has no bfloat16: a bfloat16 MIN/MAX block crosses
+                # as float32, which holds its values exactly
+                return oracle_mod.host_value(coll(rows)[0])
+
+        with trace.child():
+            ledger.emit("collective.launch",
+                        algorithm=selection.algorithm, method=method,
+                        dtype=combine_dtype, ranks=k, n=int(per_rank))
+            c0 = time.perf_counter()
+            block = exec_core.run(launch_plan(
+                f"serve-combine/{selection.algorithm}", "collective",
+                lambda ctx: ctx.call(combine, phase="serve"),
+                timing="serve", heartbeat_phase=None, drain=True,
+                method=method, dtype=combine_dtype, ranks=k,
+                quantized=use_quant))
+            ledger.emit("collective.done",
+                        algorithm=selection.algorithm, method=method,
+                        dtype=combine_dtype, ranks=k,
+                        wall_s=round(time.perf_counter() - c0, 6),
+                        rows=1)
+        t3 = time.perf_counter()
+
+        # host collapse of the replicated block, as StreamReducer.finish
+        # does (int32 SUM wraps modulo 2^32)
+        if method == "SUM" and block.dtype == np.int32:
+            value = np.int64(block.sum(dtype=np.int64)
+                             ).astype(np.int32)[()]
+        elif method == "SUM":
+            value = np.float64(block.astype(np.float64).sum())
+        else:
+            value = op.np_reduce(block)
+
+        oracle = oracle_mod.IncrementalOracle(method, dtype)
+        for chunk in iter_chunks(x, plan_chunks(n, dtype, chunk_bytes)):
+            oracle.update(chunk)
+        out = _verified(value, oracle.value(), method, dtype, n)
+        bound = None
+        if not out["ok"] and use_quant:
+            # the quantized wire is approximate by contract: the declared
+            # per-element bound summed over the combined block
+            with self._on_card():
+                max_abs = float(rows.double().abs().max())
+            bound = quant_error_bound(method, combine_dtype, quant_bits,
+                                      k, max_abs) * per_rank
+            out["ok"] = out["diff"] <= bound
+        t4 = time.perf_counter()
+        self.last_shard = {"fill": t1 - t0, "fold": t2 - t1,
+                           "combine": t3 - t2, "verify": t4 - t3}
+        return {**out,
+                "algorithm": selection.algorithm,
+                "wire_factor": round(selection.wire_factor, 6),
+                "quantized": use_quant,
+                "quant_bound": bound,
+                "devices": k,
+                "note": f"the {k} ranks are rows of one tensor on "
+                        f"{dev.type}",
+                "per_device_chunks": plan.num_chunks,
+                "chunk_bytes": plan.chunk_bytes}
+
+    def run_reshard(self, plan, carried: np.ndarray) -> Dict:
+        """Run one planner program (reshard/planner.plan_reshard) on a
+        rank mesh of this executor's device: the drain's device seam
+        (serve/autoscale.drain_replica). Returns execute_plan's dict
+        ({'shards', 'wall_s', 'steps', 'measured_mem_factor',
+        'device_mem_factor'})."""
+        from tpu_reductions_torch.exec import core as exec_core
+        from tpu_reductions_torch.exec.plan import launch_plan
+        from tpu_reductions_torch.reshard.primitives import (execute_plan,
+                                                             make_mesh)
+
+        fault_point("serve.batch")
+
+        def launch(ctx):
+            with self._on_card():
+                mesh = make_mesh(plan.source.num_ranks, self.platform)
+                return execute_plan(plan, carried, mesh)
+
+        return exec_core.run(launch_plan(
+            "serve-reshard", "reshard", launch,
+            timing="steps", heartbeat_phase="serve", retry=True,
+            drain=True, ranks=plan.source.num_ranks,
+            steps=len(plan.steps)))
