@@ -135,7 +135,26 @@ Run from the repository root on a machine with one NVIDIA GPU:
    `python -m tpu_reductions_torch.serve.router --replicas=2` in a
    process of its own driven by --connect (256 responses, all ok); and
    then no process of the phase may be alive, nor among the card's
-   compute processes (nvidia-smi --query-compute-apps).
+   compute processes (nvidia-smi --query-compute-apps); `[resilience]`,
+   into out/smoke_resilience with one ledger, each CLI in a process of
+   its own: the preflight (utils/preflight.py) must find the card LIVE
+   and prints its seconds; the scheduler (`python -m
+   tpu_reductions_torch.sched`) must run four card tasks (smoke at 2^19,
+   spot int32 2^24, the calibration ladder utils/calibrate.py --ladder
+   at float32 2^24 and 2^26, warm --only=nvcc,k6,dd) to a complete plan,
+   and the ladder's five times a rung and its verdict are printed; then
+   a plan whose second task is the hang, the main CLI's int32 SUM 2^24 row
+   through k6 with the heartbeat's marks frozen by
+   TPU_REDUCTIONS_FAULTS, a 2 s deadline and a 0.5 s watchdog interval,
+   must exit 4 with that task's `watchdog.exit` event and phase in the
+   ledger and the plan's state incomplete, and, rerun without the
+   fault, resume and pick only the two tasks left, the same row passing
+   watched; no process of the phase may be alive; then the ledger's
+   analysis: every session's timeline buckets sum to its recorded
+   seconds within 1%, the exit-4 stall lands in `stalled`,
+   the Chrome trace names a process for every session, the critical
+   path's shares are printed, and the compile ledger holds the build's
+   cold and warm rows, which the scheduler's priors read as warm.
    Then the flagship experiment, `tpu_reductions_torch.bench.experiment`,
    into out/smoke_experiment: the n = 2^24 grid (float64 and int32 x
    SUM/MIN/MAX, 3 repeats, 18 cells through k6), the chained SUM curves
@@ -1892,6 +1911,239 @@ def fleet_path(driver, counted, kr, registry, config, staging) -> None:
         raise AssertionError(f"[fleet] not as required: {bad}")
 
 
+# [resilience]: the watchdog, preflight, calibration, the scheduler and
+# the flight recorder's analysis, each CLI in a process of its own
+CAL_N = 1 << 24
+HANG_N = 1 << 24
+HANG_ITERS = 60000
+RES_SMOKE_N = 1 << 19
+RES_SPOT_N = 1 << 24
+HANG_FAULT = json.dumps({"heartbeat.tick": {"action": "suppress"}})
+# the hang's deadline and the watchdog's cadence
+HANG_ENV = {"TPU_REDUCTIONS_HEARTBEAT_DEADLINE_S": "2",
+            "TPU_REDUCTIONS_WATCHDOG_INTERVAL_S": "0.5"}
+
+
+def run_module(argv, env, timeout=600) -> tuple[int, str, float]:
+    """`python -m <argv>` in a process of its own: (exit code, its
+    standard output and error, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *argv], env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    return r.returncode, r.stdout + r.stderr, time.perf_counter() - t0
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def resilience_path(driver, counted, kr, registry, config, staging) -> None:
+    """[resilience] into out/smoke_resilience, one ledger for all:
+    preflight LIVE; the scheduler's plan of four card tasks (smoke,
+    spot, the calibration ladder, warm) to completion, the ladder's five
+    times a rung and its verdict printed; a plan whose hung task the
+    watchdog ends with exit 4, and its resume, the same row passing
+    watched; no process left; and the analysis of the ledger."""
+    from tpu_reductions_torch.obs import critical_path, timeline
+    from tpu_reductions_torch.obs.compile import CompileModel
+    from tpu_reductions_torch.obs.trace_export import chrome_trace
+    from tpu_reductions_torch.sched.priors import Priors
+    from tpu_reductions_torch.sched.tasks import Task
+
+    out_dir = (OUT / "smoke_resilience").resolve()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    led = out_dir / "ledger.jsonl"
+    env = {**os.environ, "TPU_REDUCTIONS_LEDGER": str(led),
+           "TPU_REDUCTIONS_HEALTH_FILE": str(out_dir / "health.json")}
+    env.pop("TPU_REDUCTIONS_FAULTS", None)
+
+    def events() -> list:
+        return timeline.read_ledger(led)[0]
+
+    # 1. preflight
+    rc, text, sec = run_module(["tpu_reductions_torch.utils.preflight"], env)
+    health = json.loads((out_dir / "health.json").read_text())
+    print(f"  preflight: exit {rc}, {health['verdict']} in "
+          f"{health['elapsed_s']} s ({sec:.1f} s with the CLI): "
+          f"{health['detail']}", flush=True)
+    if rc != 0 or health["verdict"] != "LIVE":
+        raise AssertionError(f"[resilience] preflight: {text[-2000:]}")
+
+    # 2. the scheduler: four card tasks to a complete plan, the third the
+    # calibration ladder
+    m = f"{sys.executable} -m tpu_reductions_torch"
+    cal_out = out_dir / "calibration.json"
+    ledger_json = out_dir / "compile_ledger.json"
+    tasks = [
+        dict(name="smoke", value=4, budget_s=600,
+             command=f"{m}.bench.smoke --n={RES_SMOKE_N} "
+                     f"--out={out_dir}/smoke.json",
+             done_artifact=f"{out_dir}/smoke.json"),
+        dict(name="spot", value=3, budget_s=600,
+             command=f"{m}.bench.spot --type=int --n={RES_SPOT_N} "
+                     f"--iterations=32 --chainreps=2 "
+                     f"--out={out_dir}/spot.json",
+             done_artifact=f"{out_dir}/spot.json"),
+        dict(name="calibrate", value=2, budget_s=600,
+             command=f"{m}.utils.calibrate --ladder --n={CAL_N} "
+                     f"--out={cal_out}",
+             done_artifact=str(cal_out), surfaces=["torch"]),
+        dict(name="warm", value=1, budget_s=600,
+             command=f"{m}.bench.warm --only=nvcc,k6,dd "
+                     f"--out={ledger_json}",
+             done_artifact=str(ledger_json), surfaces=["nvcc"])]
+    (out_dir / "tasks.json").write_text(json.dumps(tasks))
+    state = out_dir / "sched_state.json"
+    rc, text, sec = run_module(
+        ["tpu_reductions_torch.sched", f"--tasks={out_dir}/tasks.json",
+         f"--state={state}", f"--compile-ledger={ledger_json}"], env)
+    st = json.loads(state.read_text())
+    per_task = {k: (v["status"], v.get("actual_s"))
+                for k, v in st["tasks"].items()}
+    print(f"  sched: exit {rc} in {sec:.1f} s, complete {st['complete']}, "
+          f"tasks {per_task}", flush=True)
+    if rc != 0 or st["complete"] is not True \
+            or sorted(v[0] for v in per_task.values()) != ["done"] * 4:
+        raise AssertionError(f"[resilience] sched: {text[-3000:]}")
+    cal = json.loads(cal_out.read_text())
+    for rung in cal["rungs"]:
+        print("  calibrate n={n} {dtype}: single {s:.2f} us, amortized "
+              "{a:.2f} us/iter, round trip {r:.2f} us, chained {c:.2f} "
+              "us/iter ({g:.1f} GB/s), post-fetch {p:.2f} us".format(
+                  n=rung["n"], dtype=rung["dtype"],
+                  s=rung["single_blocked_s"] * 1e6,
+                  a=rung["amortized_blocked_s"] * 1e6,
+                  r=rung["roundtrip_s"] * 1e6,
+                  c=rung["chained_per_iter_s"] * 1e6,
+                  g=rung["honest_gbps"] or 0.0,
+                  p=rung["post_fetch_single_blocked_s"] * 1e6), flush=True)
+    print(f"  calibrate verdict: block_awaits_execution="
+          f"{cal['block_awaits_execution']} (indeterminate "
+          f"{cal['indeterminate']}, deciding n={cal['deciding_n']})",
+          flush=True)
+    if not cal["complete"] or len(cal["rungs"]) != 2:
+        raise AssertionError(f"[resilience] calibration: {cal}")
+
+    # 3. the hang, as the second task of a plan: the main CLI's row with
+    # the heartbeat's marks frozen must exit 4 with its watchdog.exit,
+    # the plan with it; rerun without the fault, the plan resumes with
+    # the hung task, whose row then passes, watched, and the one after
+    hang_cmd = " ".join([
+        sys.executable, "-m", "tpu_reductions_torch", "--method=SUM",
+        "--type=int", f"--n={HANG_N}", f"--iterations={HANG_ITERS}",
+        "--logfile="])
+    # one budget for all three, so the plan runs them in value order
+    window = [dict(name="before", value=3, budget_s=600, command="true"),
+              dict(name="hang_probe", value=2, budget_s=600,
+                   command=hang_cmd),
+              dict(name="after", value=1, budget_s=600, command="true")]
+    (out_dir / "window.json").write_text(json.dumps(window))
+    wstate = out_dir / "window_state.json"
+    wsched = ["tpu_reductions_torch.sched", f"--tasks={out_dir}/window.json",
+              f"--state={wstate}"]
+    rc, text, sec = run_module(
+        wsched, {**env, **HANG_ENV, "TPU_REDUCTIONS_FAULTS": HANG_FAULT})
+    st = json.loads(wstate.read_text())
+    print(f"  sched with the hang: exit {rc} in {sec:.1f} s, complete "
+          f"{st['complete']}, tasks "
+          f"{ {k: v['status'] for k, v in st['tasks'].items()} }",
+          flush=True)
+    exits = [e for e in events() if e["ev"] == "watchdog.exit"]
+    print(f"  the hang's watchdog.exit: {exits[-1] if exits else None}",
+          flush=True)
+    if rc != 4 or st["complete"] is not False \
+            or sorted(st["tasks"]) != ["before", "hang_probe"] \
+            or st["tasks"]["before"]["status"] != "done" \
+            or st["tasks"].get("hang_probe", {}).get("status") != "aborted" \
+            or not exits or exits[-1]["code"] != 4 \
+            or not exits[-1].get("phase"):
+        raise AssertionError(f"[resilience] the hung plan: {text[-3000:]}")
+    before = len(events())
+    rc, text, sec = run_module(wsched, {**env, **HANG_ENV})
+    st = json.loads(wstate.read_text())
+    picks = [e["task"] for e in events()[before:]
+             if e["ev"] == "sched.pick"]
+    print(f"  sched resumed: exit {rc} in {sec:.1f} s, complete "
+          f"{st['complete']}, picked {picks}", flush=True)
+    if rc != 0 or st["complete"] is not True \
+            or picks != ["hang_probe", "after"] \
+            or st["tasks"]["hang_probe"]["rc"] != 0 \
+            or text.count("&&&& tpu_reductions_torch PASSED") != 1:
+        raise AssertionError(f"[resilience] the resume: {text[-3000:]}")
+
+    # every process of the phase has ended
+    evs, torn = timeline.read_ledger(led)
+    pids = {e["pid"] for e in evs} - {os.getpid()}
+    alive = sorted(p for p in pids if pid_alive(p))
+    print(f"  processes of the phase: {len(pids)}, alive {alive}",
+          flush=True)
+    if alive:
+        raise AssertionError(f"[resilience] processes survive: {alive}")
+
+    # 4. the analysis of the phase's ledger
+    summary = timeline.summarize(led, evs, torn)
+    for sess in summary["sessions"]:
+        total = sum(sess["phases_s"].values())
+        if abs(total - sess["wall_s"]) > 0.01 * max(sess["wall_s"], 1e-3):
+            raise AssertionError(f"[resilience] session {sess['pid']}: "
+                                 f"buckets {total} vs {sess['wall_s']} s")
+    win = summary["window"]
+    if abs(sum(win["phases_s"].values()) - win["recorded_s"]) \
+            > 0.01 * win["recorded_s"]:
+        raise AssertionError("[resilience] the window's buckets do not "
+                             "sum to its recorded seconds")
+    stalled = [s for s in summary["sessions"] if s["end"] == "exit 4"]
+    if len(stalled) < 1 or not all(s["phases_s"]["stalled"] > 0
+                                   for s in stalled):
+        raise AssertionError(f"[resilience] the exit-4 stalls are not in "
+                             f"'stalled': {stalled}")
+    print(f"  timeline: {len(evs)} events, {torn} torn, "
+          f"{len(summary['sessions'])} sessions; window "
+          f"{win['recorded_s']:.2f} s recorded: " + ", ".join(
+              f"{k} {v:.2f} s ({win['utilization'][k]:.0%})"
+              for k, v in win["phases_s"].items()), flush=True)
+    doc = json.loads(json.dumps(chrome_trace(evs)))
+    lanes = {e["pid"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    procs = {e["pid"] for e in doc["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    sessions = {s["pid"] for s in summary["sessions"]}
+    print(f"  chrome trace: {len(doc['traceEvents'])} trace events, "
+          f"slices in {len(lanes)} processes, {len(procs)} named; "
+          f"{len(sessions)} sessions", flush=True)
+    if not sessions <= procs or not lanes:
+        raise AssertionError("[resilience] the trace lacks a lane for a "
+                             "process")
+    cp = critical_path.compute(evs)
+    print(f"  critical path over {cp['wall_s']:.2f} s: {cp['chain']}",
+          flush=True)
+    rows = json.loads(ledger_json.read_text())["surfaces"]
+    build = {r["verdict"]: r["dur_s"] for r in rows
+             if r["surface"] == "nvcc"}
+    priors = Priors.from_ledgers([str(led)], compile_ledger=str(ledger_json),
+                                 platform="gpu")
+    probe = Task(name="build", title="build", value=1.0, budget_s=60.0,
+                 command="true", artifacts=(), surfaces=("nvcc",))
+    model = CompileModel.from_file(str(ledger_json), platform="gpu")
+    history = {k: round(priors.estimate(Task(
+        name=k, title=k, value=1, budget_s=1, command="", artifacts=())), 3)
+        for k in ("smoke", "spot", "calibrate", "warm")}
+    print(f"  compile ledger: build rows {build}; priors: nvcc "
+          f"{priors.compile_status(probe)}, banked "
+          f"{model.saved_s(['nvcc']):.2f} s, a 60 s build task estimated "
+          f"{priors.estimate(probe):.2f} s; sched history {history}",
+          flush=True)
+    if set(build) != {"cold", "warm"} \
+            or priors.compile_status(probe) != "warm":
+        raise AssertionError(f"[resilience] compile ledger rows {rows}")
+
+
 CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
              "family": family_path, "firstrow": firstrow_path,
              "warm": warm_path, "shmoo": shmoo_path, "check": check_path,
@@ -1899,7 +2151,8 @@ CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
              "collective": collective_path, "round": round_path,
              "quant": quant_path, "rank_scaling": rank_scaling_path,
              "exec": exec_path, "serve": serve_path,
-             "fleet": fleet_path, "experiment": experiment_path}
+             "fleet": fleet_path, "resilience": resilience_path,
+             "experiment": experiment_path}
 
 
 def main() -> int:
@@ -2015,6 +2268,10 @@ def main() -> int:
         "rank_scaling": no_kernel,
         "exec": "no kernel: the cost oracle reads JSON and touches no "
                 "device",
+        "resilience": "its CLIs run in processes of their own, whose "
+                      "launches this process does not count (its hang "
+                      "and scheduler rows go through k6, its smoke task "
+                      "through k8, k9, k10 and dd)",
         "fleet": "no kernel of the repository: the fleet computes with "
                  "torch ops (the shard route's fold, its rank-axis "
                  "combine, the drain's reshard), as the JAX package's "

@@ -8,6 +8,7 @@ takes its plain version only for a CPU tensor."""
 
 import ast
 import io
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -255,3 +256,61 @@ def test_wrappers_take_plain_version_only_on_cpu(call):
     assert int(got.sum()) == 64 * 128
     # the plain version is no launch
     assert [w.launches for w, _ in WRAPPERS.values()] == before
+
+
+# the watchdog, preflight, the flight recorder's analysis and the
+# window scheduler
+RESILIENCE_MODULES = ("utils.relay_env", "utils.watchdog", "utils.preflight",
+                      "utils.calibrate", "utils.compile_cache", "obs.spans",
+                      "obs.trace_export", "obs.critical_path",
+                      "obs.timeline", "obs.compile", "sched.tasks",
+                      "sched.state", "sched.priors", "sched.planner",
+                      "sched.executor", "sched.__main__")
+
+
+@pytest.mark.parametrize("mod", RESILIENCE_MODULES)
+def test_resilience_modules_are_checked_and_import_alone(mod):
+    """Each module is among the files the import check walks; importing
+    it alone loads neither jax nor tpu_reductions, and the scheduler's
+    and the analysis's modules load no torch either (they run beside a
+    card that may be hung)."""
+    path = REPO / "tpu_reductions_torch" / (mod.replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    light = mod.startswith(("sched.", "obs.")) or mod in (
+        "utils.relay_env", "utils.compile_cache", "utils.watchdog")
+    code = (f"import tpu_reductions_torch.{mod}, sys\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'tpu_reductions')"
+            + (" or k == 'torch'" if light else "") + "]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["tpu_reductions_torch.utils.calibrate", "--n=4096"],
+    ["tpu_reductions_torch.bench.warm", "--only=k6"],
+    ["tpu_reductions_torch.bench.spot", "--n=4096"],
+], ids=["calibrate", "warm", "spot"])
+def test_resilience_clis_raise_without_card(no_card, argv):
+    """Without --platform=cpu they need the card: no CPU fallback."""
+    proc = subprocess.run(
+        [sys.executable, "-m", *argv], cwd=REPO, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
+def test_preflight_without_a_card_is_not_live(no_card, tmp_path):
+    """The preflight reports a card it cannot reach, with exit 4, and
+    never falls back to the CPU."""
+    env = {**os.environ,
+           "TPU_REDUCTIONS_HEALTH_FILE": str(tmp_path / "h.json")}
+    env.pop("TPU_REDUCTIONS_PREFLIGHT_PLATFORM", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_reductions_torch.utils.preflight",
+         "--timeout=60"], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 4
+    assert "preflight: WEDGED" in proc.stdout

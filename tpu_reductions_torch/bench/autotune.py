@@ -215,6 +215,10 @@ def main(argv=None) -> int:
     kernel row; exit 0 when there is one, 1 otherwise."""
     p = build_parser()
     ns = p.parse_args(argv)
+    from tpu_reductions_torch.exec.core import maybe_arm
+    from tpu_reductions_torch.obs.ledger import arm_session
+    arm_session("bench.autotune", argv=list(argv) if argv else sys.argv[1:])
+    maybe_arm(ns.platform)
     if ns.dtype not in DTYPE_ALIASES:
         p.error(f"unknown --type {ns.dtype!r}")
     if ns.method.upper() not in METHODS:

@@ -40,6 +40,7 @@ validation error included.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -50,6 +51,8 @@ import torch
 
 from tpu_reductions_torch import device as device_mod
 from tpu_reductions_torch.config import CollectiveConfig
+from tpu_reductions_torch.faults.inject import fault_point
+from tpu_reductions_torch.obs import ledger, trace
 from tpu_reductions_torch.utils.logging import (COLLECTIVE_HEADER,
                                                 BenchLogger, collective_row)
 from tpu_reductions_torch.utils.qa import QAStatus
@@ -235,6 +238,11 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
                            quantized=cfg.quantized, bits=cfg.quant_bits,
                            dd_planes=dd_planes)
     algorithm = sel.algorithm
+    ledger.emit("collective.select", algorithm=algorithm,
+                method=method, dtype=dtype, ranks=k,
+                wire_factor=round(sel.wire_factor, 6),
+                quantized=bool(cfg.quantized),
+                bits=(cfg.quant_bits if cfg.quantized else None))
     if dd_planes:
         from tpu_reductions_torch.ops.dd_reduce import (host_key_encode,
                                                         host_split_scaled)
@@ -294,6 +302,22 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
 
     logger.log(_placement_note(mesh))
     logger.log(COLLECTIVE_HEADER)
+
+    # the interruptible unit of a rank sweep, then one span per hop
+    # program, held open over the warm-up and the timed phase
+    fault_point("collective.hop")
+    hop_span = contextlib.ExitStack()
+    hop_span.enter_context(trace.child())
+    ledger.emit("collective.launch", algorithm=algorithm,
+                method=method, dtype=dtype, ranks=k, n=int(cfg.n))
+    t_launch = Stopwatch()
+    t_launch.start()
+
+    def done() -> None:
+        ledger.emit("collective.done", algorithm=algorithm,
+                    method=method, dtype=dtype, ranks=k,
+                    wall_s=round(t_launch.stop(), 6), rows=len(results))
+        hop_span.close()
 
     def sync():
         device_mod.synchronize(mesh.device)
@@ -366,6 +390,7 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
             book(CollectiveResult(
                 method, dtype, cfg.n, k, rep, rooted, dt,
                 bw["reference_gbps"], bw["busbw_gbps"], status, algorithm))
+        done()
         return results
 
     for rep in range(cfg.retries):
@@ -383,6 +408,7 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
         book(CollectiveResult(
             method, dtype, cfg.n, k, rep, rooted, dt,
             bw["reference_gbps"], bw["busbw_gbps"], status, algorithm))
+    done()
     return results
 
 
@@ -507,6 +533,10 @@ def _main(argv, qa_out) -> int:
               "one process (--devices=K), or pass --platform=cpu to split "
               "them among processes over gloo", file=sys.stderr)
         return qa_finish(NAME, QAStatus.FAILED, out=qa_out)
+    from tpu_reductions_torch.exec.core import maybe_arm
+    from tpu_reductions_torch.obs.ledger import arm_session
+    arm_session("bench.collective_driver", argv=list(argv) if argv else sys.argv[1:])
+    maybe_arm(cfg.platform)
     joined = False
     try:
         device_mod.resolve(cfg.platform)

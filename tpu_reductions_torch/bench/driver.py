@@ -23,6 +23,12 @@ the host oracle before staging, and a disagreement FAILS the row
 (utils/debug.py); `--trace` captures the timed call with torch.profiler
 after staging. `--stream` runs the streaming pipeline instead
 (bench/stream.py), and `--shmoo` the size sweep (bench/sweep.py).
+
+`main` arms the flight recorder (obs/ledger.arm_session) and the
+watchdog (exec/core.maybe_arm: on the card its heartbeat half ends a
+stalled run with exit 4). Each run passes the `bench.run` fault point
+first; the untimed staging runs under a `compile` guard and ends with a
+`staging.stage` event.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from tpu_reductions_torch import device as device_mod
 from tpu_reductions_torch.config import (KERNEL_MXU, KERNEL_SINGLE_PASS,
                                          LIVE_KERNELS, ReduceConfig,
                                          parse_single_chip)
+from tpu_reductions_torch.faults.inject import fault_point
 from tpu_reductions_torch.ops import dd_reduce, oracle
 from tpu_reductions_torch.ops.chain import make_chained_reduce
 from tpu_reductions_torch.ops.kernel_reduce import (choose_tiling,
@@ -51,6 +58,8 @@ from tpu_reductions_torch.ops.registry import get_op, tolerance
 from tpu_reductions_torch.ops.torch_reduce import make_torch_reduce
 from tpu_reductions_torch.utils.debug import (consistency_check,
                                               trace_benchmark)
+from tpu_reductions_torch.obs import ledger
+from tpu_reductions_torch.utils import heartbeat
 from tpu_reductions_torch.utils.logging import BenchLogger, throughput_line
 from tpu_reductions_torch.utils.qa import QAStatus, qa_finish, qa_start
 from tpu_reductions_torch.utils.timing import time_chained, time_fn
@@ -206,6 +215,7 @@ def run_benchmark(cfg: ReduceConfig, logger: Optional[BenchLogger] = None,
     unless it is "cpu"; with no card this raises). defer=True returns a
     _PendingResult whose device value is not fetched yet; its
     .finalize() gives the BenchResult."""
+    fault_point("bench.run")
     if logger is None:
         logger = _make_logger(cfg)
     device_mod.resolve(cfg.platform)
@@ -343,8 +353,14 @@ def _run_benchmark_inner(cfg: ReduceConfig, logger: BenchLogger,
                           abs_diff=abs(report.kernel - report.oracle))
 
     stage_fn, reduce_fn = _make_device_fn(cfg, backend, device)
-    x_dev = stage_fn(x_host)             # host-to-device copy + pad, untimed
-    device_mod.synchronize(device)
+    # host-to-device copy + pad, untimed; the compile phase's deadline
+    # (a chunked stage ticks per chunk inside)
+    with heartbeat.guard(heartbeat.PHASE_COMPILE):
+        x_dev = stage_fn(x_host)
+        device_mod.synchronize(device)
+    ledger.emit("staging.stage",
+                nbytes=int(x_host.numel() * x_host.element_size()),
+                method=cfg.method, dtype=cfg.dtype, n=cfg.n)
 
     timing_mode = cfg.timing
     chained = (_make_chained_fn(cfg, backend, device)
@@ -411,6 +427,9 @@ def main(argv=None) -> int:
     QA exit code."""
     qa_start(NAME, list(argv) if argv else sys.argv[1:])
     cfg, shmoo = parse_single_chip(argv)
+    ledger.arm_session(NAME, argv=list(argv) if argv else sys.argv[1:])
+    from tpu_reductions_torch.exec.core import maybe_arm
+    maybe_arm(cfg.platform)
     logger = _make_logger(cfg)
     if cfg.stream:
         # the streaming pipeline replaces stage-then-reduce; the probe

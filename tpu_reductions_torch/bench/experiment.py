@@ -21,8 +21,9 @@ The counterpart of the Python in scripts/run_tpu_experiment.sh (its steps
 The report's device line is the card's name and power limit as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints
 them, kept in OUT/device.txt for bench/regen.py. The JAX script's step 1,
-the timing calibration, is not ported: the report gets no calibration
-note, since a local card's synchronize awaits execution.
+the timing calibration, is its own CLI here (utils/calibrate.py; the
+scheduler's calibrate_ladder task precedes the flagship), so the report
+gets no calibration note.
 
     python -m tpu_reductions_torch.bench.experiment OUT [--dryrun] [--no-hazard]
 

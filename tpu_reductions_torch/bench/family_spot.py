@@ -46,6 +46,8 @@ import torch
 
 from tpu_reductions_torch import device as device_mod
 from tpu_reductions_torch.config import PLATFORMS
+from tpu_reductions_torch.faults.inject import fault_point
+from tpu_reductions_torch.obs import ledger
 from tpu_reductions_torch.utils.logging import (FAMILY_HEADER, BenchLogger,
                                                 family_row)
 
@@ -177,6 +179,7 @@ def measure_cell(method: str, dtype: str, impl: str, n: int, segments: int,
     from tpu_reductions_torch.utils.rng import host_data
     from tpu_reductions_torch.utils.timing import time_chained
 
+    fault_point("family.cell")           # one cell, one interruptible unit
     x_host = host_data(n, dtype, rank=0, seed=seed)
     x = x_host.to(device)
     full, core, offsets = _cell_fns(method, dtype, impl, x, segments, seed)
@@ -195,12 +198,15 @@ def measure_cell(method: str, dtype: str, impl: str, n: int, segments: int,
     per_iter = sw.median_s
     nbytes = n * x.element_size()
     gbps = (nbytes / per_iter / 1e9) if per_iter > 0 else 0.0
-    return {"kind": "cell", "method": method, "dtype": dtype, "impl": impl,
-            "n": int(n),
-            "segments": segments if offsets is not None else None,
-            "span": span, "reps": reps, "per_iter_s": per_iter,
-            "gbps": round(gbps, 4), "max_err": max_err,
-            "status": "PASSED" if ok else "FAILED"}
+    row = {"kind": "cell", "method": method, "dtype": dtype, "impl": impl,
+           "n": int(n),
+           "segments": segments if offsets is not None else None,
+           "span": span, "reps": reps, "per_iter_s": per_iter,
+           "gbps": round(gbps, 4), "max_err": max_err,
+           "status": "PASSED" if ok else "FAILED"}
+    ledger.emit("family.cell", method=method, dtype=dtype, impl=impl,
+                n=int(n), gbps=row["gbps"], status=row["status"])
+    return row
 
 
 def measure_serve(method: str, dtype: str, n: int, requests: int = 3,
@@ -212,6 +218,7 @@ def measure_serve(method: str, dtype: str, n: int, requests: int = 3,
     from tpu_reductions_torch.serve.engine import ServeEngine
     from tpu_reductions_torch.serve.request import ReduceRequest
 
+    fault_point("family.cell")           # serving rows resume like cells
     eng = ServeEngine(coalesce_window_s=0.0, platform=platform).start()
     try:
         t0 = time.perf_counter()
@@ -223,11 +230,14 @@ def measure_serve(method: str, dtype: str, n: int, requests: int = 3,
     finally:
         eng.stop()
     ok_n = sum(1 for r in resps if r.status == "ok")
-    return {"kind": "serve", "method": method, "dtype": dtype,
-            "impl": "serve", "n": int(n), "requests": requests,
-            "ok_count": ok_n, "gbps": 0.0,
-            "latency_s": round(wall, 6),
-            "status": "PASSED" if ok_n == requests else "FAILED"}
+    row = {"kind": "serve", "method": method, "dtype": dtype,
+           "impl": "serve", "n": int(n), "requests": requests,
+           "ok_count": ok_n, "gbps": 0.0,
+           "latency_s": round(wall, 6),
+           "status": "PASSED" if ok_n == requests else "FAILED"}
+    ledger.emit("family.cell", method=method, dtype=dtype, impl="serve",
+                n=int(n), gbps=0.0, status=row["status"])
+    return row
 
 
 def run_family_spot(*, n: int, segments: int, seed: int, reps: int,
@@ -321,6 +331,10 @@ def main(argv=None) -> int:
     p.add_argument("--platform", type=str, default="gpu", choices=PLATFORMS)
     p.add_argument("--out", type=str, default=None)
     ns = p.parse_args(argv)
+    from tpu_reductions_torch.exec.core import maybe_arm
+    from tpu_reductions_torch.obs.ledger import arm_session
+    arm_session("bench.family_spot", argv=list(argv) if argv else sys.argv[1:])
+    maybe_arm(ns.platform)
     if ns.n <= 0 or ns.n % 128:
         p.error(f"--n must be a positive multiple of 128, got {ns.n}")
     if ns.segments < 2 or ns.serve_n <= 0 or ns.reps < 1:

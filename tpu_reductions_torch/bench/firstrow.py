@@ -42,6 +42,8 @@ def _mark(marks: list, label: str) -> None:
     t = time.time()
     marks.append({"label": label, "t_rel_s": round(t - _T0, 2)})
     print(f"firstrow: T+{t - _T0:6.1f}s {label}", file=sys.stderr, flush=True)
+    from tpu_reductions_torch.obs import ledger
+    ledger.emit("firstrow.mark", label=label, t_rel_s=round(t - _T0, 2))
 
 
 def main(argv=None) -> int:
@@ -69,6 +71,10 @@ def main(argv=None) -> int:
     p.add_argument("--platform", type=str, default="gpu", choices=PLATFORMS)
     p.add_argument("--out", type=str, default="out/FIRSTROW.json")
     ns = p.parse_args(argv)
+    from tpu_reductions_torch.exec.core import maybe_arm
+    from tpu_reductions_torch.obs.ledger import arm_session
+    arm_session("bench.firstrow", argv=list(argv) if argv else sys.argv[1:])
+    maybe_arm(ns.platform)
     if ns.n <= 0:
         p.error("--n must be positive")
 

@@ -34,10 +34,13 @@ from __future__ import annotations
 import argparse
 import functools
 import sys
+import time
 from pathlib import Path
 from typing import List, Optional
 
 from tpu_reductions_torch.config import PLATFORMS
+from tpu_reductions_torch.obs import ledger, trace
+from tpu_reductions_torch.utils import heartbeat
 from tpu_reductions_torch.utils.logging import (QUANT_CURVE_HEADER,
                                                 BenchLogger, quant_curve_row)
 
@@ -133,6 +136,12 @@ def measure_cell(method: str, dtype: str, bits: int, k: int, n: int,
     sel_q = select_algorithm(method, dtype, k, per_rank,
                              quantized=True, bits=bits, dd_planes=dd)
     sel_b = select_algorithm(method, dtype, k, per_rank, dd_planes=dd)
+    ledger.emit("collective.select", algorithm=sel_q.algorithm,
+                method=method, dtype=dtype, ranks=k, bits=bits,
+                wire_factor=round(sel_q.wire_factor, 6),
+                baseline=sel_b.algorithm,
+                baseline_wire_factor=round(sel_b.wire_factor, 6),
+                quantized=True)
     mesh = build_mesh(num_devices=k, platform=platform, local_ranks=k)
     # one draw for every (bits, op) at a (dtype, k): the curve compares
     # bit widths on the same data
@@ -152,10 +161,19 @@ def measure_cell(method: str, dtype: str, bits: int, k: int, n: int,
           if method == "SUM" else
           make_quant_key_minmax_all_reduce(method, mesh, bits=bits,
                                            dtype=dtype))
-    out = fn(*staged)
-    out = out if isinstance(out, tuple) else (out,)
-    replicas = all(torch.equal(o, o[:1].expand_as(o)) for o in out)
-    rank0 = [o[0].cpu() for o in out]
+    # one span per cell; its one device region under a heartbeat guard
+    with trace.child():
+        ledger.emit("collective.launch", algorithm=sel_q.algorithm,
+                    method=method, dtype=dtype, ranks=k, n=int(n))
+        t0 = time.perf_counter()
+        with heartbeat.guard("collective"):
+            out = fn(*staged)
+            out = out if isinstance(out, tuple) else (out,)
+            replicas = all(torch.equal(o, o[:1].expand_as(o)) for o in out)
+            rank0 = [o[0].cpu() for o in out]
+        ledger.emit("collective.done", algorithm=sel_q.algorithm,
+                    method=method, dtype=dtype, ranks=k,
+                    wall_s=round(time.perf_counter() - t0, 6), rows=1)
     if dd and method == "SUM":
         got = rank0[0].numpy().astype(np.float64) + rank0[1].numpy()
     elif dd:
@@ -277,6 +295,10 @@ def main(argv=None) -> int:
     every cell PASSED, 1 otherwise, 2 on a usage error."""
     p = build_parser()
     ns = p.parse_args(argv)
+    from tpu_reductions_torch.exec.core import maybe_arm
+    from tpu_reductions_torch.obs.ledger import arm_session
+    arm_session("bench.quant_curve", argv=list(argv) if argv else sys.argv[1:])
+    maybe_arm(ns.platform)
     try:
         ranks = (tuple(int(r) for r in ns.ranks.split(",") if r.strip())
                  if ns.ranks else DEFAULT_RANKS)

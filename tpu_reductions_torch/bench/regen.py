@@ -19,11 +19,14 @@ fleet's three artifacts (serving_curve.json, serving_scale.json,
 serving_elastic.json, serving_recovery.json: serve/loadgen.py), the
 execution core's decision
 audit (exec_decisions.json, `python -m tpu_reductions_torch.exec
---explain --out`) and the two rank-axis curves (quant_curve.json,
-reshard_curve.json) are here, each read from the experiment dir or from
+--explain --out`), the two rank-axis curves (quant_curve.json,
+reshard_curve.json), the flight recorder's window summary
+(obs_timeline.json, `python -m tpu_reductions_torch.obs.timeline LEDGER
+--json`), the scheduler's plan against its actuals (sched_state.json)
+and the compile observatory's cold/warm table (compile_ledger.json,
+bench/warm.py) are here, each read from the experiment dir or from
 its sibling `rank_scaling/`, where bench/rank_scaling.py writes the
-curves; the others come with the port of the modules that write their
-artifacts. Its cross-round
+curves. Its cross-round
 trajectory table is left out: the rounds it collates are TPU runs.
 """
 
@@ -110,6 +113,21 @@ def _fleet_table(name: str):
 def _decisions_table(data: dict) -> str:
     from tpu_reductions_torch.exec.cost import decisions_markdown
     return decisions_markdown(data)
+
+
+def _timeline_table(data: dict) -> str:
+    from tpu_reductions_torch.obs.timeline import summary_markdown
+    return summary_markdown(data)
+
+
+def _sched_table(data: dict) -> str:
+    from tpu_reductions_torch.sched.state import plan_vs_actual_markdown
+    return plan_vs_actual_markdown(data)
+
+
+def _compile_table(data: dict) -> str:
+    from tpu_reductions_torch.obs.compile import compile_markdown
+    return compile_markdown(data)
 
 
 def _reshard_curve_table(data: dict) -> str:
@@ -222,7 +240,10 @@ def regenerate(out_dir: str | Path, device_kind: str | None = None,
                        ("serving_recovery", _fleet_table("recovery")),
                        ("exec_decisions", _decisions_table),
                        ("quant_curve", _quant_curve_table),
-                       ("reshard_curve", _reshard_curve_table)):
+                       ("reshard_curve", _reshard_curve_table),
+                       ("obs_timeline", _timeline_table),
+                       ("sched_state", _sched_table),
+                       ("compile_ledger", _compile_table)):
         # an experiment dir's own copy wins over the sibling rank_scaling/
         src = out / f"{name}.json"
         if not src.exists():

@@ -33,9 +33,8 @@ REFERENCE_SINGLE_GPU = {
 
 def _calibration_note(cal: Optional[dict]) -> str:
     """One bullet on the timing methodology the numbers rest on, from a
-    calibration record (the JAX package's utils/calibrate.py; the port
-    has none yet, and passes None: a local card's synchronize awaits
-    execution, as the reference's CUDA sync did)."""
+    calibration record (utils/calibrate.py; bench/experiment.py passes
+    None: the calibration runs as its own CLI)."""
     if not cal:
         return ""
     if cal.get("block_awaits_execution"):

@@ -24,8 +24,8 @@ memory, not link rates.
 Grid: 5 spec pairs x the rank ladder (2..64), exact wire, then the
 quantized wire for the wire-heavy pairs. Every cell persists as it lands
 and resumes (bench/resume.run_checkpointed_cells, keyed (pair, wire,
-ranks)). The JAX package's `reshard.cell` fault point waits for the
-port's fault injection (ROADMAP item 9).
+ranks)); the `reshard.cell` fault point fires before each cell's
+launch, as in JAX.
 
 CLI:
     python -m tpu_reductions_torch.bench.reshard_curve [--platform=cpu]
@@ -41,6 +41,7 @@ from pathlib import Path
 from typing import List, Optional
 
 from tpu_reductions_torch.config import PLATFORMS
+from tpu_reductions_torch.faults.inject import fault_point
 from tpu_reductions_torch.utils.logging import BenchLogger
 
 DEFAULT_RANKS = (2, 4, 8, 16, 32, 64)
@@ -112,6 +113,7 @@ def measure_cell(pair: str, wire: str, k: int, n: int, rows: int,
     plan = plan_reshard(src, dst, shape, 4, mem_bound=mem_bound,
                         quant_bits=qb)
     naive = naive_plan(src, dst, shape, 4, quant_bits=qb)
+    fault_point("reshard.cell")
     mesh = make_mesh(k, platform)
     # the same draw per (pair, k) on either wire: exact and quantized
     # rows compare on the same data
@@ -282,6 +284,10 @@ def main(argv=None) -> int:
     error."""
     p = build_parser()
     ns = p.parse_args(argv)
+    from tpu_reductions_torch.exec.core import maybe_arm
+    from tpu_reductions_torch.obs.ledger import arm_session
+    arm_session("bench.reshard_curve", argv=list(argv) if argv else sys.argv[1:])
+    maybe_arm(ns.platform)
     try:
         ranks = (tuple(int(r) for r in ns.ranks.split(",") if r.strip())
                  if ns.ranks else DEFAULT_RANKS)

@@ -1,7 +1,8 @@
 """Checkpoint and resume of a race's or a stream's `--out` artifact.
 
-The counterpart of tpu_reductions/bench/resume.py without its ledger
-events: `Checkpoint` (one artifact `{**meta, "complete": bool,
+The counterpart of tpu_reductions/bench/resume.py, with its ledger
+events (`resume.decision`, `resume.reuse`, `artifact.persist`):
+`Checkpoint` (one artifact `{**meta, "complete": bool,
 <rows_key>: [...]}`, written atomically after every row; a re-invocation
 against an artifact left `complete: false` by an interrupted run reuses
 its rows instead of measuring them again), `default_reusable`,
@@ -22,6 +23,7 @@ from pathlib import Path
 from typing import Callable, List, Optional
 
 from tpu_reductions_torch.bench.driver import BenchResult
+from tpu_reductions_torch.obs import ledger
 from tpu_reductions_torch.utils.jsonio import atomic_json_dump
 from tpu_reductions_torch.utils.qa import QAStatus
 
@@ -52,6 +54,8 @@ def prior_artifact(path: Optional[str | os.PathLike],
     meta = json.loads(json.dumps(meta))
     if not all(data.get(k) == v for k, v in meta.items()):
         return None
+    ledger.emit("resume.decision", mode="resume-single",
+                path=os.fspath(path))
     return data
 
 
@@ -81,6 +85,10 @@ class Checkpoint:
             for row in prior.get(rows_key, []):
                 if isinstance(row, dict):
                     self._prior[key_fn(row)] = row
+        if self.path is not None:
+            ledger.emit("resume.decision",
+                        mode="resume" if self._prior else "fresh",
+                        path=self.path, prior_rows=len(self._prior))
 
     def _load_prior(self) -> Optional[dict]:
         if self.path is None or not os.path.exists(self.path):
@@ -98,7 +106,10 @@ class Checkpoint:
         accepts it; the caller skips the measurement and `add()`s the row
         unchanged."""
         row = self._prior.get(key)
-        return row if row is not None and reusable(row) else None
+        if row is not None and reusable(row):
+            ledger.emit("resume.reuse", key=str(key), path=self.path)
+            return row
+        return None
 
     def add(self, row: dict, extra: Optional[dict] = None) -> None:
         """Append one row and persist the artifact as incomplete."""
@@ -117,6 +128,8 @@ class Checkpoint:
         atomic_json_dump(self.path, {**self.meta, **(extra or {}),
                                      "complete": complete,
                                      self.rows_key: rows})
+        ledger.emit("artifact.persist", path=self.path, rows=len(rows),
+                    complete=complete)
 
 
 def run_checkpointed_cells(ck: Checkpoint, cells, measure,
@@ -154,6 +167,8 @@ def store_cell(path: str | os.PathLike, row: dict) -> None:
     """Persist one sweep-grid cell atomically, as one compact JSON line
     (the write half of sweep_all's resume and of seed_cache)."""
     atomic_json_dump(path, row, indent=None)
+    ledger.emit("artifact.persist", path=os.fspath(path), rows=1,
+                complete=True, grain="cell")
 
 
 def result_from_row(cfg, row: dict) -> BenchResult:

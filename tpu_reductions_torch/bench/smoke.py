@@ -178,6 +178,10 @@ def main(argv=None) -> int:
     p.add_argument("--out", type=str, default=None,
                    help="Manifest JSON path (persisted per case)")
     ns = p.parse_args(argv)
+    from tpu_reductions_torch.exec.core import maybe_arm
+    from tpu_reductions_torch.obs.ledger import arm_session
+    arm_session("bench.smoke", argv=list(argv) if argv else sys.argv[1:])
+    maybe_arm(ns.platform)
     if ns.n <= 0:
         p.error("--n must be positive")
     # k10's deepest case needs threads*128*depth elements in flight

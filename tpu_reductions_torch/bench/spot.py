@@ -113,6 +113,10 @@ def main(argv=None) -> int:
     p.add_argument("--platform", type=str, default="gpu", choices=PLATFORMS)
     p.add_argument("--out", type=str, default=None)
     ns = p.parse_args(argv)
+    from tpu_reductions_torch.exec.core import maybe_arm
+    from tpu_reductions_torch.obs.ledger import arm_session
+    arm_session("bench.spot", argv=list(argv) if argv else sys.argv[1:])
+    maybe_arm(ns.platform)
     methods = [m.strip().upper() for m in ns.methods.split(",") if m.strip()]
     if not methods or any(m not in METHODS for m in methods):
         p.error(f"--methods must name only {METHODS}, got {ns.methods!r}")

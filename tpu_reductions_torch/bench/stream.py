@@ -39,12 +39,14 @@ import torch
 from tpu_reductions_torch import device as device_mod
 from tpu_reductions_torch.bench.resume import Checkpoint
 from tpu_reductions_torch.config import DTYPE_ALIASES, METHODS, PLATFORMS
+from tpu_reductions_torch.obs import ledger
 from tpu_reductions_torch.ops.oracle import IncrementalOracle, payload
 from tpu_reductions_torch.ops.oracle import verify as verify_fn
 from tpu_reductions_torch.ops.stream import (StreamReducer, dtype_name,
                                              iter_chunks, partial_from_jsonable,
                                              partial_to_jsonable, plan_chunks,
                                              run_stream)
+from tpu_reductions_torch.utils import heartbeat
 
 
 def run_serial_baseline(flat: torch.Tensor, method: str, *,
@@ -61,17 +63,22 @@ def run_serial_baseline(flat: torch.Tensor, method: str, *,
     t0 = time.monotonic()
     r.restore(None)
     staged = []
-    for i in range(chunks):
-        staged.append(r.stage(flat, i))
-        device_mod.synchronize(device)    # strictly serial copies
-    for s in staged:
-        r.fold(s)
-    partial = r.partial()
+    with heartbeat.guard("stream"):
+        for i in range(chunks):
+            staged.append(r.stage(flat, i))
+            device_mod.synchronize(device)    # strictly serial copies
+            heartbeat.tick()
+        for s in staged:
+            r.fold(s)
+        partial = r.partial()
     wall = time.monotonic() - t0
     nbytes = flat.numel() * flat.element_size()
-    return {"wall_s": wall,
-            "gbps": (nbytes / wall) / 1e9 if wall > 0 else None,
-            "value": float(np.asarray(r.finish(partial), np.float64))}
+    row = {"wall_s": wall,
+           "gbps": (nbytes / wall) / 1e9 if wall > 0 else None,
+           "value": float(np.asarray(r.finish(partial), np.float64))}
+    ledger.emit("stream.serial", wall_s=round(wall, 6), chunks=chunks,
+                gbps=round(row["gbps"], 4) if row["gbps"] else None)
+    return row
 
 
 def run_stream_benchmark(method: str, dtype: str, n: int, *,
@@ -184,6 +191,10 @@ def run_stream_benchmark(method: str, dtype: str, n: int, *,
         final["serial_gbps"] = round(serial["gbps"], 4) \
             if serial["gbps"] else None
         final["overlap_efficiency"] = round(eff, 4)
+        ledger.emit("stream.overlap",
+                    stream_wall_s=final["stream_wall_s"],
+                    serial_wall_s=final["serial_wall_s"],
+                    efficiency=final["overlap_efficiency"])
     elif serial_baseline:
         log("stream: serial baseline skipped (resumed run: the streamed "
             "wall clock covers only the remaining chunks and would not be "
@@ -268,6 +279,10 @@ def main(argv=None) -> int:
     def log(msg):
         print(msg, file=sys.stderr)
 
+    ledger.arm_session("bench.stream",
+                       argv=list(argv) if argv else sys.argv[1:])
+    from tpu_reductions_torch.exec.core import maybe_arm
+    maybe_arm(ns.platform)
     row = run_stream_benchmark(
         ns.method, ns.dtype, ns.n, seed=ns.seed,
         chunk_bytes=ns.chunk_bytes, sync_every=ns.sync_every,

@@ -34,6 +34,7 @@ from tpu_reductions_torch.bench.driver import (BenchResult,
                                                run_benchmark_batch)
 from tpu_reductions_torch.bench.resume import load_cell, store_cell
 from tpu_reductions_torch.config import KERNEL_SINGLE_PASS, ReduceConfig
+from tpu_reductions_torch.obs import ledger
 from tpu_reductions_torch.ops.chain import auto_chain_span
 from tpu_reductions_torch.utils.logging import BenchLogger
 
@@ -185,6 +186,9 @@ def sweep_all(*, methods=("SUM", "MIN", "MAX"),
                         logger.log(f"sweep {dtype} {method} rep={rep} "
                                    f"-> resumed ({row['gbps']:.4f} GB/s "
                                    f"[{row['status']}])")
+                        ledger.emit("sweep.cell", dtype=dtype,
+                                    method=method, rep=rep,
+                                    mode="resumed")
                         continue
                 cfg = ReduceConfig(method=method, dtype=dtype, n=n,
                                    iterations=iterations, backend=backend,
@@ -210,6 +214,8 @@ def sweep_all(*, methods=("SUM", "MIN", "MAX"),
         rows[idx] = row
         logger.log(f"sweep {cfg.dtype} {cfg.method} rep={rep} "
                    f"-> {res.gbps:.4f} GB/s [{res.status.name}]")
+        ledger.emit("sweep.cell", dtype=cfg.dtype, method=cfg.method,
+                    rep=rep, mode="fresh", status=res.status.name)
         if fname and res.passed:
             store_cell(fname, row)
 
@@ -263,6 +269,7 @@ def sweep_collective(*, rank_counts=(2, 4, 8), methods=("MAX", "MIN", "SUM"),
                                           r.get("repeat")))
     rows = []
     for k in rank_counts:
+        ledger.emit("sweep.rank", ranks=k)   # how far up the ladder
         # the job file, truncated on open: the driver writes its header
         # and rows, reused rows included, so it always reads complete
         job_logger = BenchLogger(
@@ -341,6 +348,10 @@ def main(argv=None) -> int:
                    help="gpu (default): the ranks are rows on the card; "
                         "cpu: on the host")
     ns = p.parse_args(argv)
+    from tpu_reductions_torch.exec.core import maybe_arm
+    from tpu_reductions_torch.obs.ledger import arm_session
+    arm_session("bench.sweep", argv=list(argv) if argv else sys.argv[1:])
+    maybe_arm(ns.platform)
     methods = tuple(m.strip().upper() for m in ns.methods.split(",")
                     if m.strip())
     if not methods or any(m not in METHODS for m in methods):

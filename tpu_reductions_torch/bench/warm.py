@@ -17,10 +17,10 @@ The manifest has the JAX rows' keys (`surface`, `platform`, `verdict`,
 `dur_s`, `lower_s`, `compile_s`, `count`) in the JAX artifact's
 shape (`{"kind": "compile-observatory", "version": 1, "complete": ...,
 "surfaces": [...]}`): at most one cold and one warm row per surface and
-platform. There is no lowering: `lower_s` is null, and `compile_s` is
-nvcc's seconds on the build rows. What has no counterpart (the
-obs/compile ledger events and the persistent `.jax_cache`) is in
-docs/PORT.md. On the CPU (`--platform=cpu`) there is no build and the chain is
+platform, written through obs/compile.CompileLedger, the file's one
+writer. There is no lowering: `lower_s` is null, and `compile_s` is
+nvcc's seconds on the build rows. The pass emits `warm.start`, a
+`warm.surface` a surface and `warm.end`, as in JAX. On the CPU (`--platform=cpu`) there is no build and the chain is
 the eager loop, so the rows time the plain versions' first calls.
 
 A surface that fails is reported and the pass goes on. An artifact left
@@ -37,13 +37,11 @@ Exit 0 when at least one surface was probed, else 1.
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import sys
 import tempfile
 import time
-from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -51,9 +49,9 @@ from tpu_reductions_torch import device as device_mod
 from tpu_reductions_torch.config import (KERNEL_ELEMENTWISE, KERNEL_MXU,
                                          KERNEL_STREAM, KERNEL_TWO_PASS,
                                          PLATFORMS)
-from tpu_reductions_torch.utils.jsonio import atomic_json_dump
+from tpu_reductions_torch.obs import ledger
+from tpu_reductions_torch.obs.compile import CompileLedger
 
-_META = {"kind": "compile-observatory", "version": 1}
 BUILD_SURFACE = "nvcc"
 
 # a surface: (id, build(n, device) -> (fn, args)); one call is fn(*args)
@@ -160,49 +158,6 @@ def surfaces() -> List[Surface]:
     ]
 
 
-class Manifest:
-    """The artifact: one row per (surface, platform, verdict), replaced
-    by a new observation (its `count` goes up), persisted atomically
-    after every row."""
-
-    def __init__(self, path: str) -> None:
-        self.path = os.fspath(path)
-        self.prior_complete: Optional[bool] = None
-        self._rows: Dict[tuple, dict] = {}
-        try:
-            data = json.loads(Path(self.path).read_text())
-        except (OSError, ValueError):
-            data = None
-        if isinstance(data, dict) and all(data.get(k) == v
-                                          for k, v in _META.items()):
-            self.prior_complete = data.get("complete")
-            for row in data.get("surfaces", []):
-                if isinstance(row, dict) and row.get("surface"):
-                    self._rows[self._key(row)] = row
-
-    @staticmethod
-    def _key(row: dict) -> tuple:
-        return (row.get("surface"), row.get("platform"), row.get("verdict"))
-
-    @property
-    def rows(self) -> List[dict]:
-        return sorted(self._rows.values(),
-                      key=lambda r: tuple(str(v) for v in self._key(r)))
-
-    def record(self, row: dict) -> None:
-        prev = self._rows.get(self._key(row))
-        self._rows[self._key(row)] = {
-            **row, "count": prev.get("count", 1) + 1 if prev else 1}
-        self._persist(complete=False)
-
-    def finalize(self) -> None:
-        self._persist(complete=True)
-
-    def _persist(self, complete: bool) -> None:
-        atomic_json_dump(self.path, {**_META, "complete": complete,
-                                     "surfaces": self.rows})
-
-
 def _row(surface: str, platform: str, verdict: str, dur_s: float,
          compile_s: Optional[float] = None) -> dict:
     return {"surface": surface, "platform": platform, "verdict": verdict,
@@ -238,9 +193,9 @@ def run_warm(n: int = 1 << 20, platform: str = "gpu",
     holds; `only` restricts the registry."""
     device = device_mod.resolve(platform)
     rows: List[dict] = []
-    for surface, build in surfaces():
-        if only is not None and surface not in only:
-            continue
+    active = [(s, b) for s, b in surfaces() if only is None or s in only]
+    ledger.emit("warm.start", surfaces=len(active))
+    for surface, build in active:
         if skip and surface in skip:
             rows.append({"surface": surface, "verdict": "resumed",
                          "error": None})
@@ -257,12 +212,20 @@ def run_warm(n: int = 1 << 20, platform: str = "gpu",
             rows.append({"surface": surface, "platform": platform,
                          "verdict": "failed",
                          "error": f"{type(e).__name__}: {e}"[:300]})
+            ledger.emit("warm.surface", surface=surface, verdict="failed",
+                        error=rows[-1]["error"])
             log(f"  warm {surface:<16} failed  {rows[-1]['error']}")
             continue
         rows += [_row(surface, platform, "cold", cold),
                  _row(surface, platform, "warm", warm)]
+        ledger.emit("warm.surface", surface=surface, verdict="cold",
+                    error=None)
         log(f"  warm {surface:<16} first call {cold:.4f}s, warm call "
             f"{warm:.4f}s")
+    ledger.emit("warm.end",
+                cold=sum(1 for r in rows if r.get("verdict") == "cold"),
+                warm=sum(1 for r in rows if r.get("verdict") == "warm"),
+                failed=sum(1 for r in rows if r.get("error")))
     return rows
 
 
@@ -282,6 +245,10 @@ def main(argv=None) -> int:
     p.add_argument("--only", type=str, default=None,
                    help="Comma-separated surface ids to restrict to")
     ns = p.parse_args(argv)
+    from tpu_reductions_torch.exec.core import maybe_arm
+    from tpu_reductions_torch.obs.ledger import arm_session
+    arm_session("bench.warm", argv=list(argv) if argv else sys.argv[1:])
+    maybe_arm(ns.platform)
     if ns.n <= 0:
         p.error("--n must be positive")
     # k10's deepest case needs threads*128*depth elements in flight
@@ -290,7 +257,7 @@ def main(argv=None) -> int:
                 "pipeline has a full working set")
     out_dir = os.path.dirname(os.path.abspath(ns.out))
     os.makedirs(out_dir, exist_ok=True)
-    manifest = Manifest(ns.out)
+    manifest = CompileLedger(ns.out)
     skip = ({r["surface"] for r in manifest.rows}
             if manifest.prior_complete is False else set())
     only = ({s.strip() for s in ns.only.split(",") if s.strip()}

@@ -3,20 +3,16 @@ serving path enters through `run(plan)`.
 
 The counterpart of tpu_reductions/exec/core.py. It owns the heartbeat
 guard (utils/heartbeat.py), the retry classification (utils/retry.py),
-the compile-seam spans (`observe_compile`) and the `exec.plan` /
+the compile-seam spans (`observe_compile`, obs/compile.compile_span
+with its build-directory verdict) and the `exec.plan` /
 `exec.launch` / `exec.done` ledger events. A plan's builder gets the
 wiring only through its `LaunchContext`.
 
 `fault_point("exec.launch")` fires between the plan's record and its
 launch.
 
-Left out, with reasons (docs/PORT.md "Serving on one card"):
-- the compile observatory's `.jax_cache` verdict and store: a launch on
-  the card compiles nothing into a persistent cache; what a first call
-  costs there is bench/warm.py's measurement. `observe_compile` keeps
-  its signature and its once-per-key dedupe and emits `compile.start` and
-  `compile.end` with the surface and its wall seconds;
-- `maybe_arm_for_tpu`, the TPU watchdog gate (ROADMAP Queue A item 9).
+`maybe_arm` (utils/watchdog.py) is re-exported here, as the JAX core
+re-exports its arming gate: entry points arm through the core.
 """
 
 from __future__ import annotations
@@ -27,6 +23,7 @@ from typing import Callable, Optional
 
 from tpu_reductions_torch.exec.plan import LaunchPlan
 from tpu_reductions_torch.faults.inject import fault_point
+from tpu_reductions_torch.utils.watchdog import maybe_arm  # noqa: F401
 
 # compile seams already observed in this process, by the caller's key
 _observed_keys: set = set()
@@ -39,8 +36,9 @@ def reset_observed() -> None:
 
 @contextlib.contextmanager
 def observe_compile(surface: str, *, key=None, **fields):
-    """Bracket one compile seam in `compile.start` / `compile.end` events
-    (the names tpu_reductions/obs/compile.py emits) under one child trace
+    """Bracket one compile seam in obs/compile.compile_span: the
+    `compile.start` / `compile.end` events, with the wall seconds, the
+    build directory's verdict and `cache_new`, under one child trace
     span. `key`, when given, dedupes process-wide: only the first entry
     per key is observed. Yields a dict whose entries ride the end event;
     the seam's exceptions pass through, recorded as `error`."""
@@ -49,24 +47,9 @@ def observe_compile(surface: str, *, key=None, **fields):
             yield None
             return
         _observed_keys.add(key)
-    from tpu_reductions_torch.obs import ledger, trace
-    with trace.child():
-        ledger.emit("compile.start", surface=surface, **fields)
-        obs: dict = {}
-        t0 = time.monotonic()
-        err = None
-        try:
-            yield obs
-        except BaseException as e:
-            err = f"{type(e).__name__}: {e}"[:200]
-            raise
-        finally:
-            row = {"surface": surface,
-                   "dur_s": round(time.monotonic() - t0, 6),
-                   **fields, **obs}
-            if err is not None:
-                row["error"] = err
-            ledger.emit("compile.end", **row)
+    from tpu_reductions_torch.obs.compile import compile_span
+    with compile_span(surface, **fields) as obs:
+        yield obs
 
 
 class LaunchContext:

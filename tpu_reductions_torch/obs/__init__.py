@@ -1,6 +1,10 @@
-"""The flight recorder: the typed JSONL event ledger and its trace context.
+"""The flight recorder and its analysis.
 
-The counterpart of tpu_reductions/obs/{ledger,trace}.py. The timeline,
-the trace export, the critical path and the compile observatory's store
-wait for ROADMAP Queue A item 9 (docs/PORT.md).
+The counterpart of tpu_reductions/obs/: the typed JSONL event ledger
+(`ledger`) and its trace context (`trace`), host-side spans (`spans`),
+the post-mortem timeline (`timeline`), the Chrome trace export
+(`trace_export`), the critical path over the span tree
+(`critical_path`) and the compile observatory's store and model
+(`compile`). A ledger either package writes reads the same through
+either package's analysis.
 """

@@ -265,7 +265,9 @@ def run_stream(flat, method: str, *, chunk_bytes: Optional[int] = None,
     materialization; `start_chunk` and `init_partial` resume from such a
     checkpoint, and the chunks before it are never staged again. The
     folds run over the same chunk boundaries wherever a run starts, so a
-    resumed stream's value is the uninterrupted one's, bit for bit."""
+    resumed stream's value is the uninterrupted one's, bit for bit. As
+    in JAX, the `stream.chunk` fault point fires before each chunk and
+    the `stream.*` events record the run."""
     flat = torch.as_tensor(flat).reshape(-1)
     r = reducer or StreamReducer(method, dtype_name(flat.dtype),
                                  flat.numel(), chunk_bytes=chunk_bytes,
@@ -275,31 +277,75 @@ def run_stream(flat, method: str, *, chunk_bytes: Optional[int] = None,
         raise ValueError(f"start_chunk {start_chunk} outside plan "
                          f"(0..{plan.num_chunks})")
     sync_every = max(1, int(sync_every))
-    t0 = time.monotonic()
-    partial = None
-    syncs = 0
-    r.restore(init_partial)
-    if start_chunk < plan.num_chunks:
-        inflight = r.stage(flat, start_chunk)
-    for i in range(start_chunk, plan.num_chunks):
-        nxt = r.stage(flat, i + 1) if i + 1 < plan.num_chunks else None
-        r.fold(inflight)                  # overlaps nxt's copy
-        inflight = nxt
-        done = i + 1
-        if done % sync_every == 0 or done == plan.num_chunks:
-            partial = r.partial()         # the materialization
-            syncs += 1
-            if on_sync is not None:
-                on_sync(done, partial)
-    if partial is None:                   # resumed at the very end
-        partial = r.partial()
-    wall = time.monotonic() - t0
-    span = plan.chunk_span(start_chunk)[0] if start_chunk < plan.num_chunks \
-        else plan.n
-    nbytes = (flat.numel() - span) * flat.element_size()
-    return StreamResult(value=r.finish(partial), chunks_done=plan.num_chunks,
-                        num_chunks=plan.num_chunks, nbytes=nbytes,
-                        wall_s=wall, syncs=syncs, resumed_from=start_chunk)
+    from tpu_reductions_torch.exec import core as exec_core
+    from tpu_reductions_torch.exec.plan import launch_plan
+    from tpu_reductions_torch.faults.inject import fault_point
+    from tpu_reductions_torch.obs import ledger, trace
+    # one span per stream; the loop is one plan of the execution core
+    # under the `stream` heartbeat phase, ticking per chunk and per sync
+    with trace.child():
+        ledger.emit("stream.start", method=r.method, dtype=r.dtype,
+                    n=plan.n, nbytes=int(flat.numel() * flat.element_size()),
+                    chunk_elems=plan.chunk_elems,
+                    num_chunks=plan.num_chunks, start_chunk=start_chunk,
+                    sync_every=sync_every)
+        t0 = time.monotonic()
+        partial = None
+        syncs = 0
+
+        def pipeline(ctx):
+            nonlocal partial, syncs
+            r.restore(init_partial)
+            if start_chunk < plan.num_chunks:
+                inflight = r.stage(flat, start_chunk)
+            for i in range(start_chunk, plan.num_chunks):
+                fault_point("stream.chunk")
+                t_stage = time.monotonic()
+                nxt = (r.stage(flat, i + 1) if i + 1 < plan.num_chunks
+                       else None)
+                t_fold = time.monotonic()
+                r.fold(inflight)              # overlaps nxt's copy
+                t_done = time.monotonic()
+                inflight = nxt
+                ctx.tick()
+                done = i + 1
+                # host-side dispatch seconds, not device times
+                ledger.emit("stream.chunk", chunk=i, chunks_done=done,
+                            total=plan.num_chunks,
+                            stage_s=round(t_fold - t_stage, 6),
+                            fold_s=round(t_done - t_fold, 6))
+                if done % sync_every == 0 or done == plan.num_chunks:
+                    partial = r.partial()     # the materialization
+                    syncs += 1
+                    ctx.tick()
+                    ledger.emit("stream.sync", chunks_done=done,
+                                total=plan.num_chunks,
+                                elapsed_s=round(time.monotonic() - t0, 6))
+                    if on_sync is not None:
+                        on_sync(done, partial)
+            if partial is None:               # resumed at the very end
+                partial = r.partial()
+
+        exec_core.run(launch_plan(
+            "stream", "stream", pipeline, timing="stream",
+            heartbeat_phase="stream",
+            staging_bound=int(plan.chunk_bytes),
+            method=r.method, dtype=r.dtype, n=plan.n,
+            chunks=plan.num_chunks, start_chunk=start_chunk))
+        wall = time.monotonic() - t0
+        span = (plan.chunk_span(start_chunk)[0]
+                if start_chunk < plan.num_chunks else plan.n)
+        nbytes = (flat.numel() - span) * flat.element_size()
+        res = StreamResult(value=r.finish(partial),
+                           chunks_done=plan.num_chunks,
+                           num_chunks=plan.num_chunks, nbytes=nbytes,
+                           wall_s=wall, syncs=syncs,
+                           resumed_from=start_chunk)
+        ledger.emit("stream.end", chunks=plan.num_chunks,
+                    resumed_from=start_chunk, wall_s=round(wall, 6),
+                    gbps=round(res.gbps, 4),
+                    chunks_per_s=round(res.chunks_per_s, 4))
+    return res
 
 
 def iter_chunks(flat, plan: ChunkPlan,

@@ -362,6 +362,7 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
     as the JAX package's do."""
     from tpu_reductions_torch.exec import core as exec_core
     from tpu_reductions_torch.exec.plan import launch_plan
+    from tpu_reductions_torch.obs import ledger, trace
 
     if repeats < 1:
         raise ValueError(f"repeats must be >= 1, got {repeats}")
@@ -415,11 +416,26 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
             row["device_mem_factor"] = round(held / g_bytes, 6)
             device_peak = max(device_peak, held / g_bytes)
         step_rows.append(row)
+        ledger.emit("reshard.step", primitive=step.primitive,
+                    algorithm=step.algorithm, wall_s=round(wall_s, 6),
+                    mem_factor=round(step_frac, 6), ranks=int(mesh.k))
         return y, total, measured, device_peak
 
-    x, total, measured, device_peak = exec_core.run(launch_plan(
-        "reshard", "reshard", program, timing="steps",
-        heartbeat_phase=None, ranks=int(mesh.k), steps=len(plan.steps)))
+    with trace.child():
+        ledger.emit("reshard.plan", src=plan.source.describe(),
+                    dst=plan.target.describe(),
+                    program=[st.primitive for st in plan.steps],
+                    wire_bytes=int(plan.wire_bytes),
+                    mem_factor=round(plan.mem_factor, 6),
+                    ranks=int(mesh.k))
+        x, total, measured, device_peak = exec_core.run(launch_plan(
+            "reshard", "reshard", program, timing="steps",
+            heartbeat_phase=None, ranks=int(mesh.k),
+            steps=len(plan.steps)))
+        ledger.emit("reshard.done", src=plan.source.describe(),
+                    dst=plan.target.describe(), steps=len(plan.steps),
+                    wall_s=round(total, 6),
+                    measured_mem_factor=round(measured, 6))
     return {"shards": collect_shards(x, mesh), "wall_s": total,
             "steps": step_rows, "measured_mem_factor": measured,
             "device_mem_factor": device_peak}

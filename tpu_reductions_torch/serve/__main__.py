@@ -153,6 +153,8 @@ def main(argv=None) -> int:
         signal.signal(signal.SIGINT, signal.default_int_handler)
     from tpu_reductions_torch.obs.ledger import arm_session
     arm_session("serve", argv=list(argv) if argv else sys.argv[1:])
+    from tpu_reductions_torch.exec.core import maybe_arm
+    maybe_arm(ns.platform)
 
     from tpu_reductions_torch.serve.engine import ServeEngine
     from tpu_reductions_torch.serve.executor import BatchExecutor

@@ -1591,6 +1591,8 @@ def main(argv=None) -> int:
         device_mod.resolve(ns.platform)      # no card, no engine
     from tpu_reductions_torch.obs.ledger import arm_session
     arm_session("serve.loadgen", argv=list(argv) if argv else sys.argv[1:])
+    from tpu_reductions_torch.exec.core import maybe_arm
+    maybe_arm(ns.platform)
     if fleet:
         return {"scale": _run_scale, "elastic": _run_elastic,
                 "recovery": _run_recovery}[fleet](ns, methods)

@@ -846,6 +846,8 @@ def main(argv=None) -> int:
         signal.signal(signal.SIGINT, signal.default_int_handler)
     ledger.arm_session("serve.router",
                        argv=list(argv) if argv else sys.argv[1:])
+    from tpu_reductions_torch.exec.core import maybe_arm
+    maybe_arm(ns.platform)
 
     journal = FleetJournal(fleet_journal_path(ns.journal))
     adopted, _ = adopt_fleet(

@@ -10,9 +10,9 @@ TPU_REDUCTIONS_HEARTBEAT_DEADLINE_S otherwise, default 120 s; <= 0
 disables). Every phase transition lands as an `hb.phase` event in the
 ledger (obs/ledger.py), which stamps the open phase onto every event.
 
-The watchdog that reads the snapshot and ends a stalled process (exit 4)
-is ROADMAP Queue A item 9: until it is ported nothing acts on a stale
-mark (docs/PORT.md). Every mark consults the `heartbeat.tick` fault point
+The watchdog (utils/watchdog.py) reads the snapshot every cycle and ends
+a process whose open guard is older than its deadline with exit 4, after
+a `watchdog.exit` event. Every mark consults the `heartbeat.tick` fault point
 (faults/inject.py): a `{"action": "suppress"}` spec freezes the mark.
 """
 

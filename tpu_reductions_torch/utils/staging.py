@@ -50,6 +50,9 @@ import torch
 
 from tpu_reductions_torch.config import (stage_chunk_bytes,
                                          stage_threshold_bytes)
+from tpu_reductions_torch.faults.inject import fault_point
+from tpu_reductions_torch.obs import ledger, trace
+from tpu_reductions_torch.utils import heartbeat
 
 
 def device_put_chunked(flat: torch.Tensor, rows: int, lanes: int,
@@ -60,7 +63,11 @@ def device_put_chunked(flat: torch.Tensor, rows: int, lanes: int,
     `device` whose slots past the payload hold `identity`, in blocks of
     at most `stage_chunk_bytes(chunk_bytes)` (whole rows, at least one)
     through a `slots`-deep ChunkStager: the host copies block i+1 into
-    one pinned buffer while block i's transfer is in flight."""
+    one pinned buffer while block i's transfer is in flight. As in JAX,
+    the blocks run under a `staging` heartbeat guard and one trace span
+    (`staging.start`, a `staging.chunk` a block, `staging.end`), each
+    block after the `staging.chunk` fault point and ticking the mark;
+    an interrupted stage leaves no partial tensor to its caller."""
     if flat.numel() > rows * lanes:
         raise ValueError(f"payload {flat.numel()} > staged shape "
                          f"{rows}x{lanes}")
@@ -77,17 +84,31 @@ def device_put_chunked(flat: torch.Tensor, rows: int, lanes: int,
     stager = ChunkStager(device, max(1, min(step, full_rows)),
                          (flat.dtype,), slots=slots,
                          chunk_bytes=chunk_bytes, lanes=lanes)
-    for i, (r, k) in enumerate(blocks):
-        if r < full_rows:
-            block = flat[r * lanes:(r + k) * lanes].view(k, lanes)
-        else:
-            block = torch.full((1, lanes), identity, dtype=flat.dtype)
-            block[0, :tail.numel()] = tail
-        slot = i % slots
-        (staged,) = stager.put_chunk_async(slot, (block,))
-        stager.acquire(slot)
-        out[r:r + k].copy_(staged)
-        stager.release(slot)
+    with trace.child():
+        ledger.emit("staging.start",
+                    nbytes=int(flat.numel() * flat.element_size()),
+                    rows=rows, lanes=lanes,
+                    chunk_bytes=int(stage_chunk_bytes(chunk_bytes)))
+        with heartbeat.guard("staging"):
+            for i, (r, k) in enumerate(blocks):
+                if r < full_rows:
+                    fault_point("staging.chunk")
+                    block = flat[r * lanes:(r + k) * lanes].view(k, lanes)
+                else:
+                    block = torch.full((1, lanes), identity,
+                                       dtype=flat.dtype)
+                    block[0, :tail.numel()] = tail
+                slot = i % slots
+                (staged,) = stager.put_chunk_async(slot, (block,))
+                stager.acquire(slot)
+                out[r:r + k].copy_(staged)
+                stager.release(slot)
+                heartbeat.tick()
+                if r < full_rows:
+                    ledger.emit("staging.chunk", row=r,
+                                rows_done=min(r + k, full_rows),
+                                total_rows=full_rows)
+        ledger.emit("staging.end", rows=rows, lanes=lanes)
     return out
 
 

@@ -7,6 +7,13 @@ package uses `block_until_ready`): PyTorch returns before the card
 finishes, so a timer without the sync measures the enqueue. Chained
 timing replays one CUDA graph a trip (ops/chain.py), so its slope holds
 the card's time of an iteration and not the host's.
+
+Flight recorder and watchdog, as in JAX: the synced loops run under a
+heartbeat guard labelled with their mode and tick once an iteration; each
+chained trip runs under its own guard (the first one, which captures the
+graph, in the long-deadline `compile` phase) after the `chain.step`
+fault point. The events (`timing.loop`, `chain.trip`, `chain.slope`) are
+emitted after the perf_counter windows close, never inside them.
 """
 
 from __future__ import annotations
@@ -15,6 +22,10 @@ import statistics
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
+
+from tpu_reductions_torch.faults.inject import fault_point
+from tpu_reductions_torch.obs import ledger, trace
+from tpu_reductions_torch.utils import heartbeat
 
 
 @dataclass
@@ -77,24 +88,29 @@ def time_fn(fn: Callable, *args, sync: Callable[[], None],
         sync()
 
     if mode == "bulk":
-        sw.start()
-        for _ in range(iterations):
-            result = fn(*args)
-        sync()
-        sw.stop()
+        with heartbeat.guard(mode):
+            sw.start()
+            for _ in range(iterations):
+                result = fn(*args)
+            sync()
+            sw.stop()
         # one span booked as `iterations` sessions; it is no per-call
         # sample, so median_s falls back to the mean
         sw.sessions += iterations - 1
         sw.samples.pop()
         return result, sw
 
-    for _ in range(iterations):
-        sw.start()
-        result = fn(*args)
-        sync()
-        if mode == "fetch":
-            _materialize(result)
-        sw.stop()
+    with heartbeat.guard(mode):
+        for _ in range(iterations):
+            sw.start()
+            result = fn(*args)
+            sync()
+            if mode == "fetch":
+                _materialize(result)
+            sw.stop()
+            heartbeat.tick()
+    ledger.emit("timing.loop", mode=mode, iterations=iterations,
+                avg_s=round(sw.average_s, 9))
     return result, sw
 
 
@@ -111,17 +127,29 @@ def time_chained(chained_fn: Callable, x, k_lo: int, k_hi: int,
         raise ValueError(f"need k_lo < k_hi, got {k_lo} >= {k_hi}")
     sw = Stopwatch()
     span = k_hi - k_lo
+    trips = 0
 
     def run(k: int) -> float:
-        t0 = time.perf_counter()
-        _materialize(chained_fn(x, k))
-        return time.perf_counter() - t0
+        nonlocal trips
+        fault_point("chain.step")
+        phase = heartbeat.PHASE_COMPILE if trips == 0 else "chained"
+        trips += 1
+        with heartbeat.guard(phase):
+            t0 = time.perf_counter()
+            _materialize(chained_fn(x, k))
+            dt = time.perf_counter() - t0
+        ledger.emit("chain.trip", k=int(k), trip=trips,
+                    dur_s=round(dt, 9), phase=phase)
+        return dt
 
-    run(k_lo)   # warm-up
-    run(k_hi)
-    for _ in range(reps):
-        slope = (run(k_hi) - run(k_lo)) / span
-        sw.total_s += slope
-        sw.sessions += 1
-        sw.samples.append(slope)
+    # one span per chained measurement: the trips and slopes nest under it
+    with trace.child():
+        run(k_lo)   # warm-up: the graphs' capture
+        run(k_hi)
+        for rep in range(reps):
+            slope = (run(k_hi) - run(k_lo)) / span
+            sw.total_s += slope
+            sw.sessions += 1
+            sw.samples.append(slope)
+            ledger.emit("chain.slope", rep=rep, slope_s=round(slope, 12))
     return sw
