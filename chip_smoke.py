@@ -164,6 +164,12 @@ Run from the repository root on a machine with one NVIDIA GPU:
    HBM-bound row may read above 1.05 of the roof; prints the averages
    beside the reference GPU's, each curve's peak, N_1/2 and L2->HBM
    cliff, and the experiment's host seconds.
+   Last, `[lint]`: the port lint (`python -m tpu_reductions_torch.lint
+   tpu_reductions_torch chip_smoke.py --format=json`, a process of its own
+   on a machine without jax) with its fact cache cold and then warm; both
+   passes must give the same findings, every one RED006, at most
+   LINT_RED006_PINNED of them; prints each pass's seconds. It launches
+   no kernel.
 8. Prints the card's name and power limit, a `kernels` JSON line, and as
    the last line `{"ok": true, "device": {...}}`.
 
@@ -671,7 +677,9 @@ def dd_vs_plain(dd, registry, oracle, host_data, dev, worst, table):
             for threads in DD_THREADS[n]:
                 hi, lo, (tm, _, _), s = dd.stage_split_padded(
                     x.numpy(), method, threads)
+                # redlint: disable=RED020 -- the dd phase's hi plane, n <= 2^24 (64 MiB float32), under the stager's one-shot threshold (config.stage_threshold_bytes, 512 MiB)
                 hi2d = torch.from_numpy(hi).to(dev)
+                # redlint: disable=RED020 -- the lo plane beside it, the same 64 MiB bound
                 lo2d = torch.from_numpy(lo).to(dev)
                 got = dd.dd_call(hi2d, lo2d, method, tm)
                 scalar = dd.dd_scalar_call(hi2d, lo2d, method, tm)
@@ -690,6 +698,7 @@ def dd_vs_plain(dd, registry, oracle, host_data, dev, worst, table):
                 check_dd_repeats(dd, name, hi2d, lo2d, method, tm, dev)
                 if method != "SUM":
                     continue
+                # redlint: disable=RED020 -- the float64 payload at n = 2^24 (128 MiB) for torch.sum's time, under the stager's one-shot threshold (512 MiB)
                 x2d = torch.from_numpy(
                     np.pad(x.numpy(), (0, hi.size - n))).view(hi.shape).to(dev)
                 row = {"kernel": "dd", "method": method, "dtype": "float64",
@@ -719,6 +728,7 @@ def dd_vs_plain(dd, registry, oracle, host_data, dev, worst, table):
     # full range: the staging scale keeps the float32 planes finite
     x = np.random.default_rng(0).uniform(-1, 1, N) * 1e300
     hi, lo, (tm, _, _), s = dd.stage_split_padded(x, "SUM", 256)
+    # redlint: disable=RED020 -- the full-range planes at n = 2^24, 64 MiB each, under the stager's one-shot threshold (512 MiB)
     hi2d, lo2d = torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
     got = dd.dd_call(hi2d, lo2d, "SUM", tm)
     check_dd("dd full-range SUM", got, dd.dd_plain(hi2d, lo2d, "SUM", tm),
@@ -978,10 +988,12 @@ def timed(module, name: str, calls: list, dev=None):
     real = getattr(module, name)
 
     def wrapper(*args, **kwargs):
+        # redlint: disable=RED002 -- the phases' call counter: host seconds a CLI spends, to its card's end, printed beside the rows; no kernel time is read from it
         t0 = time.perf_counter()
         out = real(*args, **kwargs)
         if dev is not None:
             torch.cuda.synchronize(dev)
+        # redlint: disable=RED002 -- closes the host-seconds window of the line above
         calls.append(time.perf_counter() - t0)
         return out
 
@@ -1919,6 +1931,10 @@ HANG_ITERS = 60000
 RES_SMOKE_N = 1 << 19
 RES_SPOT_N = 1 << 24
 HANG_FAULT = json.dumps({"heartbeat.tick": {"action": "suppress"}})
+# the budget of every task in the phase's two task files: the scheduler's
+# input, which it plans from, ample for each task on the card
+# redlint: disable=RED013 -- the scheduler's own input: the task files this phase hands to python -m tpu_reductions_torch.sched
+TASK_BUDGET_S = 600
 # the hang's deadline and the watchdog's cadence
 HANG_ENV = {"TPU_REDUCTIONS_HEARTBEAT_DEADLINE_S": "2",
             "TPU_REDUCTIONS_WATCHDOG_INTERVAL_S": "0.5"}
@@ -1955,6 +1971,7 @@ def resilience_path(driver, counted, kr, registry, config, staging) -> None:
     from tpu_reductions_torch.obs.trace_export import chrome_trace
     from tpu_reductions_torch.sched.priors import Priors
     from tpu_reductions_torch.sched.tasks import Task
+    from tpu_reductions_torch.utils.jsonio import atomic_json_dump
 
     out_dir = (OUT / "smoke_resilience").resolve()
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -1982,24 +1999,24 @@ def resilience_path(driver, counted, kr, registry, config, staging) -> None:
     cal_out = out_dir / "calibration.json"
     ledger_json = out_dir / "compile_ledger.json"
     tasks = [
-        dict(name="smoke", value=4, budget_s=600,
+        dict(name="smoke", value=4, budget_s=TASK_BUDGET_S,
              command=f"{m}.bench.smoke --n={RES_SMOKE_N} "
                      f"--out={out_dir}/smoke.json",
              done_artifact=f"{out_dir}/smoke.json"),
-        dict(name="spot", value=3, budget_s=600,
+        dict(name="spot", value=3, budget_s=TASK_BUDGET_S,
              command=f"{m}.bench.spot --type=int --n={RES_SPOT_N} "
                      f"--iterations=32 --chainreps=2 "
                      f"--out={out_dir}/spot.json",
              done_artifact=f"{out_dir}/spot.json"),
-        dict(name="calibrate", value=2, budget_s=600,
+        dict(name="calibrate", value=2, budget_s=TASK_BUDGET_S,
              command=f"{m}.utils.calibrate --ladder --n={CAL_N} "
                      f"--out={cal_out}",
              done_artifact=str(cal_out), surfaces=["torch"]),
-        dict(name="warm", value=1, budget_s=600,
+        dict(name="warm", value=1, budget_s=TASK_BUDGET_S,
              command=f"{m}.bench.warm --only=nvcc,k6,dd "
                      f"--out={ledger_json}",
              done_artifact=str(ledger_json), surfaces=["nvcc"])]
-    (out_dir / "tasks.json").write_text(json.dumps(tasks))
+    atomic_json_dump(out_dir / "tasks.json", tasks)
     state = out_dir / "sched_state.json"
     rc, text, sec = run_module(
         ["tpu_reductions_torch.sched", f"--tasks={out_dir}/tasks.json",
@@ -2040,11 +2057,11 @@ def resilience_path(driver, counted, kr, registry, config, staging) -> None:
         "--type=int", f"--n={HANG_N}", f"--iterations={HANG_ITERS}",
         "--logfile="])
     # one budget for all three, so the plan runs them in value order
-    window = [dict(name="before", value=3, budget_s=600, command="true"),
-              dict(name="hang_probe", value=2, budget_s=600,
+    window = [dict(name="before", value=3, budget_s=TASK_BUDGET_S, command="true"),
+              dict(name="hang_probe", value=2, budget_s=TASK_BUDGET_S,
                    command=hang_cmd),
-              dict(name="after", value=1, budget_s=600, command="true")]
-    (out_dir / "window.json").write_text(json.dumps(window))
+              dict(name="after", value=1, budget_s=TASK_BUDGET_S, command="true")]
+    atomic_json_dump(out_dir / "window.json", window)
     wstate = out_dir / "window_state.json"
     wsched = ["tpu_reductions_torch.sched", f"--tasks={out_dir}/window.json",
               f"--state={wstate}"]
@@ -2128,9 +2145,11 @@ def resilience_path(driver, counted, kr, registry, config, staging) -> None:
              if r["surface"] == "nvcc"}
     priors = Priors.from_ledgers([str(led)], compile_ledger=str(ledger_json),
                                  platform="gpu")
+    # redlint: disable=RED013 -- a probe Task for priors.estimate, whose printed estimate is what the phase checks; it plans nothing
     probe = Task(name="build", title="build", value=1.0, budget_s=60.0,
                  command="true", artifacts=(), surfaces=("nvcc",))
     model = CompileModel.from_file(str(ledger_json), platform="gpu")
+    # redlint: disable=RED013 -- probe Tasks for priors.estimate's history; they plan nothing
     history = {k: round(priors.estimate(Task(
         name=k, title=k, value=1, budget_s=1, command="", artifacts=())), 3)
         for k in ("smoke", "spot", "calibrate", "warm")}
@@ -2144,6 +2163,46 @@ def resilience_path(driver, counted, kr, registry, config, staging) -> None:
         raise AssertionError(f"[resilience] compile ledger rows {rows}")
 
 
+# the RED006 count the port's tree gives, pinned (RED006_PINNED in
+# tests/test_torch_lint_clean.py, which holds the two equal)
+LINT_RED006_PINNED = 273
+
+
+def lint_path(driver, counted, kr, registry, config, staging) -> None:
+    """[lint]: the port lint over the port and this script, in a process
+    of its own, cold and warm; every finding RED006, at most the pin."""
+    OUT.mkdir(exist_ok=True)
+    cache = (OUT / "lint_cache.json").resolve()
+    cache.unlink(missing_ok=True)
+    root = Path(__file__).resolve().parent
+    passes = []
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "tpu_reductions_torch.lint",
+             "tpu_reductions_torch", "chip_smoke.py", "--format=json",
+             f"--flow-cache={cache}"], cwd=root, capture_output=True,
+            text=True, timeout=600)
+        sec = time.perf_counter() - t0
+        try:
+            rows = json.loads(r.stdout)
+        except ValueError:
+            raise AssertionError(f"[lint] {label}: exit {r.returncode}, "
+                                 f"{r.stderr[-2000:]}")
+        rules = sorted({row["rule"] for row in rows})
+        print(f"  {label} pass: exit {r.returncode} in {sec:.2f} s, "
+              f"{len(rows)} findings {rules}", flush=True)
+        passes.append(rows)
+        if r.returncode not in (0, 1) or rules not in ([], ["RED006"]) \
+                or len(rows) > LINT_RED006_PINNED:
+            raise AssertionError(f"[lint] {label}: "
+                                 f"{[x for x in rows if x['rule'] != 'RED006']}"
+                                 f" ({len(rows)} findings, pin "
+                                 f"{LINT_RED006_PINNED})")
+    if passes[0] != passes[1]:
+        raise AssertionError("[lint] the warm pass differs from the cold")
+
+
 CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
              "family": family_path, "firstrow": firstrow_path,
              "warm": warm_path, "shmoo": shmoo_path, "check": check_path,
@@ -2152,7 +2211,7 @@ CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
              "quant": quant_path, "rank_scaling": rank_scaling_path,
              "exec": exec_path, "serve": serve_path,
              "fleet": fleet_path, "resilience": resilience_path,
-             "experiment": experiment_path}
+             "experiment": experiment_path, "lint": lint_path}
 
 
 def main() -> int:
@@ -2186,6 +2245,7 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         if phase is k8_k10_vs_plain:
             # where the bf16 rows just timed read their payload from
+            # redlint: disable=RED018 -- main's perf_counter reads print each phase's host seconds against the run's time limit; the probe's numbers are its own CUDA-event times
             passes.l2_probe(kr, registry, host_data, dev)
     print("[kernels vs plain: dd_vs_plain]", flush=True)
     t0 = time.perf_counter()
@@ -2268,6 +2328,7 @@ def main() -> int:
         "rank_scaling": no_kernel,
         "exec": "no kernel: the cost oracle reads JSON and touches no "
                 "device",
+        "lint": "no kernel: a static pass over the port's sources",
         "resilience": "its CLIs run in processes of their own, whose "
                       "launches this process does not count (its hang "
                       "and scheduler rows go through k6, its smoke task "
@@ -2290,4 +2351,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # redlint: disable=RED017,RED019 -- the card smoke runs under its caller's time limit, which ends the process; arming the watchdog here would end a phase that opens no heartbeat guard, and the CLIs it drives arm their own
     sys.exit(main())

@@ -355,6 +355,7 @@ def _run_benchmark_inner(cfg: ReduceConfig, logger: BenchLogger,
     stage_fn, reduce_fn = _make_device_fn(cfg, backend, device)
     # host-to-device copy + pad, untimed; the compile phase's deadline
     # (a chunked stage ticks per chunk inside)
+    # redlint: disable=RED025 -- inside the callers' device_task plans; re-labels the untimed staging edge compile-tolerant, narrower than the plan's phase
     with heartbeat.guard(heartbeat.PHASE_COMPILE):
         x_dev = stage_fn(x_host)
         device_mod.synchronize(device)

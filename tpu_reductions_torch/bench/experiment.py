@@ -122,6 +122,7 @@ def run_experiment(out_dir: str | Path, *, dryrun: bool = False,
 
     t0 = time.perf_counter()
     grid = dict(FLAGSHIP_GRID, **(DRYRUN_GRID if dryrun else {}))
+    # redlint: disable=RED018 -- the experiment's wall seconds, printed as its duration; every cell's time is its own chained slope
     grid_rows = sweep_all(**grid, platform=platform,
                           out_dir=str(out / "single_chip"), logger=log)
     # averages from the cells on disk, those just measured and those
@@ -223,6 +224,8 @@ def main(argv=None) -> int:
     p.add_argument("--no-hazard", dest="hazard", action="store_false",
                    help="leave out the int32 n = 2^30 (4 GiB) cell")
     ns = p.parse_args(argv)
+    from tpu_reductions_torch.exec.core import maybe_arm
+    maybe_arm("cpu" if ns.dryrun else "gpu")
     res = run_experiment(ns.out_dir, dryrun=ns.dryrun, hazard=ns.hazard)
     failed = ([r for r in res["grid"] if r["status"] != "PASSED"]
               + [r.to_dict() for r in res["curve_results"] if not r.passed])

@@ -166,6 +166,7 @@ def measure_cell(method: str, dtype: str, bits: int, k: int, n: int,
         ledger.emit("collective.launch", algorithm=sel_q.algorithm,
                     method=method, dtype=dtype, ranks=k, n=int(n))
         t0 = time.perf_counter()
+        # redlint: disable=RED025 -- one guard around a cell's heterogeneous device region (the quantized collective and its verify); the cell's resilience contract is checkpoint resume, not plan retry
         with heartbeat.guard("collective"):
             out = fn(*staged)
             out = out if isinstance(out, tuple) else (out,)

@@ -223,6 +223,8 @@ def main(argv=None) -> int:
         if not ranks:
             p.error(f"--max-ranks={ns.max_ranks} leaves no rung >= 2")
     platform = "cpu" if ns.dryrun else "gpu"
+    from tpu_reductions_torch.exec.core import maybe_arm
+    maybe_arm(platform)
     res = run_rank_scaling(
         ns.out_dir, ranks=ranks, n=ns.n,
         retries=1 if ns.dryrun else ns.retries, curve_n=ns.curve_n,

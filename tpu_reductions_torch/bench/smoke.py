@@ -38,6 +38,7 @@ from tpu_reductions_torch.config import (KERNEL_ELEMENTWISE, KERNEL_MXU,
                                          KERNEL_STREAM, PLATFORMS,
                                          ReduceConfig)
 from tpu_reductions_torch.utils.logging import BenchLogger
+from tpu_reductions_torch.utils.staging import stage_flat
 
 # (name, dtype, method, kernel, threads, stream_buffers, surface): the
 # JAX package's cases and surface ids. kernel None: the f64 pair route.
@@ -73,7 +74,7 @@ def _family_case(surface: str, n: int, device: torch.device) -> bool:
     if surface in ("mxu-scan", "xla-cumsum"):
         dtype = "float32" if surface == "mxu-scan" else "int32"
         x = host_data(n, dtype, rank=0, seed=0)
-        xd = x.to(device)
+        xd = stage_flat(x, device)
         got = host_value(fam.scan_fn(surface, dtype)(
             xd, torch.zeros((), dtype=xd.dtype, device=device)))
         want = fam.host_scan(x.numpy())
@@ -86,14 +87,14 @@ def _family_case(surface: str, n: int, device: torch.device) -> bool:
         offsets = fam.random_offsets(n, 16, 0)
         ids = torch.from_numpy(fam.segment_ids_from_offsets(offsets))
         got = host_value(fam.segment_reduce_fn("SEGSUM", 16)(
-            x.to(device), ids.to(device, torch.int64)))
+            stage_flat(x, device), stage_flat(ids.to(torch.int64), device)))
         # byte-valued payloads stay far below the int32 wrap at these n,
         # so the float64 host digest compares exactly
         return bool(np.array_equal(got.astype(np.float64),
                                    fam.host_segment_reduce(
                                        x.numpy(), offsets, "SEGSUM")))
     x = host_data(n, "float32", rank=0, seed=0)
-    got = int(fam.arg_reduce_fn("ARGMIN", "float32")(x.to(device)))
+    got = int(fam.arg_reduce_fn("ARGMIN", "float32")(stage_flat(x, device)))
     return got == int(fam.host_arg_reduce(x.numpy(), "ARGMIN"))
 
 

@@ -51,6 +51,7 @@ from tpu_reductions_torch.config import (KERNEL_ELEMENTWISE, KERNEL_MXU,
                                          PLATFORMS)
 from tpu_reductions_torch.obs import ledger
 from tpu_reductions_torch.obs.compile import CompileLedger
+from tpu_reductions_torch.utils.staging import stage_flat
 
 BUILD_SURFACE = "nvcc"
 
@@ -80,7 +81,7 @@ def _torch_surface() -> Surface:
         from tpu_reductions_torch.ops.registry import get_op
         from tpu_reductions_torch.utils.rng import host_data
         op = get_op("SUM")
-        x2d = host_data(n, "int32").to(device).reshape(-1, 128)
+        x2d = stage_flat(host_data(n, "int32"), device).reshape(-1, 128)
         return make_chained_reduce(op.reduce, op), (x2d, 2)
     return "torch", build
 
@@ -116,7 +117,7 @@ def _serve_surface() -> Surface:
     def build(n, device):
         from tpu_reductions_torch.ops.registry import get_op
         from tpu_reductions_torch.utils.rng import host_data
-        x = host_data(n, "int32").reshape(1, n).to(device)
+        x = stage_flat(host_data(n, "int32").reshape(1, n), device)
         return (lambda: get_op("SUM").reduce_dim(x, 1)), ()
     return "serve-bucket/sum", build
 
@@ -129,7 +130,7 @@ def _family_surface(surface: str, method: str, dtype: str,
         from tpu_reductions_torch.ops.chain import make_chained_reduce
         from tpu_reductions_torch.ops.registry import get_op
         from tpu_reductions_torch.utils.rng import host_data
-        x = host_data(n, dtype).to(device)
+        x = stage_flat(host_data(n, dtype), device)
         _full, core, _offsets = _cell_fns(method, dtype, impl, x, 64, 0)
         return (make_chained_reduce(core, get_op(method)),
                 (x.reshape(-1, 128), 2))
@@ -167,11 +168,13 @@ def _row(surface: str, platform: str, verdict: str, dur_s: float,
 
 def _timed_call(fn, args, device) -> float:
     """Seconds of one call, to the device's end of its work."""
+    # redlint: disable=RED002 -- warm's cold and warm first-call seconds are the compile observatory's observation, host seconds to the card's end by definition
     t0 = time.perf_counter()
     out = fn(*args)
     device_mod.synchronize(device)
     if isinstance(out, torch.Tensor):
         out.cpu()
+    # redlint: disable=RED002 -- closes the first-call window of the line above
     return time.perf_counter() - t0
 
 
@@ -295,4 +298,5 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    # redlint: disable=RED019 -- warm is the compile observatory's pass: each surface's cold and warm first call is the observation itself, not a launch plan; the watchdog is armed in main
     sys.exit(main())

@@ -75,7 +75,9 @@ class _Hop:
         dev = mesh.device
         # every row filled locally, in order: one index_select
         self.full = local_dst == list(range(mesh.k_local))
+        # redlint: disable=RED020 -- a hop's source rows, one int64 per local rank
         self.src = torch.tensor(local_src, dtype=torch.long, device=dev)
+        # redlint: disable=RED020 -- a hop's destination rows, one int64 per local rank
         self.dst = torch.tensor(local_dst, dtype=torch.long, device=dev)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -68,8 +68,10 @@ class FakeRelay:
     def start(self) -> int:
         """Bind (keeping the port for the relay's life, so a refuse phase
         can listen again on it) and start the behaviour thread."""
+        # redlint: disable=RED021 -- precedes Thread.start: happens-before
         self._listener = self._bind()
         self.port = self._listener.getsockname()[1]
+        # redlint: disable=RED021 -- precedes Thread.start: happens-before
         self._phase_t0 = time.monotonic()
         self._thread = threading.Thread(target=self._serve,
                                         name="fake-relay", daemon=True)
@@ -86,6 +88,7 @@ class FakeRelay:
                 c.close()
             except OSError:
                 pass
+        # redlint: disable=RED021 -- reclaimed after _stop.set + join
         self._held.clear()
 
     def __enter__(self) -> "FakeRelay":

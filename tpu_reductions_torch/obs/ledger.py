@@ -33,19 +33,16 @@ from __future__ import annotations
 import atexit
 import json
 import os
-import re
 import sys
 import threading
 import time
 from typing import Optional
 
+from tpu_reductions_torch.lint.grammar import EVENT_NAME_RE
+
 ENV_PATH = "TPU_REDUCTIONS_LEDGER"
 ENV_DISABLE = "TPU_REDUCTIONS_OBS_DISABLE"
 ENV_MAX_BYTES = "TPU_REDUCTIONS_LEDGER_MAX_BYTES"
-
-# the event-name grammar (tpu_reductions/lint/grammar.EVENT_NAME_RE):
-# lowercase dotted words
-EVENT_NAME_RE = re.compile(r"^[a-z][a-z0-9_]*(?:\.[a-z0-9_]+)*$")
 
 _fd: Optional[int] = None
 _path: Optional[str] = None

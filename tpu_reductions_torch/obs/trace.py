@@ -70,6 +70,7 @@ def active() -> Optional[TraceContext]:
     """The context events stamp now: the innermost open span of this
     thread, else the process root, else a root adopted from
     TPU_REDUCTIONS_TRACE_CTX on first use, else None (untraced)."""
+    # redlint: disable=RED023 -- contextvar isolation; get() never blocks
     ctx = _cv.get()
     if ctx is not None:
         return ctx

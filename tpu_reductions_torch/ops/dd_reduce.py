@@ -410,6 +410,7 @@ def _make_stage_fn(method: str, threads: int, max_blocks: int,
     def put(plane: np.ndarray, pad) -> torch.Tensor:
         host = torch.from_numpy(plane)
         staged = maybe_chunked_stage(host, *plane.shape, pad, device)
+        # redlint: disable=RED015 -- the one-shot copy only where maybe_chunked_stage judged the plane under the staging threshold
         return host.to(device) if staged is None else staged
 
     def stage_fn(x):

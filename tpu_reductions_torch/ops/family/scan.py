@@ -162,6 +162,7 @@ class StreamScanner:
         out = None
         pos = 0
         for chunk in iter_chunks(flat, self.plan):
+            # redlint: disable=RED015 -- one iter_chunks chunk, at most the plan's chunk bound (config.stage_chunk_bytes)
             y = self._fn(chunk.to(self.device), self._carry)
             self._carry = y[-1]
             host = host_value(y)

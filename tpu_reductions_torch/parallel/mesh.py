@@ -124,6 +124,7 @@ class RankMesh:
                            if self.owners[r] == self.process)
         self._row = {r: i for i, r in enumerate(self.owned)}
         # this process's ranks, on its device: axis_index's counterpart
+        # redlint: disable=RED015 -- this process's rank indices, k int64 entries
         self.index = torch.tensor(self.owned, dtype=torch.long,
                                   device=self.device)
 

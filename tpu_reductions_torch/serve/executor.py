@@ -200,7 +200,9 @@ class BatchExecutor:
                                         self.device)
                 self.last_route = "pageable" if x is None else "chunked"
                 if x is None:
+                    # redlint: disable=RED015 -- the one-shot copy only where maybe_chunked_stage judged the stack under the staging threshold
                     x = stacked.to(self.device)
+                # redlint: disable=RED018 -- the copy's host seconds are serving latency the client sees (per-step attribution), not a kernel time
                 self._sync()
                 c1 = time.perf_counter()
                 vals = oracle_mod.host_value(op.reduce_dim(x, 1))
@@ -277,7 +279,9 @@ class BatchExecutor:
                 with self._on_card():
                     c0 = time.perf_counter()
                     args, fn = build()
+                    # redlint: disable=RED015 -- a coalesced family batch: the batcher caps a stacked launch at the stager's threshold (serve/engine.py DEFAULT_MAX_REQUEST_BYTES, 512 MiB)
                     args = [a.to(self.device) for a in args]
+                    # redlint: disable=RED018 -- the copy's host seconds are serving latency the client sees (per-step attribution), not a kernel time
                     self._sync()
                     c1 = time.perf_counter()
                     vals = fn(*args)
@@ -528,10 +532,12 @@ class BatchExecutor:
                     if pad:
                         piece = torch.cat([piece, piece.new_full(
                             (pad,), pad_value)])
+                    # redlint: disable=RED015 -- one plan_chunks chunk, at most config.stage_chunk_bytes
                     staged = piece.to(dev).view(-1, width * _SUBLANES,
                                                 _LANES)
                     acc = op.combine(acc,
                                      op.reduce_dim(staged, 0).to(acc_dt))
+                # redlint: disable=RED018 -- the shard fold's host seconds are serving latency the client sees, not a kernel time
                 self._sync()
             return acc
 

@@ -882,6 +882,7 @@ def _run_elastic(ns, methods: List[str]) -> int:
                     _evidence=evidence, _fired=fired):
                 _fired.wait(timeout=60)
                 if _mode == "drain":
+                    # redlint: disable=RED018 -- the drain's wall seconds are the fleet's recovery metric, host-observed by definition
                     _evidence.update(drain_replica(
                         _router, _victim, executor=executor))
                 else:
@@ -1228,6 +1229,7 @@ def _run_recovery(ns, methods: List[str]) -> int:
             if os.path.exists(port_file):
                 os.unlink(port_file)
             # each router's stdout (its spawn seconds) to a log of its own
+            # redlint: disable=RED010 -- a router's stdout log handed to Popen for the rehearsal's evidence; nothing replays it, so a torn file loses diagnostics only
             with open(os.path.join(workdir, f"router-{len(procs)}.log"),
                       "wb") as log:
                 proc = subprocess.Popen(argv, env=e, stdout=log,

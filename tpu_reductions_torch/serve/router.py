@@ -240,6 +240,7 @@ class ProcessReplica:
         t0 = time.monotonic()
         # the child's standard error goes to a file of the spawn's own
         # directory, read back only when the spawn fails
+        # redlint: disable=RED010 -- the child's stderr handed to Popen, read back only when its spawn fails; nothing replays it, so a torn file loses diagnostics only
         with open(os.path.join(port_dir, "stderr"), "wb") as err:
             self._proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
                                           stderr=err)

@@ -75,6 +75,7 @@ class RelayTransport:
             return 0.0
         t0 = time.monotonic()
         inconclusive = False
+        # redlint: disable=RED025 -- guards a raw TCP port probe (no device work); there is no launch to plan, only a socket wait to watch
         with heartbeat.guard("serve"):
             for port in self._resolved_ports():
                 try:

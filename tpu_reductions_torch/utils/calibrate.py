@@ -152,6 +152,7 @@ def calibrate(n: int = 1 << 24, dtype: str = "float32",
     sync = (lambda: device_mod.synchronize(device))
     # one guard around the whole ladder, entered once, so nothing of it
     # sits inside the timed windows; time_chained ticks each trip
+    # redlint: disable=RED025 -- the trust-verdict instrument: one guard entered once so the raw per-synchronize perf_counter windows inside stay undistorted; a plan-per-probe would add the overhead being measured
     with heartbeat.guard("calibrate"):
         op = get_op("SUM")
         flat = host_data(n, dtype)
@@ -159,6 +160,7 @@ def calibrate(n: int = 1 << 24, dtype: str = "float32",
         if pad:
             flat = torch.cat([flat, torch.full((pad,), op.identity(
                 flat.dtype), dtype=flat.dtype)])
+        # redlint: disable=RED015 -- the trust probe's payload, 2^24 float32 (64 MiB) and its 4x rung (256 MiB) by default, under the stager's one-shot threshold (512 MiB); every timed window reads it resident
         x2d = flat.reshape(-1, 128).to(device)
         f = make_torch_reduce("SUM")
         f(x2d)

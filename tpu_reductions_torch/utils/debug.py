@@ -93,6 +93,7 @@ def consistency_check(method: str, dtype: str, n: int, *,
                     stream_buffers=stream_buffers)
         compiled = float(kernel_reduce(x, method, device=device, **args))
         plain = float(kernel_reduce(x, method, device=cpu, **args))
+    # redlint: disable=RED015 -- the consistency check's payload, capped at 2^20 elements by bench/driver.py
     comparator = float(make_torch_reduce(method)(x.to(device)))
     orc = float(np.asarray(oracle_mod.host_reduce(x, method),
                            dtype=np.float64))

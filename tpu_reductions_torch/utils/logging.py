@@ -2,8 +2,9 @@
 throughput row, the collective `DATATYPE OP NODES GB/sec` row, the
 quantized curve's `DATATYPE OP BITS NODES WIREX MAXERR BOUND` row and the
 family's `DATATYPE OP IMPL N GBPS STATUS` row, each byte-identical to the
-JAX package's (tpu_reductions/utils/logging.py; templates from its
-lint/grammar.py)."""
+JAX package's (tpu_reductions/utils/logging.py). The templates and headers
+come from the port's lint/grammar.py, which the lint's RED005 holds every
+other literal to."""
 
 from __future__ import annotations
 
@@ -11,31 +12,15 @@ import sys
 from pathlib import Path
 from typing import Optional, TextIO
 
-THROUGHPUT_TEMPLATE = (
-    "{name}, Throughput = {gbps:.4f} GB/s, Time = {secs:.5f} s, "
-    "Size = {n} Elements, NumDevsUsed = {devices}, "
-    "Workgroup = {workgroup}")
+# the reference's collective rows (reduce.c:67-69), which its getAvgs.sh
+# averages (the files bench/aggregate.py reads and writes), the quantized
+# curve's rows (bench/quant_curve.py) and the family's rows
+# (bench/family_spot.py)
+from tpu_reductions_torch.lint.grammar import (  # noqa: F401
+    COLLECTIVE_COLUMNS, COLLECTIVE_HEADER, COLLECTIVE_ROW_TEMPLATE,
+    FAMILY_COLUMNS, FAMILY_HEADER, FAMILY_ROW_TEMPLATE, QUANT_CURVE_COLUMNS,
+    QUANT_CURVE_HEADER, QUANT_CURVE_ROW_TEMPLATE, THROUGHPUT_TEMPLATE)
 
-# The reference's collective rows (reduce.c:67-69), which its getAvgs.sh
-# averages: the files bench/aggregate.py reads and writes.
-COLLECTIVE_COLUMNS = ("DATATYPE", "OP", "NODES", "GB/sec")
-COLLECTIVE_HEADER = " ".join(COLLECTIVE_COLUMNS)
-COLLECTIVE_ROW_TEMPLATE = "{dtype} {op} {ranks} {gbps:.3f}"
-
-# The quantized collectives' accuracy-vs-bandwidth rows
-# (bench/quant_curve.py): wire reduction against the unquantized ring and
-# the measured |err| against its declared bound.
-QUANT_CURVE_COLUMNS = ("DATATYPE", "OP", "BITS", "NODES", "WIREX",
-                       "MAXERR", "BOUND")
-QUANT_CURVE_HEADER = " ".join(QUANT_CURVE_COLUMNS)
-QUANT_CURVE_ROW_TEMPLATE = ("{dtype} {op} {bits} {ranks} {wirex:.3f} "
-                            "{max_err:.3e} {bound:.3e}")
-
-# The reduction family's rows (bench/family_spot.py): the DATATYPE row
-# with the implementation column and the oracle's verdict.
-FAMILY_COLUMNS = ("DATATYPE", "OP", "IMPL", "N", "GBPS", "STATUS")
-FAMILY_HEADER = " ".join(FAMILY_COLUMNS)
-FAMILY_ROW_TEMPLATE = "{dtype} {op} {impl} {n} {gbps:.3f} {status}"
 _ROW_DTYPES = {"int32": "INT", "float64": "DOUBLE", "float32": "FLOAT",
                "bfloat16": "BF16"}
 

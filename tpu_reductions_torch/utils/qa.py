@@ -1,6 +1,7 @@
 """QA pass/fail protocol: `&&&& RUNNING/PASSED/FAILED/WAIVED` markers with
-exit code = status, byte-identical to the JAX package's (its templates
-live in tpu_reductions/lint/grammar.py; the port keeps its own copy)."""
+exit code = status, byte-identical to the JAX package's. The templates come
+from the port's lint/grammar.py, the one definition the lint's RED005
+checks every other literal against."""
 
 from __future__ import annotations
 
@@ -8,8 +9,8 @@ import enum
 import sys
 from typing import Optional
 
-QA_RUNNING_TEMPLATE = "&&&& RUNNING {name} {args}"
-QA_FINISH_TEMPLATE = "&&&& {name} {status}"
+from tpu_reductions_torch.lint.grammar import (QA_FINISH_TEMPLATE,
+                                               QA_RUNNING_TEMPLATE)
 
 
 class QAStatus(enum.IntEnum):
