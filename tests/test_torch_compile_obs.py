@@ -56,7 +56,7 @@ def _lines(path):
 
 
 def test_sources_are_the_kernels():
-    assert SOURCES == ["accumulate", "mxu", "pair", "reduce"]
+    assert SOURCES == ["accumulate", "fault", "mxu", "pair", "reduce"]
 
 
 def test_fingerprint_holds_the_fresh_libraries(build_dir):

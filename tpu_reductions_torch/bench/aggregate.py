@@ -1,6 +1,6 @@
 """raw -> collected -> averaged results (the reference's getAvgs.sh).
 
-The port's copy of tpu_reductions/bench/aggregate.py. The reference
+The port's copy of tpu_reductions/bench/aggregate.py:1. The reference
 concatenates its per-job stdout files (mpi/raw_output/stdout-*) into
 collected.txt, averages GB/s per (DATATYPE, OP, node count) with awk and
 bc (mpi/getAvgs.sh), and writes mpi/results/${DATATYPE}_${OP}.txt for
@@ -106,7 +106,8 @@ def write_results(avgs: Dict[Key, float], out_dir: str | Path) -> List[Path]:
 
 
 def pipeline(raw_dir: str | Path, out_dir: str | Path) -> List[Path]:
-    """raw_output/ -> collected.txt -> results/*.txt in one call."""
+    """raw_output/ -> collected.txt -> results/*.txt in one call.
+    The counterpart of tpu_reductions/bench/aggregate.py:111."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     rows = collect(raw_dir, out / "collected.txt")

@@ -1,7 +1,7 @@
 """The kernel race: every live kernel and tile geometry of a grid, against
 the torch comparator, ranked by verified GB/s.
 
-The counterpart of tpu_reductions/bench/autotune.py, with the same grids
+The counterpart of tpu_reductions/bench/autotune.py:1, with the same grids
 candidate for candidate. The geometry knobs are the tile rows (--threads
 -> TM), the partial-block count (--maxblocks -> P, which only k7 reads)
 and k10's pipeline depth (--streambuffers, the optional fourth element of
@@ -86,7 +86,8 @@ def candidate_configs(base: ReduceConfig,
     """The grid's candidates, sharing base's op, dtype, n and timing. The
     optional fourth element sets k10's depth (base's otherwise).
     `comparator` puts one torch-backend row first, so that a cut race
-    still holds the yardstick."""
+    still holds the yardstick.
+    The counterpart of tpu_reductions/bench/autotune.py:112."""
     cfgs = [dataclasses.replace(base, backend="cuda", kernel=g[0],
                                 threads=g[1], max_blocks=g[2],
                                 stream_buffers=(g[3] if len(g) > 3
@@ -111,7 +112,8 @@ def autotune(base: ReduceConfig,
     `on_result(cfg, result)` fires as each candidate completes. Chained
     candidates run one at a time, and `resume(cfg)`, when given, returns a
     prior interrupted race's result for a candidate, which is then not
-    raced again. The other timing modes run as one batch."""
+    raced again. The other timing modes run as one batch.
+    The counterpart of tpu_reductions/bench/autotune.py:138."""
     logger = logger or BenchLogger(None, None)
     cfgs = candidate_configs(base, grid, comparator=comparator)
     if base.timing == "chained":
@@ -180,6 +182,8 @@ def _cfg_key(cfg: ReduceConfig) -> tuple:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The CLI's parser: the flags that tpu_reductions/bench/autotune.py:253
+    parses in its main."""
     p = argparse.ArgumentParser(
         prog="tpu_reductions_torch.bench.autotune",
         description="Race the kernels and tile geometries and report the "
@@ -212,7 +216,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     """CLI: race the grid, print the ranking and the best verified
-    kernel row; exit 0 when there is one, 1 otherwise."""
+    kernel row; exit 0 when there is one, 1 otherwise.
+    The counterpart of tpu_reductions/bench/autotune.py:253."""
     p = build_parser()
     ns = p.parse_args(argv)
     from tpu_reductions_torch.exec.core import maybe_arm

@@ -1,6 +1,6 @@
 """The cross-rank collective reduction benchmark: the mpi/reduce.c analog.
 
-The counterpart of tpu_reductions/bench/collective_driver.py, over the
+The counterpart of tpu_reductions/bench/collective_driver.py:1, over the
 port's rank axis (parallel/mesh.py). Per-run flow, as reduce.c:9-108:
 
   the mesh (MPI_Init/Comm_size, :32-34): k ranks, the rows of one tensor
@@ -66,7 +66,8 @@ NAME = "tpu_reductions_torch.collective"
 class CollectiveResult:
     """One collective benchmark outcome: the data behind a rank-0
     `DATATYPE OP NODES GB/sec` row plus the QA status. The JAX package's
-    fields and `to_dict` keys."""
+    fields and `to_dict` keys.
+    The counterpart of tpu_reductions/bench/collective_driver.py:39."""
 
     method: str
     dtype: str
@@ -82,10 +83,13 @@ class CollectiveResult:
 
     @property
     def passed(self) -> bool:
+        """Status == PASSED; the counterpart of
+        tpu_reductions/bench/collective_driver.py:58."""
         return self.status == QAStatus.PASSED
 
     def to_dict(self) -> dict:
-        """JSON-ready row; status spelled as its QA marker name."""
+        """JSON-ready row; status spelled as its QA marker name.
+        The counterpart of tpu_reductions/bench/collective_driver.py:62."""
         d = dataclasses.asdict(self)
         d["status"] = self.status.name
         return d
@@ -104,7 +108,8 @@ def _build_payload(cfg: CollectiveConfig, k: int) -> torch.Tensor:
 
 def collective_meta(cfg: CollectiveConfig) -> dict:
     """The resume contract of one invocation (bench/resume.Checkpoint
-    meta): prior rows are reused only when every key round-trips."""
+    meta): prior rows are reused only when every key round-trips.
+    The counterpart of tpu_reductions/bench/collective_driver.py:93."""
     return {"method": cfg.method, "dtype": cfg.dtype, "n": cfg.n,
             "retries": cfg.retries, "devices": cfg.num_devices,
             "rooted": cfg.rooted, "mode": cfg.mode,
@@ -488,7 +493,8 @@ def _rank0_hint(args) -> bool:
 
 def main(argv=None) -> int:
     """CLI: RUNNING marker, parse, bring-up, run, terminal marker; returns
-    the QA exit code (module docstring)."""
+    the QA exit code (module docstring).
+    The counterpart of tpu_reductions/bench/collective_driver.py:585."""
     from tpu_reductions_torch.config import parse_collective
     from tpu_reductions_torch.utils.qa import qa_start
 

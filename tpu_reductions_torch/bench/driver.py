@@ -74,7 +74,8 @@ MXU_DTYPES = ("float32", "bfloat16", "float64")
 @dataclasses.dataclass
 class BenchResult:
     """One benchmark outcome: the data behind the throughput row plus the
-    QA status. The same fields as the JAX package's BenchResult."""
+    QA status. The same fields as the JAX package's BenchResult.
+    The counterpart of tpu_reductions/bench/driver.py:42."""
 
     method: str
     dtype: str
@@ -94,11 +95,14 @@ class BenchResult:
 
     @property
     def passed(self) -> bool:
+        """Status == PASSED; the counterpart of
+        tpu_reductions/bench/driver.py:75."""
         return self.status == QAStatus.PASSED
 
     def to_dict(self) -> dict:
         """JSON-ready row; status as its marker name, non-finite floats
-        as null."""
+        as null.
+        The counterpart of tpu_reductions/bench/driver.py:79."""
         d = dataclasses.asdict(self)
         d["status"] = self.status.name
         for k, v in d.items():
@@ -169,7 +173,8 @@ def _chain_supported(cfg: ReduceConfig) -> bool:
 
 def resolved_timing(cfg: ReduceConfig) -> str:
     """The discipline a run of cfg actually uses: chained falls back to
-    fetch when the reduce is not chainable."""
+    fetch when the reduce is not chainable.
+    The counterpart of tpu_reductions/bench/driver.py:173."""
     if cfg.timing == "chained" and not _chain_supported(cfg):
         return "fetch"
     return cfg.timing
@@ -214,7 +219,8 @@ def run_benchmark(cfg: ReduceConfig, logger: Optional[BenchLogger] = None,
     """Run one self-verifying configuration on cfg.platform (the card
     unless it is "cpu"; with no card this raises). defer=True returns a
     _PendingResult whose device value is not fetched yet; its
-    .finalize() gives the BenchResult."""
+    .finalize() gives the BenchResult.
+    The counterpart of tpu_reductions/bench/driver.py:238."""
     fault_point("bench.run")
     if logger is None:
         logger = _make_logger(cfg)
@@ -273,7 +279,8 @@ def run_benchmark_batch(cfgs, logger: Optional[BenchLogger] = None,
     """Run several configurations in one process: every timed loop first,
     then every verification. A configuration that raises becomes a FAILED
     row and the rest still run. on_result(cfg, result), when given, is
-    called right after each configuration is verified."""
+    called right after each configuration is verified.
+    The counterpart of tpu_reductions/bench/driver.py:343."""
     cfgs = list(cfgs)
     pendings = []
     for cfg in cfgs:
@@ -296,7 +303,8 @@ def run_benchmark_batch(cfgs, logger: Optional[BenchLogger] = None,
 def crash_result(cfg: ReduceConfig, exc: Exception,
                  logger: Optional[BenchLogger] = None) -> BenchResult:
     """A FAILED row for a configuration whose run raised; the error is
-    logged and kept in the row's reason field."""
+    logged and kept in the row's reason field.
+    The counterpart of tpu_reductions/bench/driver.py:407."""
     if logger is not None:
         logger.log(f"config kernel={cfg.kernel} threads={cfg.threads} "
                    f"raised {type(exc).__name__}: {exc}")
@@ -425,7 +433,8 @@ def _run_benchmark_inner(cfg: ReduceConfig, logger: BenchLogger,
 
 def main(argv=None) -> int:
     """CLI entry: RUNNING marker, parse, run, terminal marker; returns the
-    QA exit code."""
+    QA exit code.
+    The counterpart of tpu_reductions/bench/driver.py:593."""
     qa_start(NAME, list(argv) if argv else sys.argv[1:])
     cfg, shmoo = parse_single_chip(argv)
     ledger.arm_session(NAME, argv=list(argv) if argv else sys.argv[1:])

@@ -32,6 +32,8 @@ versions at tiny sizes (grid n = 2^18, 2 repeats; curves to 2^14, 2^13,
 2^14); its numbers are CPU numbers. --no-hazard leaves out the int32 2^30
 cell. Without --dryrun and without a card this raises. Exit 0 when every
 cell this run measured PASSED.
+
+The script's steps begin at scripts/run_tpu_experiment.sh:72.
 """
 
 from __future__ import annotations
@@ -70,7 +72,9 @@ DRYRUN_GRID = dict(n=1 << 18, repeats=2)
 
 def device_line(dryrun: bool) -> str:
     """The card's name and power limit as nvidia-smi prints them (its
-    first card), or the CPU's label for a dry run."""
+    first card), or the CPU's label for a dry run.
+    The counterpart of the device kind the script reads
+    (scripts/run_tpu_experiment.sh:234)."""
     if dryrun:
         return "cpu (--dryrun: the kernels' plain PyTorch versions)"
     try:
@@ -86,7 +90,9 @@ def device_line(dryrun: bool) -> str:
 
 def curve_cfg(dtype: str, platform: str, dryrun: bool) -> ReduceConfig:
     """A curve's configuration: chained SUM through kernel 6 at the
-    grid's tile, spans sized per cell (sweep.run_shmoo)."""
+    grid's tile, spans sized per cell (sweep.run_shmoo).
+    The counterpart of step 3's configuration
+    (scripts/run_tpu_experiment.sh:130)."""
     return ReduceConfig(method="SUM", dtype=dtype, n=1 << 20,
                         backend="cuda", kernel=6,
                         threads=FLAGSHIP_GRID["threads"], timing="chained",
@@ -99,7 +105,8 @@ def run_experiment(out_dir: str | Path, *, dryrun: bool = False,
                    logger: Optional[BenchLogger] = None) -> dict:
     """Steps 1-3 of the module docstring into out_dir, logging each
     step's host seconds. Returns {grid, curve_results}: the grid's rows
-    (resumed or measured) and the curve cells measured in this run."""
+    (resumed or measured) and the curve cells measured in this run.
+    The counterpart of scripts/run_tpu_experiment.sh:72-226, steps 1-3."""
     if not dryrun and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; the experiment "
                            "runs on the card (--dryrun rehearses it on "
@@ -213,6 +220,8 @@ def run_experiment(out_dir: str | Path, *, dryrun: bool = False,
 
 
 def main(argv=None) -> int:
+    """CLI: the experiment into OUT, as scripts/run_tpu_experiment.sh:8 runs
+    it."""
     p = argparse.ArgumentParser(
         prog="tpu_reductions_torch.bench.experiment",
         description="The flagship experiment on the card: the n = 2^24 "

@@ -1,7 +1,7 @@
 """The reduction family's spot grid: SCAN / SEG* / ARG* measured and
 verified.
 
-The counterpart of tpu_reductions/bench/family_spot.py. Every (method,
+The counterpart of tpu_reductions/bench/family_spot.py:1. Every (method,
 dtype, impl) cell is verified against the host oracle by a launch of its
 own, one retried task of the execution core (exec/core.py), before any
 time is taken: SCAN element by
@@ -64,7 +64,8 @@ SERVE_CELLS = (("SCAN", "float32"), ("SEGSUM", "int32"),
 
 def family_cells() -> List[tuple]:
     """The (kind, method, dtype, impl) grid in artifact order: scan, then
-    the segmented group, then arg, then the serving rows."""
+    the segmented group, then arg, then the serving rows.
+    The counterpart of tpu_reductions/bench/family_spot.py:63."""
     from tpu_reductions_torch.ops.family import scan_impls
     cells = []
     for dtype in FAMILY_DTYPES:
@@ -172,7 +173,8 @@ def _span(core, x2d: torch.Tensor, dtype: str, device: torch.device) -> int:
 def measure_cell(method: str, dtype: str, impl: str, n: int, segments: int,
                  seed: int, reps: int, device: torch.device) -> dict:
     """One grid cell: a verification launch (the full result against the
-    host oracle), then the chained slope of the scalar digest."""
+    host oracle), then the chained slope of the scalar digest.
+    The counterpart of tpu_reductions/bench/family_spot.py:125."""
     from tpu_reductions_torch.exec import core as exec_core
     from tpu_reductions_torch.exec.plan import device_task
     from tpu_reductions_torch.ops.chain import make_chained_reduce
@@ -217,7 +219,8 @@ def measure_serve(method: str, dtype: str, n: int, requests: int = 3,
     """One serving row: `requests` ReduceRequests submitted to an
     in-process ServeEngine on the platform's device, each of which must
     resolve `ok` through the coalescing path
-    (serve/executor._run_family_batch)."""
+    (serve/executor._run_family_batch).
+    The counterpart of tpu_reductions/bench/family_spot.py:218."""
     from tpu_reductions_torch.serve.engine import ServeEngine
     from tpu_reductions_torch.serve.request import ReduceRequest
 
@@ -248,7 +251,8 @@ def run_family_spot(*, n: int, segments: int, seed: int, reps: int,
                     out: Optional[str] = None, platform: str = "gpu",
                     logger: Optional[BenchLogger] = None) -> List[dict]:
     """The grid and the serving rows, persisted and resumed a cell at a
-    time."""
+    time.
+    The counterpart of tpu_reductions/bench/family_spot.py:256."""
     from tpu_reductions_torch.bench.resume import (Checkpoint,
                                                    run_checkpointed_cells)
     device = device_mod.resolve(platform)
@@ -278,7 +282,8 @@ def run_family_spot(*, n: int, segments: int, seed: int, reps: int,
 def family_spot_markdown(data: dict) -> str:
     """The family grid as one report.md table (bench/regen.py): GB/s per
     (method, dtype, impl) with its verdict, then the serving rows. Empty
-    when there are no rows."""
+    when there are no rows.
+    The counterpart of tpu_reductions/bench/family_spot.py:290."""
     rows = [r for r in data.get("rows", []) if isinstance(r, dict)]
     if not rows:
         return ""
@@ -313,7 +318,8 @@ def family_spot_markdown(data: dict) -> str:
 
 
 def main(argv=None) -> int:
-    """CLI: the family grid into one JSON artifact."""
+    """CLI: the family grid into one JSON artifact.
+    The counterpart of tpu_reductions/bench/family_spot.py:333."""
     p = argparse.ArgumentParser(
         prog="tpu_reductions_torch.bench.family_spot",
         description="Reduction-family spot: SCAN (mxu-scan vs xla-cumsum), "

@@ -1,6 +1,6 @@
 """Mechanical findings: the writeup's narrative, derived from the rows.
 
-The port's copy of tpu_reductions/bench/findings.py. The reference's
+The port's copy of tpu_reductions/bench/findings.py:1. The reference's
 writeup closes with observations written by hand (writeup.tex:19: CUDA
 beats Blue Gene on doubles until about 1024 ranks, Blue Gene overtakes
 CUDA on ints near 500-600 ranks). This module derives the same kinds of
@@ -29,7 +29,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 def pow2_label(n: int) -> str:
     """'2^k' for exact powers of two, the literal value otherwise: the
     sweep's sizes are powers of two (bench.sweep.run_shmoo), but a
-    floored label for anything else would name a size that never ran."""
+    floored label for anything else would name a size that never ran.
+    The counterpart of tpu_reductions/bench/findings.py:31."""
     n = int(n)
     if n > 0 and n & (n - 1) == 0:
         return f"2^{n.bit_length() - 1}"
@@ -56,6 +57,7 @@ def half_power_points(shmoo_rows: Sequence[dict]) -> List[str]:
     large payload, and half of it would call bandwidth-bound HBM rows
     "dispatch-bound". With regime tags present, the asymptote is the
     median HBM-bound rate; without them, the largest-N row's rate.
+    The counterpart of tpu_reductions/bench/findings.py:53.
     """
     import statistics
 
@@ -82,7 +84,8 @@ def l2_cliff(annotated_rows: Sequence[dict]) -> List[str]:
     """The regime boundary of roofline-annotated rows (bench.roofline tags
     each row l2_resident or hbm_bound): the last L2-resident N, the first
     HBM-bound N and the rates across them. The counterpart of
-    findings.vmem_cliff, whose TPU boundary is its VMEM."""
+    findings.vmem_cliff, whose TPU boundary is its VMEM.
+    See tpu_reductions/bench/findings.py:89."""
     lines = []
     for (dtype, method), pts in sorted(_curves(annotated_rows).items()):
         last_l2: Optional[dict] = None
@@ -189,6 +192,7 @@ def derive_findings(rows: Optional[Sequence[dict]] = None,
     `rows` are shmoo rows, ideally roofline-annotated (bench.roofline):
     the half-power points need only (n, gbps); the cliff also needs each
     row's `regime` tag and yields nothing without it.
+    The counterpart of tpu_reductions/bench/findings.py:194.
     """
     lines: List[str] = []
     if rows:

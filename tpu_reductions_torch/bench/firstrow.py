@@ -1,6 +1,6 @@
 """Step 0 of a session on the card: the first verified row, on disk fast.
 
-The counterpart of tpu_reductions/bench/firstrow.py: the shortest path
+The counterpart of tpu_reductions/bench/firstrow.py:1: the shortest path
 from a fresh process to verified evidence on disk, in value order:
 
   1. the headline row: int32 SUM at n = 2^24 through the crowned
@@ -47,7 +47,8 @@ def _mark(marks: list, label: str) -> None:
 
 
 def main(argv=None) -> int:
-    """CLI: step 0 (module docstring)."""
+    """CLI: step 0 (module docstring).
+    The counterpart of tpu_reductions/bench/firstrow.py:60."""
     from tpu_reductions_torch.config import PLATFORMS
 
     p = argparse.ArgumentParser(

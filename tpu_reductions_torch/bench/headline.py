@@ -46,7 +46,8 @@ CANDIDATES = (
 
 
 def on_flagship_geometry(n: int, platform: str) -> bool:
-    """The card, at the headline n: the gate of the snapshot."""
+    """The card, at the headline n: the gate of the snapshot.
+    The counterpart of bench.py:163."""
     return platform == "gpu" and torch.cuda.is_available() \
         and n == HEADLINE_N
 
@@ -54,7 +55,8 @@ def on_flagship_geometry(n: int, platform: str) -> bool:
 def write_snapshot(path: str, payload: dict, per_candidate: dict,
                    device: str) -> None:
     """Persist a fresh verified headline value with its capture time, the
-    device's name and the candidates' rows as provenance."""
+    device's name and the candidates' rows as provenance.
+    The counterpart of bench.py:89."""
     captured = datetime.datetime.now(datetime.timezone.utc).strftime(
         "%Y-%m-%dT%H:%M:%SZ")
     atomic_json_dump(path, {
@@ -70,7 +72,8 @@ def double_spots(path: str, *, n: Optional[int] = None,
                  platform: str = "gpu") -> None:
     """f64 SUM/MIN/MAX chained spots through the pair kernel into `path`,
     each row persisted as it lands; defaults from FLAGSHIP_GRID, so that
-    the rows can be seeded into the flagship grid's cache."""
+    the rows can be seeded into the flagship grid's cache.
+    The counterpart of bench.py:371."""
     from tpu_reductions_torch.bench.resume import Checkpoint
     from tpu_reductions_torch.bench.spot import run_spots
     from tpu_reductions_torch.bench.sweep import FLAGSHIP_GRID

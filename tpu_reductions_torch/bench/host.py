@@ -17,6 +17,9 @@ one NVIDIA GPU.
 All of it is host work bound by the machine the card sits in, so its
 numbers compare only within one run. The last line of the output is one
 JSON object.
+
+No reference analog: the JAX package times no host staging or oracle on its
+own; this probe is the port's, for the card's machine.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ def _seconds(fn, dev=None):
 
 def time_staging(dev, n: int) -> list:
     """Section 1 at n: one row per variant, with its median seconds and
-    GB/s."""
+    GB/s.
+    No reference analog (the module docstring)."""
     from tpu_reductions_torch.ops import kernel_reduce as kr
     from tpu_reductions_torch.ops.registry import get_op
     from tpu_reductions_torch.utils.staging import device_put_chunked
@@ -100,7 +104,8 @@ def time_staging(dev, n: int) -> list:
 
 
 def time_oracle() -> list:
-    """Section 2: fill and SUM oracle on both routes."""
+    """Section 2: fill and SUM oracle on both routes.
+    No reference analog (the module docstring)."""
     from tpu_reductions_torch.ops import oracle
     from tpu_reductions_torch.utils.rng import host_data
 
@@ -134,6 +139,8 @@ def time_oracle() -> list:
 
 
 def main(argv=None) -> int:
+    """CLI: sections 1 and 2 of the module docstring, into --out.
+    No reference analog."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="", help="also write the JSON here")
     args = ap.parse_args(argv)

@@ -49,6 +49,9 @@ It calls only the wrapper API that every tree of the port has, so
 per tree, in turns in one call, compares two trees on one card. The
 kernels' own times are chip_smoke.py's; these are for that comparison.
 The last line of its output is one JSON object.
+
+No reference analog: the JAX package has no per-pass device profile of its
+kernels; each probe here is the port's, on the card.
 """
 
 from __future__ import annotations
@@ -86,7 +89,9 @@ L2_FLUSH_BYTES = 128 << 20
 
 def bits(t: torch.Tensor) -> torch.Tensor:
     """t's bits as integers of its width, for a bit-for-bit comparison
-    (torch.equal calls -0.0 and 0.0 equal)."""
+    (torch.equal calls -0.0 and 0.0 equal).
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     as_int = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
               torch.float64: torch.int64, torch.int32: torch.int32}
     return t.view(as_int[t.dtype])
@@ -95,7 +100,9 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 def device_ms(fn, calls: int = 20, trials: int = 5) -> float:
     """Device time of one fn() call, in ms: the median over `trials` of
     `calls` back-to-back calls between two CUDA events, queued behind a
-    sleep kernel so that host overhead between calls does not count."""
+    sleep kernel so that host overhead between calls does not count.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     fn()
     torch.cuda.synchronize()
     per_call = []
@@ -122,7 +129,9 @@ def kernel_profile(fn, calls: int = PROFILED_CALLS) -> dict:
     launch's µs in launch order (a kernel run twice in a call, as k6's
     two passes are, shows there as two entries); the µs of all kernels;
     and the median span from the first kernel's start to the last one's
-    end. Raises when the profiler saw no device activity."""
+    end. Raises when the profiler saw no device activity.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -164,7 +173,9 @@ def kernel_profile(fn, calls: int = PROFILED_CALLS) -> dict:
 
 def profile_k6_k7(kr, registry, host_data, dev) -> dict:
     """kernel_profile of one k6 call and of one k7 chain (passes and
-    finish) at int32 SUM n = N, default tiling."""
+    finish) at int32 SUM n = N, default tiling.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     op = registry.get_op("SUM")
     tm, p, t = kr.choose_tiling(N, 256, 64, "int32")
     x2d = kr.stage_padded(host_data(N, "int32"), tm, p, t, op, dev)
@@ -177,7 +188,9 @@ def profile_k6_k7(kr, registry, host_data, dev) -> dict:
 
 def host_ms(fn, calls: int = 50) -> float:
     """Host clock per fn() call, in ms, over `calls` back-to-back calls
-    ended by one synchronise: the time a host-bound route takes."""
+    ended by one synchronise: the time a host-bound route takes.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     fn()
     torch.cuda.synchronize()
     # redlint: disable=RED002 -- host_ms is the host clock per call of a host-bound route, printed beside the kernels' CUDA-event times, never as one
@@ -203,7 +216,9 @@ def _dd_staged(host_data, dev):
 def profile_dd(host_data, dev) -> dict:
     """kernel_profile and host_ms of one dd_call (the accumulator) and of
     one reduce of the f64 pair route (its core: the accumulator and the
-    pair finish) at float64 SUM n = N."""
+    pair finish) at float64 SUM n = N.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     dd, hi2d, lo2d, tm, core = _dd_staged(host_data, dev)
     out = {}
     for what, fn in (("dd_call", lambda: dd.dd_call(hi2d, lo2d, "SUM", tm)),
@@ -214,7 +229,9 @@ def profile_dd(host_data, dev) -> dict:
 
 def profile_k8(kr, registry, host_data, dev) -> dict:
     """kernel_profile and host_ms of one k8 call on each of K8_CASES at
-    n = N, default tiling."""
+    n = N, default tiling.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     out = {}
     for dtype, method in K8_CASES:
         op = registry.get_op(method)
@@ -237,7 +254,9 @@ def _smi(query: str) -> str:
 def flusher(kr, registry, dev):
     """A call that reads L2_FLUSH_BYTES of other data through k6, leaving
     L2 with none of a payload read before it and nothing dirty; its
-    `launches` are the CUDA launches of one call."""
+    `launches` are the CUDA launches of one call.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     data = torch.zeros((L2_FLUSH_BYTES // (4 * 128), 128), dtype=torch.int32,
                        device=dev)
     op = registry.get_op("SUM")
@@ -250,7 +269,9 @@ def flusher(kr, registry, dev):
 
 def cold_us(call, flush) -> float:
     """Device µs of call()'s launches right after flush()
-    (kernel_profile, flush()'s own launches left out)."""
+    (kernel_profile, flush()'s own launches left out).
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     def flushed():
         flush()
         call()
@@ -265,7 +286,9 @@ def l2_probe(kr, registry, host_data, dev) -> dict:
     staged payload and on three copies of it (other addresses);
     `cold_us`, one call's kernels right after L2_FLUSH_BYTES of other
     data are read (cold_us). Beside them the SM clock, temperature and
-    power."""
+    power.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     op = registry.get_op("SUM")
     tm, p, t = kr.choose_tiling(N, 256, 64, "bfloat16")
     staged = kr.stage_padded(host_data(N, "bfloat16"), tm, p, t, op, dev)
@@ -296,7 +319,9 @@ def l2_probe(kr, registry, host_data, dev) -> dict:
 
 def profile_k9_k10(kr, registry, host_data, dev) -> dict:
     """kernel_profile of one k10 call at depths 1 and 4 (int32 SUM) and
-    one k9 call (float32 SUM), at n = N, default tiling."""
+    one k9 call (float32 SUM), at n = N, default tiling.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     op = registry.get_op("SUM")
     tm, p, t = kr.choose_tiling(N, 256, 64, "int32")
     x2d = kr.stage_padded(host_data(N, "int32"), tm, p, t, op, dev)
@@ -310,6 +335,9 @@ def profile_k9_k10(kr, registry, host_data, dev) -> dict:
 
 
 def print_profile(profiles: dict) -> None:
+    """Print one kernel_profile's device activity, launch by launch.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     for what, prof in profiles.items():
         host = (f", host {prof['host_ms']:.5f} ms a call" if "host_ms" in prof
                 else "")
@@ -333,7 +361,9 @@ def _print_row(row: dict) -> None:
 def time_cases(kr, registry, host_data, dev) -> list:
     """CUDA-event times of k6, one k7 pass and the k7 chain with finish,
     beside torch's reduction of the same staged tensor, for CASES at
-    n = N."""
+    n = N.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     rows = []
     for dtype, method in CASES:
         op = registry.get_op(method)
@@ -359,7 +389,9 @@ def time_cases(kr, registry, host_data, dev) -> list:
 def time_race_k7(kr, registry, host_data, dev) -> list:
     """CUDA-event times of one k7 pass and of the k7 chain with finish at
     each k7 (--threads, --maxblocks) of the RACES' grids, on the payload
-    that race reduces."""
+    that race reduces.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     from tpu_reductions_torch.bench.autotune import GRIDS
     from tpu_reductions_torch.config import KERNEL_TWO_PASS
     op = registry.get_op("SUM")
@@ -393,7 +425,9 @@ def time_k8_k10_k9_dd(kr, registry, host_data, dev) -> list:
     SUM and dd (f64 SUM: the accumulator, the route's reduce and the
     torch tree over the accumulator; its library call sums the native f64
     payload) at n = N, default tiling; then k8 and k10 at HBM_STREAM's
-    tiles and depths on int32 SUM n = HBM_N."""
+    tiles and depths on int32 SUM n = HBM_N.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     op = registry.get_op("SUM")
     rows = []
     for dtype in MXU_DTYPES:
@@ -439,7 +473,9 @@ def sweep_plans(kr, registry, host_data, dev) -> list:
     a quarter to one CTA per SM, in clusters of 1 or 8; one k7 pass over
     P = 64, 32, 16 and 2 equal spans at 1 to 8 CTAs a cluster; and the k7
     chain's two small passes (512 and 16 rows, P = 2 and 1, 256-row
-    spans) at 1, 2 and 8. Needs a tree with kernel_reduce.SpanPlan."""
+    spans) at 1, 2 and 8. Needs a tree with kernel_reduce.SpanPlan.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     from tpu_reductions_torch.ops import _cuda
     rows_out = []
     sms = kr._sm_count(dev)
@@ -499,7 +535,9 @@ def sweep_k9_k10(kr, registry, host_data, dev) -> list:
     half and twice the planned splits (other splits add in another
     order: timed only); k9 (both passes, float32/float64/bfloat16 SUM)
     with runs of half and twice the planned run. Needs a tree with
-    kernel_reduce.plan_k10 and plan_k9."""
+    kernel_reduce.plan_k10 and plan_k9.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     from tpu_reductions_torch.ops import _cuda
     op = registry.get_op("SUM")
     sms = kr._sm_count(dev)
@@ -560,7 +598,9 @@ def sweep_k8(kr, registry, host_data, dev) -> list:
     and in a second launch, at the default unroll; on int32, float32,
     float64 and bfloat16 SUM at TM 256, every unroll of K8_UNROLLS. The
     splits are plan_splits' (the same order of adds, so the same bits).
-    Needs a tree with kernel_reduce.plan_k8."""
+    Needs a tree with kernel_reduce.plan_k8.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     from tpu_reductions_torch.ops import _cuda
     op = registry.get_op("SUM")
     sms = kr._sm_count(dev)
@@ -608,7 +648,9 @@ def sweep_dd(host_data, dev) -> list:
     with the scalar pair, at 1 to 8 splits (other splits add in another
     order: timed only) and 2048 to 8192 pass-2 threads, each with its
     launches' device times (kernel_profile). Needs a tree with
-    dd_reduce.plan_dd."""
+    dd_reduce.plan_dd.
+    No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     from tpu_reductions_torch.ops import _cuda
     dd, hi2d, lo2d, tm, _ = _dd_staged(host_data, dev)
     planned = dd.plan_dd(hi2d.shape[0] // tm, tm, dd._sm_count(dev))
@@ -635,6 +677,9 @@ def sweep_dd(host_data, dev) -> list:
 
 
 def main(argv=None) -> int:
+    """CLI: the probes of the module docstring for one tree, or for two in
+    turns. No reference analog: a card-only probe of the port's kernels
+    (bench/passes.py)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package-root", default=str(Path(__file__)
                                                   .resolve().parents[2]),

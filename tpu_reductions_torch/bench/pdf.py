@@ -1,6 +1,6 @@
 """The compiled writeup, writeup.pdf, without a TeX stack.
 
-The port's copy of tpu_reductions/bench/pdf.py. The reference ships its
+The port's copy of tpu_reductions/bench/pdf.py:1. The reference ships its
 writeup twice: the LaTeX source (writeup.tex:1-31) and the compiled
 writeup.pdf. bench.report writes the source half (report.md and a
 compilable report.tex); this module writes the PDF with matplotlib's
@@ -134,6 +134,7 @@ def generate_pdf(out_dir: str | Path, pdf_path: str | Path | None = None,
 
     Without matplotlib (as on a host that lacks it) this prints a skip
     note and returns None: the report and figures already written stand.
+    The counterpart of tpu_reductions/bench/pdf.py:127.
     """
     try:
         import matplotlib

@@ -1,6 +1,6 @@
 """Figures: the reference's makePlots.gp.
 
-The port's copy of tpu_reductions/bench/plot.py. The reference renders
+The port's copy of tpu_reductions/bench/plot.py:1. The reference renders
 EPS figures with gnuplot (mpi/makePlots.gp:1-39): per-dtype
 bandwidth-vs-ranks curves for the three MPI ops, with the CUDA single-GPU
 numbers overlaid as horizontal lines (`f(x)=90.8413`,
@@ -67,6 +67,7 @@ def plot_vs_ranks(avgs: Dict[Key, float], dtype_name: str,
 
     single_chip_lines: {label: GB/s} constants drawn as horizontal lines,
     the reference's CUDA overlay, here carrying the single-card numbers.
+    The counterpart of tpu_reductions/bench/plot.py:61.
     """
     series = {(dt, op): [] for (dt, op, _) in avgs if dt == dtype_name}
     for (dt, op, ranks), gbps in sorted(avgs.items()):
@@ -169,6 +170,7 @@ def plot_scaling_shape(series: Dict[str, Sequence[tuple]],
 
     series: {label: [(ranks, gbps), ...]}; empty/zero-lead series are
     skipped. Returns [] when nothing is plottable.
+    The counterpart of tpu_reductions/bench/plot.py:161.
     """
     norm = {}
     for label, pts in series.items():

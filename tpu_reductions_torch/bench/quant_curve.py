@@ -1,6 +1,6 @@
 """The accuracy-vs-bandwidth curve of the quantized collectives.
 
-The counterpart of tpu_reductions/bench/quant_curve.py. The quantized
+The counterpart of tpu_reductions/bench/quant_curve.py:1. The quantized
 suite (collectives/quant.py, the EQuARX wire) trades wire bytes for a
 bounded accumulation error; this instrument measures both sides of that
 trade on one grid:
@@ -58,7 +58,8 @@ def curve_cells(ranks=DEFAULT_RANKS, bits: Optional[tuple] = None
                 ) -> List[tuple]:
     """The (method, dtype, bits, ranks) grid in artifact order: SUM
     first (its rows carry the bound story), then MIN and MAX; the rank
-    ladder innermost, like submit_all.sh's node fan-out."""
+    ladder innermost, like submit_all.sh's node fan-out.
+    The counterpart of tpu_reductions/bench/quant_curve.py:59."""
     cells = []
     for dtype in SUM_DTYPES:
         for b in (bits or SUM_BITS):
@@ -119,7 +120,8 @@ def measure_cell(method: str, dtype: str, bits: int, k: int, n: int,
     on `platform`, its result against the float64 host oracle, the error
     beside the declared bound and the registry's wire accounting. SUM
     passes within its bound, MIN/MAX only when exact, and either only
-    when every replica holds rank 0's bits (compared on the device)."""
+    when every replica holds rank 0's bits (compared on the device).
+    The counterpart of tpu_reductions/bench/quant_curve.py:83."""
     import numpy as np
     import torch
 
@@ -203,7 +205,8 @@ def run_curve(*, n: int, seed: int, ranks=DEFAULT_RANKS,
               logger: Optional[BenchLogger] = None) -> List[dict]:
     """The grid, each cell persisted as it lands and resumed from an
     interrupted `out` (bench/resume.run_checkpointed_cells). Returns the
-    rows in grid order."""
+    rows in grid order.
+    The counterpart of tpu_reductions/bench/quant_curve.py:208."""
     from tpu_reductions_torch.bench.resume import (Checkpoint,
                                                    run_checkpointed_cells)
     logger = logger or BenchLogger(None, None)
@@ -234,7 +237,8 @@ def run_curve(*, n: int, seed: int, ranks=DEFAULT_RANKS,
 def quant_curve_markdown(data: dict) -> str:
     """The report fold (bench/regen.py): one row per (op, dtype, bits) at
     its worst rung. The wire factors are registry constants that both
-    sides scale by (k-1)/k, so the rank axis only moves the error."""
+    sides scale by (k-1)/k, so the rank axis only moves the error.
+    The counterpart of tpu_reductions/bench/quant_curve.py:239."""
     rows = [r for r in data.get("rows", []) if isinstance(r, dict)]
     if not rows:
         return ""
@@ -267,6 +271,8 @@ def quant_curve_markdown(data: dict) -> str:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The CLI's parser: the flags that
+    tpu_reductions/bench/quant_curve.py:278 parses in its main."""
     p = argparse.ArgumentParser(
         prog="tpu_reductions_torch.bench.quant_curve",
         description="Accuracy-vs-bandwidth curve of the quantized "
@@ -293,7 +299,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     """CLI: bits x rank count x op into one JSON artifact. Exit 0 when
-    every cell PASSED, 1 otherwise, 2 on a usage error."""
+    every cell PASSED, 1 otherwise, 2 on a usage error.
+    The counterpart of tpu_reductions/bench/quant_curve.py:278."""
     p = build_parser()
     ns = p.parse_args(argv)
     from tpu_reductions_torch.exec.core import maybe_arm

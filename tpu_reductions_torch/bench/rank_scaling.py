@@ -29,6 +29,8 @@ links, and the JSON's note says so. The reference's torus rows are
 plotted as a shape (each curve over its own smallest rung), never as
 absolute rates beside ours. --dryrun rehearses the whole run on the CPU
 with one retry; without --dryrun and without a card it raises.
+
+Its steps: scripts/run_rank_scaling.sh:1-129.
 """
 
 from __future__ import annotations
@@ -74,7 +76,8 @@ def run_rank_scaling(out_dir: str | Path, *, ranks: Sequence[int],
     scaling_shape.json object, "figures": paths, "quant": quant curve
     rows, "reshard": reshard curve rows, "sweep": sweep rows,
     "probe_dropped": the probe's n with no PASSED retry, "seconds": each
-    stage's host seconds}."""
+    stage's host seconds}.
+    The counterpart of scripts/run_rank_scaling.sh:22-129."""
     from tpu_reductions_torch.bench import quant_curve, reshard_curve
     from tpu_reductions_torch.bench.aggregate import (average, collect,
                                                       pipeline)
@@ -175,6 +178,8 @@ def run_rank_scaling(out_dir: str | Path, *, ranks: Sequence[int],
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The CLI's parser: the knobs of scripts/run_rank_scaling.sh:15 (its
+    usage line) as flags."""
     p = argparse.ArgumentParser(
         prog="tpu_reductions_torch.bench.rank_scaling",
         description="The rank-scaling experiment: the collective sweep "
@@ -213,7 +218,8 @@ def _ints(p, flag: str, text: str) -> tuple:
 def main(argv=None) -> int:
     """CLI: exit 0 when every sweep row and curve cell PASSED (a WAIVED
     sweep row allowed) and every probe rung had a PASSED retry, 1
-    otherwise, 2 on a usage error."""
+    otherwise, 2 on a usage error.
+    The counterpart of scripts/run_rank_scaling.sh:15."""
     p = build_parser()
     ns = p.parse_args(argv)
     if ns.ranks:

@@ -1,6 +1,6 @@
 """Offline regeneration of an experiment's report artifacts.
 
-The port's copy of tpu_reductions/bench/regen.py. bench/experiment.py
+The port's copy of tpu_reductions/bench/regen.py:1. bench/experiment.py
 writes report.md, report.tex and writeup.pdf only at its own end, so a
 run cut short leaves fresh grid cells and curve rows under a stale
 report, and bench/seed_cache.py can add grid cells with no experiment
@@ -54,7 +54,8 @@ def collect_averages(grid_dir: Path, grid: dict | None = None,
                      log=print) -> Dict[Tuple[str, str], float]:
     """{(DATATYPE, OP): mean GB/s} from the grid's cells: contract
     cells first, other PASSED cells at the flagship geometry as the
-    fallback that the log names."""
+    fallback that the log names.
+    The counterpart of tpu_reductions/bench/regen.py:43."""
     grid = dict(grid or FLAGSHIP_GRID)
     contract = {k: grid[k] for k in ("n", "backend", "kernel", "threads",
                                      "iterations", "timing",
@@ -139,7 +140,8 @@ def _reshard_curve_table(data: dict) -> str:
 def regenerate(out_dir: str | Path, device_kind: str | None = None,
                log=print) -> bool:
     """Re-collate out_dir's report artifacts from disk. Returns False,
-    and does nothing, when out_dir holds no experiment data."""
+    and does nothing, when out_dir holds no experiment data.
+    The counterpart of tpu_reductions/bench/regen.py:169."""
     out = Path(out_dir)
     grid_dir = out / "single_chip"
     shmoo_file = out / "shmoo.json"
@@ -274,6 +276,7 @@ def main(argv=None) -> int:
     device.
 
         python -m tpu_reductions_torch.bench.regen OUT [--device-kind KIND]
+    The counterpart of tpu_reductions/bench/regen.py:450.
     """
     p = argparse.ArgumentParser(
         prog="tpu_reductions_torch.bench.regen",

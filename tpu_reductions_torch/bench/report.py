@@ -1,6 +1,6 @@
 """The generated report: the reference's writeup.tex.
 
-The port's copy of tpu_reductions/bench/report.py. The reference's
+The port's copy of tpu_reductions/bench/report.py:1. The reference's
 terminal artifact is a LaTeX report embedding its two EPS bandwidth
 figures with a findings narrative (writeup.tex:1-31, figures at :21-28).
 Here the report is generated from the measured data: report.md and a
@@ -271,7 +271,8 @@ def load_experiment(out_dir: str | Path,
     redone offline). Returns {avgs, single_chip, calibration, figures,
     roofline, annotated_rows, device}; shared by the md/tex regenerator
     (main) and the PDF (bench.pdf). Raises FileNotFoundError when the
-    out_dir holds no experiment."""
+    out_dir holds no experiment.
+    The counterpart of tpu_reductions/bench/report.py:262."""
     import json
 
     from tpu_reductions_torch.bench.aggregate import average, collect
@@ -326,7 +327,9 @@ def load_experiment(out_dir: str | Path,
 
 def read_device(out_dir: str | Path) -> Optional[str]:
     """The device line the live run recorded in <out_dir>/device.txt
-    (bench/experiment.py), or None."""
+    (bench/experiment.py), or None.
+    The counterpart of the device kind the JAX script passes on
+    (scripts/run_tpu_experiment.sh:234)."""
     try:
         return (Path(out_dir) / "device.txt").read_text().strip() or None
     except OSError:
@@ -338,6 +341,7 @@ def main(argv=None) -> int:
     is measured again.
 
         python -m tpu_reductions_torch.bench.report OUT [--calibration cal.json]
+    The counterpart of tpu_reductions/bench/report.py:324.
     """
     import argparse
 

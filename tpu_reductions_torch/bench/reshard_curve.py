@@ -1,6 +1,6 @@
 """The redistribution curve: reshard GB/s x ranks x spec pairs.
 
-The counterpart of tpu_reductions/bench/reshard_curve.py, on the port's
+The counterpart of tpu_reductions/bench/reshard_curve.py:1, on the port's
 reshard engine (tpu_reductions_torch/reshard/). For every (source,
 target) spec pair and rank count, the planner picks the cheapest
 primitive program under the memory bound, the executor runs it on the
@@ -77,7 +77,8 @@ def curve_cells(ranks=DEFAULT_RANKS, quant_bits: Optional[int] = 8
                 ) -> List[tuple]:
     """The (pair, wire, ranks) grid in artifact order: the exact rows of
     every pair, then the quantized rows of the wire-heavy pairs, the
-    rank ladder innermost."""
+    rank ladder innermost.
+    The counterpart of tpu_reductions/bench/reshard_curve.py:71."""
     cells = []
     for name, _, _ in PAIRS:
         for k in ranks:
@@ -95,7 +96,8 @@ def measure_cell(pair: str, wire: str, k: int, n: int, rows: int,
     """One curve cell: plan, execute on a k-rank mesh on `platform`,
     verify every rank against the oracle, account the memory. PASSED
     only when every rank's block is right within the declared bound and
-    the accounted peak-memory factor is within the plan's."""
+    the accounted peak-memory factor is within the plan's.
+    The counterpart of tpu_reductions/bench/reshard_curve.py:89."""
     import numpy as np
 
     from tpu_reductions_torch.reshard import (execute_plan, make_mesh,
@@ -162,7 +164,8 @@ def run_curve(*, n: int, rows: int, seed: int, ranks=DEFAULT_RANKS,
               logger: Optional[BenchLogger] = None) -> List[dict]:
     """The grid, each cell persisted as it lands and resumed from an
     interrupted `out` (bench/resume.run_checkpointed_cells). Returns the
-    rows in grid order."""
+    rows in grid order.
+    The counterpart of tpu_reductions/bench/reshard_curve.py:160."""
     from tpu_reductions_torch.bench.resume import (Checkpoint,
                                                    run_checkpointed_cells)
     logger = logger or BenchLogger(None, None)
@@ -203,7 +206,8 @@ def reshard_curve_markdown(data: dict) -> str:
     tallest rank rung: GB/s, the planner's wire against the naive one,
     and the accounted against the declared memory factor (the JAX
     package's table, word for word); rows from the card add a column,
-    the allocator's peak factor with the ops' temporaries."""
+    the allocator's peak factor with the ops' temporaries.
+    The counterpart of tpu_reductions/bench/reshard_curve.py:204."""
     rows = [r for r in data.get("rows", []) if isinstance(r, dict)]
     if not rows:
         return ""
@@ -248,6 +252,8 @@ def reshard_curve_markdown(data: dict) -> str:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The CLI's parser: the flags that
+    tpu_reductions/bench/reshard_curve.py:244 parses in its main."""
     p = argparse.ArgumentParser(
         prog="tpu_reductions_torch.bench.reshard_curve",
         description="Redistribution GB/s x ranks x (source, target) "
@@ -281,7 +287,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     """CLI: the spec-pair x rank-count redistribution sweep into one JSON
     artifact. Exit 0 when every cell PASSED, 1 otherwise, 2 on a usage
-    error."""
+    error.
+    The counterpart of tpu_reductions/bench/reshard_curve.py:244."""
     p = build_parser()
     ns = p.parse_args(argv)
     from tpu_reductions_torch.exec.core import maybe_arm

@@ -1,6 +1,6 @@
 """Checkpoint and resume of a race's or a stream's `--out` artifact.
 
-The counterpart of tpu_reductions/bench/resume.py, with its ledger
+The counterpart of tpu_reductions/bench/resume.py:1, with its ledger
 events (`resume.decision`, `resume.reuse`, `artifact.persist`):
 `Checkpoint` (one artifact `{**meta, "complete": bool,
 <rows_key>: [...]}`, written atomically after every row; a re-invocation
@@ -31,7 +31,8 @@ from tpu_reductions_torch.utils.qa import QAStatus
 def default_reusable(row: dict) -> bool:
     """A persisted row may stand in for a measurement when it is verified
     or waived by design (smoke manifests spell that `ok`); FAILED rows,
-    and rows with no verdict, run again."""
+    and rows with no verdict, run again.
+    The counterpart of tpu_reductions/bench/resume.py:43."""
     if row.get("ok") is True:
         return True
     return row.get("status") in ("PASSED", "WAIVED")
@@ -42,7 +43,8 @@ def prior_artifact(path: Optional[str | os.PathLike],
     """The artifact an interrupted run left at `path`, parsed, or None:
     it must exist, parse, be marked `complete: false`, and hold every
     meta key as given (Checkpoint's rule, for a one-row artifact such as
-    bench/firstrow.py's)."""
+    bench/firstrow.py's).
+    The counterpart of tpu_reductions/bench/resume.py:57."""
     if path is None or not os.path.exists(path):
         return None
     try:
@@ -60,7 +62,8 @@ def prior_artifact(path: Optional[str | os.PathLike],
 
 
 class Checkpoint:
-    """Atomic, idempotent row persistence behind one `--out` artifact."""
+    """Atomic, idempotent row persistence behind one `--out` artifact.
+    The counterpart of tpu_reductions/bench/resume.py:83."""
 
     def __init__(self, path: Optional[str | os.PathLike], meta: dict, *,
                  key_fn: Callable[[dict], object],
@@ -104,7 +107,8 @@ class Checkpoint:
                ) -> Optional[dict]:
         """The prior run's row for `key`, if there is one and `reusable`
         accepts it; the caller skips the measurement and `add()`s the row
-        unchanged."""
+        unchanged.
+        The counterpart of tpu_reductions/bench/resume.py:139."""
         row = self._prior.get(key)
         if row is not None and reusable(row):
             ledger.emit("resume.reuse", key=str(key), path=self.path)
@@ -112,12 +116,14 @@ class Checkpoint:
         return None
 
     def add(self, row: dict, extra: Optional[dict] = None) -> None:
-        """Append one row and persist the artifact as incomplete."""
+        """Append one row and persist the artifact as incomplete.
+        The counterpart of tpu_reductions/bench/resume.py:158."""
         self.rows.append(row)
         self._persist(complete=False, extra=extra)
 
     def finalize(self, extra: Optional[dict] = None) -> None:
-        """Mark the artifact complete."""
+        """Mark the artifact complete.
+        The counterpart of tpu_reductions/bench/resume.py:168."""
         self._persist(complete=True, extra=extra)
 
     def _persist(self, complete: bool, extra: Optional[dict]) -> None:
@@ -138,7 +144,8 @@ def run_checkpointed_cells(ck: Checkpoint, cells, measure,
     the prior run's row when the Checkpoint takes it, else
     `measure(key)`; either way `add()`ed, then `on_row(key, row)`; the
     artifact is finalized once the grid is done. Returns the rows in grid
-    order."""
+    order.
+    The counterpart of tpu_reductions/bench/resume.py:191."""
     rows: List[dict] = []
     for key in cells:
         row = ck.resume(key)
@@ -155,7 +162,8 @@ def run_checkpointed_cells(ck: Checkpoint, cells, measure,
 def load_cell(path: str | os.PathLike) -> dict:
     """One sweep-grid cell file as a dict; {} when it is absent, truncated
     or not an object, so the caller measures the cell again (the read
-    half of sweep_all's resume, shared with seed_cache)."""
+    half of sweep_all's resume, shared with seed_cache).
+    The counterpart of tpu_reductions/bench/resume.py:218."""
     try:
         data = json.loads(Path(path).read_text())
     except (OSError, ValueError):
@@ -165,7 +173,8 @@ def load_cell(path: str | os.PathLike) -> dict:
 
 def store_cell(path: str | os.PathLike, row: dict) -> None:
     """Persist one sweep-grid cell atomically, as one compact JSON line
-    (the write half of sweep_all's resume and of seed_cache)."""
+    (the write half of sweep_all's resume and of seed_cache).
+    The counterpart of tpu_reductions/bench/resume.py:232."""
     atomic_json_dump(path, row, indent=None)
     ledger.emit("artifact.persist", path=os.fspath(path), rows=1,
                 complete=True, grain="cell")
@@ -175,7 +184,8 @@ def result_from_row(cfg, row: dict) -> BenchResult:
     """A BenchResult from a persisted row, so that resumed candidates rank
     beside fresh ones. Only what ranking and reporting read (gbps, status,
     identity) is real; the oracle fields are nan, since the row was
-    verified when it was measured."""
+    verified when it was measured.
+    The counterpart of tpu_reductions/bench/resume.py:245."""
     gbps = row.get("gbps")
     gbps = (float(gbps) if isinstance(gbps, (int, float))
             and math.isfinite(gbps) else 0.0)

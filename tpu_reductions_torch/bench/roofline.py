@@ -1,6 +1,6 @@
 """Roofline accounting of bandwidth rows, with the card's memory model.
 
-The port's copy of tpu_reductions/bench/roofline.py. The reference judged
+The port's copy of tpu_reductions/bench/roofline.py:1. The reference judged
 its kernel against its GPU's memory bandwidth (about 90% of it at
 n = 2^24, reduction_kernel.cu:74-127 against mpi/CUdata.txt); this module
 does the same for shmoo rows, mechanically, so a generated report never
@@ -40,7 +40,8 @@ def _model(kind: str) -> dict:
 def annotate(shmoo_rows: Sequence[dict],
              device_kind: Optional[str] = None) -> List[dict]:
     """Each shmoo row (BenchResult.to_dict()) with its working set, its
-    regime and, when HBM-bound, its fraction of the HBM roof."""
+    regime and, when HBM-bound, its fraction of the HBM roof.
+    The counterpart of tpu_reductions/bench/roofline.py:41."""
     kind = device_kind or _DEFAULT_KIND
     model = _model(kind)
     out = []
@@ -59,7 +60,8 @@ def annotate(shmoo_rows: Sequence[dict],
 
 def summarize(annotated: Sequence[dict]) -> List[str]:
     """Roofline lines for the report: per (dtype, method), the best
-    HBM-bound fraction and the L2-resident peak."""
+    HBM-bound fraction and the L2-resident peak.
+    The counterpart of tpu_reductions/bench/roofline.py:65."""
     lines: List[str] = []
     keys = sorted({(r["dtype"], r["method"]) for r in annotated})
     if annotated:

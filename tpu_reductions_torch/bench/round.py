@@ -54,7 +54,8 @@ def device_probe(timeout_s: float = DEVICE_PROBE_TIMEOUT_S) -> str | None:
     """The card's first contact in a preflight subprocess
     (utils/preflight.py), so a hung device cannot hang this process: None
     when LIVE, else one line saying whether the probe hung or failed to
-    initialize, with its detail."""
+    initialize, with its detail.
+    The counterpart of bench.py:37."""
     from tpu_reductions_torch.utils import preflight
     record = preflight.run_preflight(timeout_s=timeout_s)
     if record["verdict"] == preflight.LIVE:
@@ -70,7 +71,8 @@ def _label(n: int) -> str:
 
 
 def payload(results: list, n: int) -> dict:
-    """The metric line: the best PASSED candidate's GB/s (0.0 if none)."""
+    """The metric line: the best PASSED candidate's GB/s (0.0 if none).
+    The line that bench.py:174 prints."""
     from tpu_reductions_torch.bench.headline import BASELINE_GBPS
     value = round(max((r.gbps for r in results if r.passed), default=0.0),
                   4)
@@ -82,7 +84,8 @@ def payload(results: list, n: int) -> dict:
 
 def provenance(done) -> dict:
     """Per candidate: its GB/s, status and, from its positive slopes, the
-    spread [slowest, fastest] of its reps."""
+    spread [slowest, fastest] of its reps.
+    The per-candidate rows of bench.py:174."""
     out = {}
     for cfg, res in done:
         entry = {"gbps": (round(res.gbps, 1) if math.isfinite(res.gbps)
@@ -98,7 +101,8 @@ def provenance(done) -> dict:
 
 
 def main(argv=None) -> int:
-    """CLI: the round metric (module docstring)."""
+    """CLI: the round metric (module docstring).
+    The counterpart of bench.py:174."""
     from tpu_reductions_torch.config import PLATFORMS
 
     p = argparse.ArgumentParser(prog="tpu_reductions_torch.bench.round",

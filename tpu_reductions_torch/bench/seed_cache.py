@@ -1,6 +1,6 @@
 """Seed the flagship grid's cache from spot artifacts.
 
-The port's copy of tpu_reductions/bench/seed_cache.py. A spot scoreboard
+The port's copy of tpu_reductions/bench/seed_cache.py:1. A spot scoreboard
 (the JAX package's bench/spot.py; the port's waits for its port) may hold
 PASSED rows measured at exactly the flagship grid's contract
 (sweep.FLAGSHIP_GRID, checked by the same cell_matches as sweep_all's
@@ -41,7 +41,8 @@ def seed(spot_path: str | Path, grid_dir: str | Path,
     """Seed grid_dir/raw_output from one spot artifact; returns the
     cell files written. Rows off the grid contract are skipped (a
     kernel-7 spot never passes for a kernel-6 cell); live cells are
-    never overwritten, only empty slots and other-configuration cells."""
+    never overwritten, only empty slots and other-configuration cells.
+    The counterpart of tpu_reductions/bench/seed_cache.py:47."""
     grid = dict(grid or FLAGSHIP_GRID)
     contract = {k: grid[k] for k in ("n", "backend", "kernel", "threads",
                                      "iterations", "timing",
@@ -95,6 +96,7 @@ def main(argv=None) -> int:
     """CLI: move flagship-contract spot rows into the grid's cache.
 
         python -m tpu_reductions_torch.bench.seed_cache SPOT.json ... --grid-dir OUT/single_chip
+    The counterpart of tpu_reductions/bench/seed_cache.py:111.
     """
     p = argparse.ArgumentParser(
         prog="tpu_reductions_torch.bench.seed_cache",

@@ -1,7 +1,7 @@
 """Smoke test: one small verified run of every kernel surface the races
 and the family would otherwise meet first.
 
-The counterpart of tpu_reductions/bench/smoke.py. There it front-loads
+The counterpart of tpu_reductions/bench/smoke.py:1. There it front-loads
 the discovery of a Mosaic lowering failure; here each case builds (at the
 first launch of its library) and runs one chained, oracle-verified row
 of a kernel geometry the races use (k10 at depths 2, 4, 8; k9 on f32 and
@@ -118,7 +118,8 @@ def run_smoke(n: int = 1 << 20, logger: Optional[BenchLogger] = None,
               platform: str = "gpu") -> List[dict]:
     """Each case once at n; the manifest rows, each passed to on_result
     as it lands. `resume(name)` gives an interrupted run's row, which is
-    reused."""
+    reused.
+    The counterpart of tpu_reductions/bench/smoke.py:119."""
     # imported here, so that tests can replace driver.run_benchmark
     from tpu_reductions_torch.bench import driver
     from tpu_reductions_torch.exec import core as exec_core
@@ -166,7 +167,8 @@ def run_smoke(n: int = 1 << 20, logger: Optional[BenchLogger] = None,
 
 
 def main(argv=None) -> int:
-    """CLI: every case at n, into a pass/fail manifest."""
+    """CLI: every case at n, into a pass/fail manifest.
+    The counterpart of tpu_reductions/bench/smoke.py:203."""
     from tpu_reductions_torch.bench.resume import Checkpoint
 
     p = argparse.ArgumentParser(

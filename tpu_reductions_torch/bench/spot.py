@@ -1,7 +1,7 @@
 """Spot checks: several methods at one fixed kernel geometry, one JSON
 artifact.
 
-The counterpart of tpu_reductions/bench/spot.py: each method runs the
+The counterpart of tpu_reductions/bench/spot.py:1: each method runs the
 benchmark driver's chained, oracle-verified row at the same geometry, and
 its row is persisted the moment it lands. It measures op effects (is MIN
 slower than SUM at one geometry?) and gives the double scoreboard (f64
@@ -50,7 +50,8 @@ def run_spots(base: ReduceConfig, methods: List[str],
     """Run `methods` one after another at base's geometry; each row goes
     to on_result as soon as it verifies. `resume(method)`, when given,
     returns an interrupted run's reusable row, and the method is not
-    measured again."""
+    measured again.
+    The counterpart of tpu_reductions/bench/spot.py:50."""
     # imported here, so that tests can replace driver.run_benchmark
     from tpu_reductions_torch.bench.driver import crash_result, run_benchmark
     from tpu_reductions_torch.exec import core as exec_core
@@ -84,7 +85,8 @@ def run_spots(base: ReduceConfig, methods: List[str],
 
 
 def main(argv=None) -> int:
-    """CLI: several methods at one fixed geometry, chained and verified."""
+    """CLI: several methods at one fixed geometry, chained and verified.
+    The counterpart of tpu_reductions/bench/spot.py:105."""
     from tpu_reductions_torch.bench.resume import Checkpoint
 
     p = argparse.ArgumentParser(

@@ -1,7 +1,7 @@
 """The streaming-pipeline probe: sustained GB/s and chunks/s, with resume
 and a serial stage-then-reduce comparator.
 
-The counterpart of tpu_reductions/bench/stream.py. It measures
+The counterpart of tpu_reductions/bench/stream.py:1. It measures
 ops/stream.py's pipeline: bounded chunks copied to the card while the
 previous chunk is folded, the running partial fetched every `sync_every`
 chunks. So it reports a sustained rate over the wall clock to the final
@@ -54,7 +54,8 @@ def run_serial_baseline(flat: torch.Tensor, method: str, *,
                         device: torch.device) -> dict:
     """The comparator: every chunk staged to completion (synchronized),
     then every fold, then the materialization; one device buffer per
-    chunk. The overlap is all that differs from run_stream."""
+    chunk. The overlap is all that differs from run_stream.
+    The counterpart of tpu_reductions/bench/stream.py:64."""
     flat = flat.reshape(-1)
     dtype = dtype_name(flat.dtype)
     chunks = plan_chunks(flat.numel(), dtype, chunk_bytes).num_chunks
@@ -97,7 +98,8 @@ def run_stream_benchmark(method: str, dtype: str, n: int, *,
     """One streamed reduction end to end: payload, resume lookup, the
     pipeline with checkpoints, the oracle's verdict and the optional
     serial comparator. Returns the final row. Shared by this module's CLI
-    and the driver's --stream."""
+    and the driver's --stream.
+    The counterpart of tpu_reductions/bench/stream.py:107."""
     dtype = DTYPE_ALIASES[dtype]
     device = device_mod.resolve(platform, device_index)
     reducer = StreamReducer(method, dtype, n, chunk_bytes=chunk_bytes,
@@ -212,7 +214,8 @@ def stream_markdown(probes: dict) -> str:
     """The streaming-pipeline table of report.md: pure formatting over
     probe artifacts, {label: parsed artifact}, one row from each one's
     final row (bench/regen.py folds stream_probe.json and
-    stream_hazard.json from the experiment dir)."""
+    stream_hazard.json from the experiment dir).
+    The counterpart of tpu_reductions/bench/stream.py:245."""
     lines = ["## streaming pipeline (committed probes)", "",
              "| probe | method/dtype | n | chunks | GB/s sustained "
              "| chunks/s | overlap | status |",
@@ -244,7 +247,8 @@ def stream_markdown(probes: dict) -> str:
 
 def main(argv=None) -> int:
     """CLI entry: one streamed reduction, one resumable JSON artifact;
-    exit 0 when it PASSED."""
+    exit 0 when it PASSED.
+    The counterpart of tpu_reductions/bench/stream.py:283."""
     p = argparse.ArgumentParser(
         prog="tpu_reductions_torch.bench.stream",
         description="Streaming-pipeline probe: double-buffered chunked "

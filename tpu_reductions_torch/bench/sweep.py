@@ -1,7 +1,7 @@
 """The size sweeps (`--shmoo`), the experiment sweep (`sweep_all`) and
 the collective sweeps.
 
-The counterpart of tpu_reductions/bench/sweep.py, with the same sizes,
+The counterpart of tpu_reductions/bench/sweep.py:1, with the same sizes,
 iteration counts, per-cell chained spans, cache files and resume rules.
 `run_shmoo` gives one verified row per n = 2^min..2^max; `sweep_all` runs
 {dtypes} x {methods} x `repeats` cells at one n and caches each verified
@@ -57,7 +57,8 @@ def cell_matches(row: dict, *, method: str, dtype: str, n: int,
     sweep configuration: sweep_all's resume test, shared with seed_cache
     and regen. A cached row holds what ran (the resolved backend, never
     "auto"; the resolved discipline), so the probe is resolved the same
-    way. Touches no device."""
+    way. Touches no device.
+    The counterpart of tpu_reductions/bench/sweep.py:46."""
     probe = ReduceConfig(method=method, dtype=dtype, backend=backend,
                          timing=timing, chain_reps=chain_reps,
                          threads=threads, kernel=kernel)
@@ -87,6 +88,7 @@ def run_shmoo(cfg: ReduceConfig, *, min_pow: int = 10, max_pow: int = 24,
     crash contained to its row. The other timing modes run as one batch
     (driver.run_benchmark_batch), every timed loop before any result is
     fetched, with max(3, min(iterations, 2^28 // n)) iterations a cell.
+    The counterpart of tpu_reductions/bench/sweep.py:76.
     """
     logger = logger or BenchLogger(cfg.log_file, cfg.master_log)
     cfgs = []
@@ -302,7 +304,8 @@ def shmoo_collective(*, method: str = "SUM", dtype: str = "float64",
     """Payload-size sweep of the collective at one rank count, n =
     2^min_pow..2^max_pow: the bandwidth-vs-N axis the reference's MPI
     side never had (its payload was constants.h's fixed 2 GiB). Each row
-    carries `gbps` (its reference GB/s) for plot_vs_n."""
+    carries `gbps` (its reference GB/s) for plot_vs_n.
+    The counterpart of tpu_reductions/bench/sweep.py:252."""
     from tpu_reductions_torch.bench.collective_driver import \
         run_collective_benchmark
     from tpu_reductions_torch.config import CollectiveConfig
@@ -324,7 +327,8 @@ def shmoo_collective(*, method: str = "SUM", dtype: str = "float64",
 def main(argv=None) -> int:
     """CLI over sweep_collective: the submit_all.sh rank fan-out as one
     resumable process. Exit 0 when every row PASSED or WAIVED, 1
-    otherwise or with no rows, 2 on a usage error."""
+    otherwise or with no rows, 2 on a usage error.
+    The counterpart of tpu_reductions/bench/sweep.py:389."""
     from tpu_reductions_torch.config import (DTYPE_ALIASES, METHODS,
                                              PLATFORMS)
     p = argparse.ArgumentParser(

@@ -1,7 +1,7 @@
 """The card's cold costs: the kernels' build, and each surface's first
 call against a warm one.
 
-The counterpart of tpu_reductions/bench/warm.py, the JAX package's
+The counterpart of tpu_reductions/bench/warm.py:1, the JAX package's
 compile observatory, mapped onto what is cold on the card:
 
   nvcc      the build of every kernel source (ops/_cuda.build) into an
@@ -139,7 +139,8 @@ def _family_surface(surface: str, method: str, dtype: str,
 
 def surfaces() -> List[Surface]:
     """The registry: smoke's geometries and the chains, the stream and
-    the family surfaces smoke does not build, under the JAX ids."""
+    the family surfaces smoke does not build, under the JAX ids.
+    The counterpart of tpu_reductions/bench/warm.py:198."""
     return [
         _kernel_surface("k6", 6, "int32", 256, 4),
         _kernel_surface("k7", KERNEL_TWO_PASS, "int32", 384, 4),
@@ -179,7 +180,9 @@ def _timed_call(fn, args, device) -> float:
 
 
 def build_rows(scratch: str, platform: str) -> List[dict]:
-    """The cold and the warm build into `scratch` (empty at first)."""
+    """The cold and the warm build into `scratch` (empty at first).
+    They stand where the compile cache's rows stand in
+    tpu_reductions/bench/warm.py:228."""
     from tpu_reductions_torch.ops import _cuda
     rows = []
     for verdict in ("cold", "warm"):
@@ -193,7 +196,8 @@ def run_warm(n: int = 1 << 20, platform: str = "gpu",
              log=print) -> List[dict]:
     """Each surface's cold and warm call (module docstring): its rows, or
     one failed row. `skip` names surfaces an interrupted pass already
-    holds; `only` restricts the registry."""
+    holds; `only` restricts the registry.
+    The counterpart of tpu_reductions/bench/warm.py:228."""
     device = device_mod.resolve(platform)
     rows: List[dict] = []
     active = [(s, b) for s, b in surfaces() if only is None or s in only]
@@ -233,7 +237,8 @@ def run_warm(n: int = 1 << 20, platform: str = "gpu",
 
 
 def main(argv=None) -> int:
-    """CLI: the build's and every surface's cold against warm cost."""
+    """CLI: the build's and every surface's cold against warm cost.
+    The counterpart of tpu_reductions/bench/warm.py:277."""
     p = argparse.ArgumentParser(
         prog="tpu_reductions_torch.bench.warm",
         description="Time the kernels' build cold and warm, and each "

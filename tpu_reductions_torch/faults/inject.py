@@ -9,18 +9,23 @@ scripted faults:
 
 Plan entry fields: `after` skips the first N hits (default 0); `times`
 fires at most N times (default: forever); `action` is `raise` (an
-InjectedFault), `stall` (sleep `seconds`, default 3600), `exit`
-(os._exit(`code`), default 1), or anything else, which has no side
-effect and is returned for the caller to read (`suppress` freezes the
-heartbeat mark).
+InjectedFault), `stall` (sleep `seconds`, default 3600), `spin` (the
+card's stall: launch the spin kernel of csrc/fault.cu for `seconds`,
+default 20, at most 30, on the run's device and return, so the next
+synchronize blocks; on the CPU it raises), `exit` (os._exit(`code`),
+default 1), or anything else, which has no side effect and is returned
+for the caller to read (`suppress` freezes the heartbeat mark).
 
 The port's points: `exec.launch` (exec/core.run, between the plan's
 `exec.plan` event and its `exec.launch` event, before any device work),
 `serve.batch` (one serving launch, serve/executor.py), `heartbeat.tick`
 (every progress mark, utils/heartbeat.py), `router.crash` (each routed
-submit, serve/router.py: an `exit` there is a controller death) and
-`drain.step` (a drain after its queue emptied, serve/autoscale.py). Each
-firing is recorded as a `fault.fire` event before its side effect.
+submit, serve/router.py: an `exit` there is a controller death),
+`drain.step` (a drain after its queue emptied, serve/autoscale.py) and
+`chain.step` (each trip of chained timing, utils/timing.py, ahead of the
+trip's guard: `{"action": "spin", "after": 2}` stalls the first timed
+trip's graph replay). Each firing is recorded as a `fault.fire` event
+before its side effect.
 
 Counters are process-global; `reset()` re-arms them for tests.
 """
@@ -81,6 +86,16 @@ def active() -> bool:
     return bool(os.environ.get(ENV_VAR))
 
 
+def _run_device():
+    """The device this process runs on: the current card once torch has
+    initialized CUDA, as a run on the card has by the time its fault
+    points past staging fire; else the CPU."""
+    import torch
+    if torch.cuda.is_initialized():
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def fault_point(name: str) -> Optional[dict]:
     """Declare a fault point. None when it does not fire; side-effect
     actions fire here; passive specs are returned."""
@@ -106,6 +121,10 @@ def fault_point(name: str) -> Optional[dict]:
                                      f"(hit {hit})"))
     if action == "stall":
         time.sleep(float(spec.get("seconds", 3600)))
+        return spec
+    if action == "spin":
+        from tpu_reductions_torch.ops import _cuda
+        _cuda.spin_wait(float(spec.get("seconds", 20)), _run_device())
         return spec
     if action == "exit":
         os._exit(int(spec.get("code", 1)))

@@ -3,12 +3,16 @@
 At first use each source `csrc/<name>.cu` is compiled by `nvcc` for
 `sm_90a` into `_build/lib<name>.so` (one `nvcc` per source, all started
 together) and loaded with ctypes, each library by its own name:
-`reduce` (k6, k7), `accumulate` (k8, k10), `mxu` (k9) and `pair` (dd,
-the f64 pair route); they share `csrc/common.cuh`. The sources have a
+`reduce` (k6, k7), `accumulate` (k8, k10), `mxu` (k9), `pair` (dd,
+the f64 pair route) and `fault` (the spin kernel of the `spin` fault,
+no ported kernel); they share `csrc/common.cuh`. The sources have a
 plain C interface: pointers and the stream go in as `c_void_p`, and each
 C function returns `cudaGetLastError()` after its launches, which the
 wrappers here turn into an exception. Nothing is built or loaded at
 import, so the CPU tests import this module without `nvcc`.
+
+No reference analog: the JAX package compiles its kernels through Pallas;
+each wrapper below names the TPU kernel it replaces.
 """
 
 from __future__ import annotations
@@ -73,7 +77,15 @@ _SIGNATURES = {
         "tr_dd_reduce": [_VP, _VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT,
                          _INT, _VP],
     },
+    "fault": {
+        # tr_spin_wait(ns, stream)
+        "tr_spin_wait": [_LL, _VP],
+    },
 }
+
+# The spin kernel's cap, SPIN_CAP_NS in csrc/fault.cu: a spin that the
+# watchdog's exit leaves running frees the card by itself.
+SPIN_CAP_S = 30.0
 
 
 def _nvcc() -> str:
@@ -100,7 +112,8 @@ def build(build_dir: Path = BUILD) -> tuple[float, str]:
     _build/; bench/warm.py times a build into an empty directory);
     return (seconds, the compilers' output, which holds `-Xptxas -v`'s
     register report). Raises RuntimeError, with the compiler's output,
-    when a compile fails."""
+    when a compile fails.
+    No reference analog (the module docstring)."""
     build_dir = Path(build_dir)
     build_dir.mkdir(exist_ok=True)
     t0 = time.perf_counter()
@@ -129,7 +142,8 @@ def build(build_dir: Path = BUILD) -> tuple[float, str]:
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library of csrc/<name>.cu, built first if
-    stale."""
+    stale.
+    No reference analog (the module docstring)."""
     build()
     lib = ctypes.CDLL(str(_library_path(CSRC / f"{name}.cu")))
     for fn, argtypes in _SIGNATURES[name].items():
@@ -153,7 +167,8 @@ def _stream(t: torch.Tensor) -> int:
 def k6_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
               plan, op_name: str) -> None:
     """Launch k6's two passes, laid out by `plan` (a kernel_reduce.SpanPlan),
-    on x2d's device and current stream."""
+    on x2d's device and current stream.
+    Replaces tpu_reductions/ops/pallas_reduce.py:390."""
     lib = library("reduce")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k6_reduce(x2d.data_ptr(), partials.data_ptr(),
@@ -167,7 +182,8 @@ def k6_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
 def k7_reduce(x2d: torch.Tensor, out: torch.Tensor, plan,
               op_name: str) -> None:
     """Launch one k7 pass, laid out by `plan`, on x2d's device and current
-    stream."""
+    stream.
+    Replaces tpu_reductions/ops/pallas_reduce.py:404."""
     lib = library("reduce")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k7_reduce(x2d.data_ptr(), out.data_ptr(), x2d.shape[0],
@@ -181,7 +197,8 @@ def span_active_clusters(device: torch.device, cluster: int, op_name: str,
                          dtype: torch.dtype) -> int:
     """cudaOccupancyMaxActiveClusters of k6's and k7's pass for `dtype`
     (the input's) and clusters of `cluster` CTAs: how many such clusters
-    the device holds at once."""
+    the device holds at once.
+    No reference analog: a TPU grid has no clusters."""
     lib = library("reduce")
     clusters = _INT(0)
     with torch.cuda.device(device):
@@ -197,7 +214,8 @@ def k8_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
     """Launch k8, laid out by `plan` (a kernel_reduce.PeriodPlan), on
     x2d's device and current stream, with that stream's `tickets` (zero,
     and left zero): its pass, whose last CTA of each slot group folds the
-    splits with `plan.fused`, and otherwise the fold of its partials."""
+    splits with `plan.fused`, and otherwise the fold of its partials.
+    Replaces tpu_reductions/ops/pallas_reduce.py:227."""
     lib = library("accumulate")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k8_reduce(x2d.data_ptr(), partials.data_ptr(),
@@ -213,7 +231,8 @@ def k10_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
                tm: int, plan, op_name: str) -> None:
     """Launch k10's streamed pass, laid out by `plan` (a
     kernel_reduce.StreamPlan), and its fold on x2d's device and current
-    stream."""
+    stream.
+    Replaces tpu_reductions/ops/pallas_reduce.py:338."""
     lib = library("accumulate")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k10_reduce(x2d.data_ptr(), partials.data_ptr(),
@@ -228,7 +247,8 @@ def k9_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
               plan) -> None:
     """Launch k9's tensor-core pass, laid out by `plan` (a
     kernel_reduce.MxuPlan), and its fold on x2d's device and current
-    stream."""
+    stream.
+    Replaces tpu_reductions/ops/pallas_reduce.py:240."""
     lib = library("mxu")
     with torch.cuda.device(x2d.device):
         err = lib.tr_k9_reduce(x2d.data_ptr(), partials.data_ptr(),
@@ -244,7 +264,8 @@ def dd_reduce(hi2d: torch.Tensor, lo2d: torch.Tensor, out: torch.Tensor,
     """Launch the pair kernel, laid out by `plan` (a dd_reduce.DdPlan), on
     hi2d's device and current stream, with that stream's `tickets` (zero,
     and left zero): pass 1, the accumulator into `out`, and with `scalar`
-    pass 2, the scalar pair, as a programmatic dependent launch."""
+    pass 2, the scalar pair, as a programmatic dependent launch.
+    Replaces tpu_reductions/ops/dd_reduce.py:250."""
     lib = library("pair")
     with torch.cuda.device(hi2d.device):
         err = lib.tr_dd_reduce(hi2d.data_ptr(), lo2d.data_ptr(),
@@ -253,3 +274,36 @@ def dd_reduce(hi2d: torch.Tensor, lo2d: torch.Tensor, out: torch.Tensor,
                                plan.residues, int(scalar), OP_CODES[op_name],
                                _stream(hi2d))
     _check(lib, err, "dd")
+
+
+def spin_ns(seconds: float) -> int:
+    """The spin kernel's duration in nanoseconds: `seconds`, at least 0
+    and at most SPIN_CAP_S.
+    No reference analog: the cap of the card's stall (spin_wait)."""
+    return int(min(max(float(seconds), 0.0), SPIN_CAP_S) * 1e9)
+
+
+def spin_wait(seconds: float, device) -> None:
+    """Launch the spin kernel (csrc/fault.cu) on `device`'s current
+    stream: one thread that returns `seconds` (capped at SPIN_CAP_S)
+    after it starts, so the stream's next work, and the host's next
+    synchronize, waits that long. The launch returns at once. Counted in
+    spin_wait.launches, apart from the six ported kernels. A stuck kernel
+    is a card's fault: on any other device this raises, and nothing
+    sleeps in its place.
+    The card's form of the `stall` action of
+    tpu_reductions/faults/inject.py:142."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"spin_wait needs a CUDA device, got {device}: "
+                           "a stuck kernel has no host stand-in")
+    ns = spin_ns(seconds)
+    lib = library("fault")
+    with torch.cuda.device(device):
+        err = lib.tr_spin_wait(ns, torch.cuda.current_stream(device)
+                               .cuda_stream)
+    _check(lib, err, "the spin kernel")
+    spin_wait.launches += 1
+
+
+spin_wait.launches = 0

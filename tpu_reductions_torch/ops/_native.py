@@ -13,6 +13,8 @@ nothing reassociates without `-ffast-math`, which stays off).
 Each build writes a file of its own process and moves it into place with
 `os.replace`, so processes that build at once (test workers) never load a
 half-written library.
+
+The counterpart of tpu_reductions/ops/oracle.py:35-93.
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ _SIGNATURES = {
 def build(library: Path = LIBRARY) -> Path:
     """Compile SOURCE into `library` unless the library is newer than the
     source. Raises RuntimeError, with the compiler's output, when g++
-    fails."""
+    fails.
+    The counterpart of tpu_reductions/ops/oracle.py:35."""
     if library.exists() and \
             library.stat().st_mtime >= SOURCE.stat().st_mtime:
         return library
@@ -79,7 +82,8 @@ def build(library: Path = LIBRARY) -> Path:
 
 def load(library: Path = LIBRARY) -> ctypes.CDLL:
     """The native oracle library, built first if stale, with every entry
-    point's argtypes and restype declared."""
+    point's argtypes and restype declared.
+    The counterpart of tpu_reductions/ops/oracle.py:44."""
     lib = ctypes.CDLL(str(build(library)))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)

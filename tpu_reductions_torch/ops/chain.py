@@ -1,6 +1,6 @@
 """Data-dependent chained reduction, for slope timing.
 
-The counterpart of tpu_reductions/ops/chain.py: `chained(x2d, k)` runs k
+The counterpart of tpu_reductions/ops/chain.py:1: `chained(x2d, k)` runs k
 reductions, each folding its scalar into element [0, 0] of the next one's
 input with the op's own combine, so no iteration can be skipped or
 hoisted; the caller materializes the last scalar once, which bounds the
@@ -64,7 +64,8 @@ def auto_chain_span(n: int, dtype: str, platform: str = "gpu") -> int:
     """The span for chained timing at payload size n: enough iterations
     for about SPAN_SIGNAL_S of work at the platform's rate (the card's
     memory rate, or the host's). A fixed span is noise-bound at small n
-    and wastes minutes at large n."""
+    and wastes minutes at large n.
+    The counterpart of tpu_reductions/ops/chain.py:71."""
     rate = CPU_BYTES_PER_S if platform == "cpu" else CARD_BYTES_PER_S
     est_iter_s = n * torch_dtype(dtype).itemsize / rate
     return max(SPAN_MIN, min(SPAN_MAX, math.ceil(
@@ -73,7 +74,8 @@ def auto_chain_span(n: int, dtype: str, platform: str = "gpu") -> int:
 
 def counted_wrappers() -> tuple:
     """The kernel wrappers whose `launches` a chain keeps true: k6, k7,
-    k8, k9, k10 and the pair kernel dd."""
+    k8, k9, k10 and the pair kernel dd.
+    No reference analog: the launch counters are the port's."""
     return (kernel_reduce.single_pass_call, kernel_reduce.two_pass_call,
             kernel_reduce.elementwise_call, kernel_reduce.mxu_call,
             kernel_reduce.stream_call, dd_reduce.dd_call)
@@ -82,7 +84,8 @@ def counted_wrappers() -> tuple:
 def fold_into(first: torch.Tensor, last: torch.Tensor,
               op: ReduceOpSpec) -> None:
     """The chain's fold: combine the iteration's scalar into first[0, 0],
-    in place (one elementwise launch on the card)."""
+    in place (one elementwise launch on the card).
+    The fold of tpu_reductions/ops/chain.py:147."""
     head = first[0, 0]
     op.combine(head, last.to(first.dtype), out=head)
 
@@ -113,7 +116,8 @@ class ChainedReduce:
     graphs and their input buffers (a row's chain is closed when the row
     is timed). `fold=False` leaves the input as it is: a process of a
     collective that does not hold rank 0, whose element the chain folds
-    into (collectives/core.make_chained_collective)."""
+    into (collectives/core.make_chained_collective).
+    The counterpart of tpu_reductions/ops/chain.py:135."""
 
     def __init__(self, core: Callable, op: ReduceOpSpec,
                  fold: bool = True) -> None:
@@ -179,12 +183,14 @@ class ChainedReduce:
         return _Graph(graph, out, launches)
 
     def close(self) -> None:
-        """Free the graphs and their buffers."""
+        """Free the graphs and their buffers.
+        No reference analog: the JAX chain holds no graphs."""
         self._graphs.clear()
         self._buffers.clear()
 
 
 def make_chained_reduce(core: Callable, op: ReduceOpSpec) -> ChainedReduce:
     """Wrap `core` into `chained(x2d, k) -> 0-d tensor` running k
-    data-dependent iterations (k >= 1)."""
+    data-dependent iterations (k >= 1).
+    The counterpart of tpu_reductions/ops/chain.py:104."""
     return ChainedReduce(core, op)

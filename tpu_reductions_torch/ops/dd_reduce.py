@@ -1,6 +1,6 @@
 """The f64 pair route: float64 reduced as two 32-bit planes.
 
-The counterpart of tpu_reductions/ops/dd_reduce.py, the JAX package's
+The counterpart of tpu_reductions/ops/dd_reduce.py:1, the JAX package's
 route for float64 on a chip without native f64. Here it runs where the
 driver is asked for it (`--f64=dd`) and in the streaming pipeline, which
 streams float64 as pairs on every platform (ops/stream.py).
@@ -59,7 +59,8 @@ PLANE_DTYPES = {"SUM": torch.float32, "MIN": torch.int32,
 def host_split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """f64 -> (hi, lo) float32 with hi + lo == x to about 48 bits. It
     overflows for |x| above the float32 range: host_split_scaled takes
-    full-range payloads."""
+    full-range payloads.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:66."""
     x = np.asarray(x, dtype=np.float64)
     hi = x.astype(np.float32)
     lo = (x - hi.astype(np.float64)).astype(np.float32)
@@ -70,7 +71,8 @@ def host_split_scaled(x: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
     """Full-range f64 -> (hi, lo, s): the split of x * 2^-s, with s chosen
     so that the largest magnitude sits near 2^20. Rebuild with
     ldexp(hi + lo, s); the power-of-two scale is exact. Non-finite values
-    are refused."""
+    are refused.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:79."""
     x = np.asarray(x, dtype=np.float64)
     m = float(np.max(np.abs(x))) if x.size else 0.0
     if not np.isfinite(m):
@@ -85,7 +87,8 @@ def host_key_encode(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """f64 -> (k_hi, k_lo) int32 keys whose signed lexicographic order is
     the f64 order: for the uint64 bits b, key = b ^ 2^63 when the sign is
     clear, ~b when it is set; each 32-bit half then flips its top bit, so
-    unsigned order becomes signed order. Exactly invertible."""
+    unsigned order becomes signed order. Exactly invertible.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:109."""
     b = np.ravel(np.asarray(x, dtype=np.float64)).view(np.uint64)
     sign = (b >> np.uint64(63)).astype(bool)
     key = np.where(sign, ~b, b ^ np.uint64(0x8000000000000000))
@@ -97,7 +100,8 @@ def host_key_encode(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 def host_key_decode(k_hi: np.ndarray, k_lo: np.ndarray) -> np.ndarray:
-    """The inverse of host_key_encode, bit for bit."""
+    """The inverse of host_key_encode, bit for bit.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:133."""
     hi_u = (np.asarray(k_hi).view(np.uint32).astype(np.uint64)
             ^ np.uint64(0x80000000))
     lo_u = (np.asarray(k_lo).view(np.uint32).astype(np.uint64)
@@ -109,7 +113,8 @@ def host_key_decode(k_hi: np.ndarray, k_lo: np.ndarray) -> np.ndarray:
 
 
 def pad_pair(method: str) -> tuple:
-    """The padding pair of a method: its identity in the pair encoding."""
+    """The padding pair of a method: its identity in the pair encoding.
+    The padding of tpu_reductions/ops/dd_reduce.py:149."""
     method = method.upper()
     if method == "SUM":
         return np.float32(0.0), np.float32(0.0)
@@ -123,7 +128,8 @@ def stage_split_padded(x: np.ndarray, method: str, threads: int = 256,
                                   tuple[int, int, int], int]:
     """Encode an f64 payload as two 32-bit planes padded to
     (P*T*TM, 128): (plane_hi, plane_lo, (tm, p, t), s). Finish with
-    scale_exp=s (0 for MIN/MAX)."""
+    scale_exp=s (0 for MIN/MAX).
+    The counterpart of tpu_reductions/ops/dd_reduce.py:149."""
     method = method.upper()
     flat = np.ravel(np.asarray(x, dtype=np.float64))
     tm, p, t = choose_tiling(flat.size, threads, max_blocks)
@@ -146,7 +152,8 @@ def stage_split_padded(x: np.ndarray, method: str, threads: int = 256,
 
 
 def two_sum(a: torch.Tensor, b: torch.Tensor):
-    """a + b == s + err exactly (Knuth)."""
+    """a + b == s + err exactly (Knuth).
+    The counterpart of tpu_reductions/ops/dd_reduce.py:189."""
     s = a + b
     bb = s - a
     err = (a - (s - bb)) + (b - bb)
@@ -154,7 +161,8 @@ def two_sum(a: torch.Tensor, b: torch.Tensor):
 
 
 def dd_add(hi1, lo1, hi2, lo2):
-    """(hi1, lo1) + (hi2, lo2), renormalised."""
+    """(hi1, lo1) + (hi2, lo2), renormalised.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:197."""
     s, e = two_sum(hi1, hi2)
     e = e + (lo1 + lo2)
     hi = s + e
@@ -164,7 +172,8 @@ def dd_add(hi1, lo1, hi2, lo2):
 
 def dd_select(hi1, lo1, hi2, lo2, minimum: bool):
     """Elementwise lexicographic min or max of (hi, lo) key pairs; a tie
-    keeps the first pair."""
+    keeps the first pair.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:206."""
     if minimum:
         take2 = (hi2 < hi1) | ((hi2 == hi1) & (lo2 < lo1))
     else:
@@ -173,7 +182,8 @@ def dd_select(hi1, lo1, hi2, lo2, minimum: bool):
 
 
 def dd_combine(method: str):
-    """The pair combine of a method: dd_add, or dd_select as MIN/MAX."""
+    """The pair combine of a method: dd_add, or dd_select as MIN/MAX.
+    The choice that tpu_reductions/ops/dd_reduce.py:220 makes."""
     method = method.upper()
     if method == "SUM":
         return dd_add
@@ -183,7 +193,8 @@ def dd_combine(method: str):
 
 def halving_tree(hi: torch.Tensor, lo: torch.Tensor, method: str):
     """Fold (m, ...) pair planes over their first axis, m a power of two,
-    by combining the first half with the second until one row is left."""
+    by combining the first half with the second until one row is left.
+    The tree of tpu_reductions/ops/dd_reduce.py:287."""
     combine = dd_combine(method)
     while hi.shape[0] > 1:
         h = hi.shape[0] // 2
@@ -200,7 +211,8 @@ def dd_plain(hi2d: torch.Tensor, lo2d: torch.Tensor, method: str,
              tm: int) -> tuple[torch.Tensor, torch.Tensor]:
     """dd's function in PyTorch: slot (r, c) of the (TM, 128) accumulator
     folds, in tile order and starting from tile 0's pair, the staged rows
-    congruent to r modulo TM of column c."""
+    congruent to r modulo TM of column c.
+    The function of tpu_reductions/ops/dd_reduce.py:227, the TPU kernel."""
     combine = dd_combine(method)
     hi = hi2d.reshape(-1, tm, LANES)
     lo = lo2d.reshape(-1, tm, LANES)
@@ -230,7 +242,8 @@ class DdPlan:
     folds the group's splits. Pass 2: `residues` (2^m) threads, thread r
     running the top levels of the tree over the slots congruent to r
     modulo 2^m; the last CTA to finish folds the 2^m pairs to the
-    scalar."""
+    scalar.
+    The grid of tpu_reductions/ops/dd_reduce.py:250 on the card."""
     splits: int
     residues: int
 
@@ -242,7 +255,8 @@ def plan_dd(tiles: int, tm: int, sm_count: int) -> DdPlan:
     loads in flight), at most one per tile and DD_MAX_SPLITS. Pass 2
     gives each thread DD_LEAVES slots of the padded accumulator, within
     at least one CTA and at most DD_MAX_TAIL pairs a thread of the last
-    CTA. bench/passes.py --sweep times the other choices."""
+    CTA. bench/passes.py --sweep times the other choices.
+    The grid of tpu_reductions/ops/dd_reduce.py:250 on the card."""
     splits = max(1, min(tiles, DD_MAX_SPLITS,
                         DD_CTAS_PER_SM * sm_count // (tm // SUBLANES)))
     residues = min(DD_TEAM * DD_MAX_TAIL,
@@ -310,7 +324,8 @@ def dd_call(hi2d: torch.Tensor, lo2d: torch.Tensor, method: str,
     SUM, int32 keys for MIN/MAX). A CPU tensor takes dd_plain; a CUDA
     tensor launches csrc/pair.cu's pass 1, which folds its splits too (one
     CUDA launch), or raises. `dd_call.launches` counts the launches of
-    the dd kernel, from this wrapper and from dd_scalar_call."""
+    the dd kernel, from this wrapper and from dd_scalar_call.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:250."""
     method = method.upper()
     if hi2d.device.type == "cpu" and lo2d.device.type == "cpu":
         return dd_plain(hi2d, lo2d, method, tm)
@@ -330,7 +345,9 @@ def dd_scalar_call(hi2d: torch.Tensor, lo2d: torch.Tensor, method: str,
     planes. A CPU tensor takes exactly that composition of the plain
     versions; a CUDA tensor launches csrc/pair.cu once, the finish fused
     behind the accumulator with no torch op between (two CUDA launches,
-    the second a programmatic dependent of the first), or raises."""
+    the second a programmatic dependent of the first), or raises.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:250 and
+    tpu_reductions/ops/dd_reduce.py:287 together."""
     method = method.upper()
     if hi2d.device.type == "cpu" and lo2d.device.type == "cpu":
         return device_finish_pairs(*dd_plain(hi2d, lo2d, method, tm), method)
@@ -349,7 +366,8 @@ def device_finish_pairs(acc_hi: torch.Tensor, acc_lo: torch.Tensor,
     """Fold a pair accumulator to one scalar pair on its device: pad the
     flattened planes to a power of two with the padding pair, then a
     halving tree of the same combine the kernel uses. About
-    log2(TM*128) levels of ten elementwise torch ops each."""
+    log2(TM*128) levels of ten elementwise torch ops each.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:287."""
     hi, lo = acc_hi.reshape(-1), acc_lo.reshape(-1)
     size = hi.shape[0]
     pow2 = 1 << max(size - 1, 0).bit_length()
@@ -371,7 +389,8 @@ def decode_pair_scalar(s_hi, s_lo, method: str,
                        scale_exp: int = 0) -> np.float64:
     """The final scalar pair (8 bytes) as a float64 on the host: SUM adds
     the halves and undoes the staging scale exactly; MIN/MAX invert the
-    key map."""
+    key map.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:336."""
     s_hi, s_lo = _host(s_hi), _host(s_lo)
     if method.upper() == "SUM":
         z = float(s_hi) + float(s_lo)
@@ -386,7 +405,8 @@ def host_finish_pairs(acc_hi, acc_lo, method: str,
     widens both planes to float64 and sums them, then undoes the scale;
     MIN/MAX decode the keys and select. A slot that only ever held the
     padding pair decodes to NaN (the padding key is no float's image), so
-    the selection ignores NaNs."""
+    the selection ignores NaNs.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:442."""
     hi, lo = _host(acc_hi), _host(acc_lo)
     method = method.upper()
     if method == "SUM":
@@ -428,7 +448,8 @@ def make_dd_device_reduce(method: str, n: int, *, threads: int = 256,
     """(stage_fn, core, finish) of the all-device f64 pair route:
     stage_fn(payload) -> (hi2d, lo2d, s); core(hi2d, lo2d) -> (s_hi, s_lo),
     the kernel and the pair finish on the device, chainable;
-    finish(s_hi, s_lo, scale_exp) -> np.float64 from 8 bytes."""
+    finish(s_hi, s_lo, scale_exp) -> np.float64 from 8 bytes.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:375."""
     method = method.upper()
     tm, _, _ = choose_tiling(n, threads, max_blocks)
     stage_fn = _make_stage_fn(method, threads, max_blocks, device)
@@ -447,7 +468,8 @@ def make_dd_staged_reduce(method: str, n: int, *, threads: int = 256,
                           device: Optional[torch.device] = None):
     """(stage_fn, reduce_fn) of the --cpufinal spelling: reduce_fn(hi2d,
     lo2d, scale_exp) runs the kernel and finishes the accumulator on the
-    host."""
+    host.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:467."""
     method = method.upper()
     tm, _, _ = choose_tiling(n, threads, max_blocks)
     stage_fn = _make_stage_fn(method, threads, max_blocks, device)
@@ -466,7 +488,8 @@ def dd_reduce_f64(x: Union[np.ndarray, torch.Tensor], method: str = "SUM",
                   ) -> np.float64:
     """One-shot f64 reduce through the pair route: host split, the pair
     kernel, host finish. Runs on `device`, else on a CUDA tensor's own
-    card, else on the card."""
+    card, else on the card.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:491."""
     xt = torch.as_tensor(x, dtype=torch.float64)
     stage_fn, reduce_fn = make_dd_staged_reduce(
         method, xt.numel(), threads=threads, max_blocks=max_blocks,
@@ -478,7 +501,8 @@ def dd_sum_f64(x: torch.Tensor, *, threads: int = 256,
                max_blocks: int = 64) -> torch.Tensor:
     """f64 SUM of a tensor through the pair kernel on its own device. The
     card has f64, so the (unscaled) split runs there; the accumulator is
-    widened and summed in float64. Returns a 0-d float64 tensor."""
+    widened and summed in float64. Returns a 0-d float64 tensor.
+    The counterpart of tpu_reductions/ops/dd_reduce.py:509."""
     if x.dtype != torch.float64:
         raise ValueError(f"dd_sum_f64 takes float64, got {x.dtype}")
     flat = x.reshape(-1)

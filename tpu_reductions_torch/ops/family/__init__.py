@@ -13,6 +13,8 @@ package computes them in jnp:
 
 The surface ids (`family_surface`) are the JAX package's, so that the
 smoke, warm and family-spot manifests of the two packages join.
+
+The counterpart of tpu_reductions/ops/family/__init__.py:1.
 """
 
 from __future__ import annotations
@@ -40,13 +42,15 @@ __all__ = [
 
 
 def is_family_method(name: str) -> bool:
-    """Whether `name` is a family method rather than SUM/MIN/MAX."""
+    """Whether `name` is a family method rather than SUM/MIN/MAX.
+    The counterpart of tpu_reductions/ops/family/__init__.py:60."""
     return name.upper() in FAMILY_METHODS
 
 
 def family_surface(method: str, impl: str | None = None) -> str:
     """The surface id of a family launch: mxu-scan or xla-cumsum for SCAN,
-    seg/<method> and argk/<method> (the JAX package's spellings)."""
+    seg/<method> and argk/<method> (the JAX package's spellings).
+    The counterpart of tpu_reductions/ops/family/__init__.py:67."""
     m = method.upper()
     if m == "SCAN":
         return impl or "xla-cumsum"

@@ -1,6 +1,6 @@
 """ARGMIN / ARGMAX: index-carrying extremes through order-preserving keys.
 
-The counterpart of tpu_reductions/ops/family/argreduce.py. For a float32
+The counterpart of tpu_reductions/ops/family/argreduce.py:1. For a float32
 bit pattern b (`x.view(torch.int32)`), the key
 
     key = b ^ ((b >> 31) & 0x7FFFFFFF)
@@ -28,7 +28,8 @@ ARG_METHODS = ("ARGMIN", "ARGMAX")
 
 
 def order_key(x: np.ndarray) -> np.ndarray:
-    """The host-side int32 order key of an int32 or float32 array."""
+    """The host-side int32 order key of an int32 or float32 array.
+    The counterpart of tpu_reductions/ops/family/argreduce.py:32."""
     x = np.ravel(np.asarray(x))
     if x.dtype == np.int32:
         return x
@@ -59,7 +60,8 @@ def _keys(x: torch.Tensor, method: str) -> torch.Tensor:
 
 @functools.cache
 def arg_reduce_fn(method: str, dtype: str):
-    """x (1-D) -> 0-d int32 index of the extreme, lowest index on ties."""
+    """x (1-D) -> 0-d int32 index of the extreme, lowest index on ties.
+    The counterpart of tpu_reductions/ops/family/argreduce.py:49."""
     m = _method(method)
 
     def argk(x: torch.Tensor) -> torch.Tensor:
@@ -74,7 +76,8 @@ def arg_reduce_fn(method: str, dtype: str):
 @functools.cache
 def arg_reduce_rows_fn(method: str, dtype: str):
     """(k, n) -> (k,) int32 per-row extreme indices: the serving shape,
-    the same (key, index) rule row by row."""
+    the same (key, index) rule row by row.
+    The counterpart of tpu_reductions/ops/family/argreduce.py:84."""
     m = _method(method)
 
     def rows(x: torch.Tensor) -> torch.Tensor:
@@ -87,7 +90,8 @@ def arg_reduce_rows_fn(method: str, dtype: str):
 
 
 def host_arg_reduce(x: np.ndarray, method: str) -> np.int64:
-    """Host oracle: numpy's first-occurrence argmin/argmax."""
+    """Host oracle: numpy's first-occurrence argmin/argmax.
+    The counterpart of tpu_reductions/ops/family/argreduce.py:115."""
     m = _method(method)
     x = np.ravel(np.asarray(x))
     return np.int64(np.argmin(x) if m == "ARGMIN" else np.argmax(x))

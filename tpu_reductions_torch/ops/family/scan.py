@@ -1,7 +1,7 @@
 """SCAN: inclusive prefix sum, the blocked matrix-product scan and the
 cumsum baseline.
 
-The counterpart of tpu_reductions/ops/family/scan.py. The inclusive prefix
+The counterpart of tpu_reductions/ops/family/scan.py:1. The inclusive prefix
 of a row block x of width B is x @ U with U[i, j] = 1 iff i <= j (Carrasco
 et al., arXiv:1811.09736); the blocks then add their predecessors' totals,
 one cumsum over the block totals. Two implementations, under the JAX
@@ -52,7 +52,8 @@ def _is_float(dtype) -> bool:
 
 
 def scan_impls(dtype) -> tuple:
-    """The implementations legal for `dtype`: mxu-scan is float-only."""
+    """The implementations legal for `dtype`: mxu-scan is float-only.
+    The counterpart of tpu_reductions/ops/family/scan.py:54."""
     return SCAN_IMPLS if _is_float(dtype) else ("xla-cumsum",)
 
 
@@ -108,7 +109,8 @@ def scan_fn(impl: str, dtype: str):
     """(chunk, carry) -> its inclusive prefix plus carry: carry is the
     running total of everything before the chunk (0 for a one-shot
     scan), a 0-d tensor of the chunk's dtype on its device, so int32
-    wraps in the device's own width."""
+    wraps in the device's own width.
+    The counterpart of tpu_reductions/ops/family/scan.py:108."""
     core = _core(impl, dtype)
     return lambda x, carry: core(x) + carry
 
@@ -116,14 +118,16 @@ def scan_fn(impl: str, dtype: str):
 @functools.cache
 def scan_rows_fn(impl: str, dtype: str):
     """(k, n) -> (k, n) per-row inclusive prefixes: k stacked SCAN
-    requests in one call (the serving shape)."""
+    requests in one call (the serving shape).
+    The counterpart of tpu_reductions/ops/family/scan.py:123."""
     return _core(impl, dtype)
 
 
 def host_scan(x) -> np.ndarray:
     """Host oracle: the full inclusive prefix in the device's conventions;
     int32 wraps modulo 2^32 (an exact int64 cumsum, truncated), floats
-    accumulate in float64."""
+    accumulate in float64.
+    The counterpart of tpu_reductions/ops/family/scan.py:135."""
     x = np.ravel(np.asarray(x))
     if x.dtype == np.int32:
         return np.cumsum(x.astype(np.int64)).astype(np.uint64).astype(
@@ -135,7 +139,8 @@ class StreamScanner:
     """Chunk-carry prefix scan over the streaming chunk plan (module
     docstring): at most one chunk and its result on the device at a
     time, every chunk within `chunk_bytes`. Runs on `device`, the card
-    unless the caller gives another."""
+    unless the caller gives another.
+    The counterpart of tpu_reductions/ops/family/scan.py:151."""
 
     def __init__(self, dtype: str, n: int, *, impl: str = "xla-cumsum",
                  chunk_bytes: Optional[int] = None,
@@ -150,12 +155,14 @@ class StreamScanner:
 
     @property
     def carry(self):
-        """The running total of every element scanned so far."""
+        """The running total of every element scanned so far.
+        The counterpart of tpu_reductions/ops/family/scan.py:169."""
         return host_value(self._carry)[()]
 
     def scan(self, flat) -> np.ndarray:
         """The full inclusive prefix of `flat` (numpy or a CPU tensor),
-        one bounded chunk at a time, as a numpy array."""
+        one bounded chunk at a time, as a numpy array.
+        The counterpart of tpu_reductions/ops/family/scan.py:174."""
         flat = torch.as_tensor(flat).reshape(-1)
         if flat.dtype != torch_dtype(self.dtype):
             raise ValueError(f"expected {self.dtype}, got {flat.dtype}")

@@ -1,6 +1,6 @@
 """Segmented reductions: SEGSUM / SEGMIN / SEGMAX over an offset vector.
 
-The counterpart of tpu_reductions/ops/family/segmented.py: one flat
+The counterpart of tpu_reductions/ops/family/segmented.py:1: one flat
 payload, a vector of segment offsets (ragged; segments may be empty), one
 result per segment. The device side is `scatter_reduce` into an output
 filled with the base op's identity, with the input's own values included,
@@ -28,7 +28,8 @@ _SCATTER = {"SEGSUM": "sum", "SEGMIN": "amin", "SEGMAX": "amax"}
 def segment_reduce_fn(method: str, num_segments: int):
     """(x, segment_ids) -> (num_segments,) per-segment results. The ids
     are best given as int64 on x's device (scatter_reduce's index type);
-    other integer ids are converted at every call."""
+    other integer ids are converted at every call.
+    The counterpart of tpu_reductions/ops/family/segmented.py:38."""
     m = method.upper()
     reduce = _SCATTER[m]
     op = get_op(SEG_BASE[m])
@@ -45,7 +46,8 @@ def segment_reduce_fn(method: str, num_segments: int):
 def segment_ids_from_offsets(offsets: np.ndarray) -> np.ndarray:
     """Expand an offset vector (length S+1, offsets[0] = 0, offsets[-1] =
     n, monotone; equal neighbours are an empty segment) into the int32
-    segment id of every element."""
+    segment id of every element.
+    The counterpart of tpu_reductions/ops/family/segmented.py:58."""
     offsets = np.asarray(offsets, dtype=np.int64)
     lengths = np.diff(offsets)
     if offsets[0] != 0 or (lengths < 0).any():
@@ -56,7 +58,8 @@ def segment_ids_from_offsets(offsets: np.ndarray) -> np.ndarray:
 def random_offsets(n: int, num_segments: int, seed: int) -> np.ndarray:
     """Ragged offsets for n elements: num_segments segments with uniformly
     random cut points, duplicates included, so empty segments occur. The
-    JAX package's draws from `np.random.default_rng(seed)`."""
+    JAX package's draws from `np.random.default_rng(seed)`.
+    The counterpart of tpu_reductions/ops/family/segmented.py:72."""
     rng = np.random.default_rng(seed)
     cuts = np.sort(rng.integers(0, n + 1, size=num_segments - 1))
     return np.concatenate(([0], cuts, [n])).astype(np.int64)
@@ -66,7 +69,8 @@ def host_segment_reduce(x, offsets: np.ndarray, method: str) -> np.ndarray:
     """Host oracle: each segment through host_reduce (int32 SEGSUM wraps
     modulo 2^32, float sums in float64, MIN/MAX exact); an empty segment
     is the base op's identity. float64, in which every family digest is
-    compared (int32 values embed exactly)."""
+    compared (int32 values embed exactly).
+    The counterpart of tpu_reductions/ops/family/segmented.py:85."""
     from tpu_reductions_torch.ops.oracle import host_reduce
 
     base = SEG_BASE[method.upper()]

@@ -1,7 +1,7 @@
 """Single-chip reduction kernels k6-k10: staging, wrappers, plain
 versions and the multi-pass finish.
 
-The counterpart of tpu_reductions/ops/pallas_reduce.py. The payload is
+The counterpart of tpu_reductions/ops/pallas_reduce.py:1. The payload is
 staged once, untimed, into an identity-padded (P*T*TM, 128) tensor on the
 device (`choose_tiling`, `stage_padded`: --threads sets the TM tile rows,
 --maxblocks the P partial blocks). Then:
@@ -69,7 +69,8 @@ DtypeLike = Union[str, torch.dtype]
 
 def sublanes_for(dtype: DtypeLike) -> int:
     """Accumulator rows by element width: 8 for 32- and 64-bit types, 16
-    for bf16 (the JAX package's sublane tiling)."""
+    for bf16 (the JAX package's sublane tiling).
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:77."""
     if isinstance(dtype, str):
         dtype = torch_dtype(dtype)
     return {8: 8, 4: 8, 2: 16, 1: 32}[dtype.itemsize]
@@ -83,7 +84,8 @@ def _acc_dtype(in_dtype: torch.dtype, op: ReduceOpSpec) -> torch.dtype:
 def choose_tiling(n: int, threads: int = 256, max_blocks: int = 64,
                   dtype: DtypeLike = torch.float32) -> tuple[int, int, int]:
     """(TM tile rows, P partial blocks, T tiles per block) for n elements,
-    with P*T*TM*128 >= n and TM a multiple of the dtype's sublane count."""
+    with P*T*TM*128 >= n and TM a multiple of the dtype's sublane count.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:93."""
     sub = sublanes_for(dtype)
     rows = -(-n // LANES)
     tm = max(sub, min(int(threads), 2048))
@@ -95,7 +97,8 @@ def choose_tiling(n: int, threads: int = 256, max_blocks: int = 64,
 
 
 def padded_2d_shape(n: int, tm: int, p: int, t: int) -> tuple[int, int]:
-    """(rows, LANES) layout of n elements under the (tm, p, t) tiling."""
+    """(rows, LANES) layout of n elements under the (tm, p, t) tiling.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:113."""
     return (p * t * tm, LANES)
 
 
@@ -104,7 +107,8 @@ def stage_padded(x: torch.Tensor, tm: int, p: int, t: int, op: ReduceOpSpec,
     """Copy a flat payload into a (P*T*TM, 128) tensor on `device` (x's
     own by default), padded with the op's identity. A host payload above
     the staging threshold goes in bounded chunks
-    (utils/staging.maybe_chunked_stage), with the same result."""
+    (utils/staging.maybe_chunked_stage), with the same result.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:120."""
     flat = x.reshape(-1)
     device = flat.device if device is None else device
     rows, lanes = padded_2d_shape(flat.numel(), tm, p, t)
@@ -124,7 +128,8 @@ def stage_padded(x: torch.Tensor, tm: int, p: int, t: int, op: ReduceOpSpec,
 
 
 def single_pass_plain(x2d: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
-    """k6's function in PyTorch: the (sub, 128) accumulator of all rows."""
+    """k6's function in PyTorch: the (sub, 128) accumulator of all rows.
+    The function of tpu_reductions/ops/pallas_reduce.py:390."""
     sub = sublanes_for(x2d.dtype)
     return op.reduce_dim(x2d.reshape(-1, sub, LANES), 0)
 
@@ -141,7 +146,8 @@ def two_pass_plain(x2d: torch.Tensor, op: ReduceOpSpec, tm: int, p: int,
     """k7's function in PyTorch: block i's (sub, 128) partial of its rows
     [i*T*TM, (i+1)*T*TM), stacked to (P*sub, 128). Rows that the tiling
     covers past the end of x2d read as the op's identity: they are padded
-    here, as stage_padded would pad them."""
+    here, as stage_padded would pad them.
+    The function of tpu_reductions/ops/pallas_reduce.py:404."""
     _check_tiling(x2d, tm, p, t)
     sub = sublanes_for(x2d.dtype)
     missing = p * t * tm - x2d.shape[0]
@@ -156,7 +162,9 @@ def two_pass_plain(x2d: torch.Tensor, op: ReduceOpSpec, tm: int, p: int,
 def elementwise_plain(x2d: torch.Tensor, op: ReduceOpSpec,
                       tm: int) -> torch.Tensor:
     """k8's and k10's function in PyTorch: the (TM, 128) accumulator whose
-    slot (r, c) combines the rows congruent to r modulo TM of column c."""
+    slot (r, c) combines the rows congruent to r modulo TM of column c.
+    The function of tpu_reductions/ops/pallas_reduce.py:227 and
+    tpu_reductions/ops/pallas_reduce.py:338."""
     return op.reduce_dim(x2d.reshape(-1, tm, LANES), 0)
 
 
@@ -165,7 +173,8 @@ stream_plain = elementwise_plain   # k10 computes k8's function
 
 def mxu_plain(x2d: torch.Tensor) -> torch.Tensor:
     """k9's function in PyTorch: an (8, 128) block in the accumulator
-    dtype, row 0 the column sums, rows 1-7 zero."""
+    dtype, row 0 the column sums, rows 1-7 zero.
+    The function of tpu_reductions/ops/pallas_reduce.py:240."""
     acc = accum_dtype(x2d.dtype)
     out = torch.zeros((MXU_ACC_ROWS, LANES), dtype=acc, device=x2d.device)
     out[0] = x2d.to(acc).sum(0)
@@ -195,7 +204,9 @@ class SpanPlan:
     """The geometry of one fold_span pass: `blocks` partial blocks, block
     i folding rows [i*span, (i+1)*span) with one cluster of `cluster`
     CTAs, of which rank s takes rows [i*span + s*share, +share) of that
-    span (both bounded by the block's span and by the array)."""
+    span (both bounded by the block's span and by the array).
+    The card's form of the (P, T) grid of
+    tpu_reductions/ops/pallas_reduce.py:404."""
     blocks: int
     cluster: int
     span: int
@@ -231,7 +242,8 @@ def plan_k6(rows: int, sub: int, sm_count: int,
     fewer than MIN_GROUPS groups, in clusters of up to CLUSTER, each
     cluster folding an equal run of whole groups (none empty) into one
     partial. A function of the shape and the device alone, so one shape
-    always folds in one order."""
+    always folds in one order.
+    The grid of tpu_reductions/ops/pallas_reduce.py:390 on the card."""
     groups = rows // sub
     ctas = max(1, min(_fill(sm_count, active_clusters),
                       groups // MIN_GROUPS))
@@ -246,7 +258,8 @@ def plan_k7(rows: int, sub: int, p: int, span: int, sm_count: int,
     (T*TM) rows: P clusters of S CTAs, S the least power of two (at most
     CLUSTER) for which P*S fills the card (_fill), cut back while a
     share would hold fewer than MIN_GROUPS groups. So P*S is within one
-    wave of resident CTAs, or S = 1."""
+    wave of resident CTAs, or S = 1.
+    The grid of tpu_reductions/ops/pallas_reduce.py:404 on the card."""
     fill = _fill(sm_count, active_clusters)
     if rows > p * span or span % sub:
         raise ValueError(f"k7 cannot cover {rows} rows with {p} blocks of "
@@ -292,7 +305,8 @@ def single_pass_call(x2d: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
     distributed shared memory into one partial each (plan_k6); pass 2
     folds those few partials over sub CTAs, one per slot row. No float
     atomics, so a tensor gives the same bits on every call. Both passes
-    count as one launch."""
+    count as one launch.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:390."""
     if x2d.device.type == "cpu":
         return single_pass_plain(x2d, op)
     sub = sublanes_for(x2d.dtype)
@@ -321,7 +335,8 @@ def two_pass_call(x2d: torch.Tensor, op: ReduceOpSpec, tm: int, p: int,
     of S CTAs, S > 1 only where P blocks alone would leave the card
     short (plan_k7); the cluster folds its CTAs' slots in rank order over
     distributed shared memory, with no float atomics, so a tensor gives
-    the same bits on every call."""
+    the same bits on every call.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:404."""
     _check_tiling(x2d, tm, p, t)
     if x2d.device.type == "cpu":
         return two_pass_plain(x2d, op, tm, p, t)
@@ -354,7 +369,8 @@ def plan_splits(tiles: int, tm: int, sub: int, sm_count: int) -> int:
     increasing order, and the splits are then folded in order. As many
     splits as keep the grid at two blocks per SM, at most one per tile. A
     function of the shape and the SM count alone: k8 and k10 take the
-    same, so they add in the same order."""
+    same, so they add in the same order.
+    The grid of tpu_reductions/ops/pallas_reduce.py:204 on the card."""
     return max(1, min(tiles, 2 * sm_count // (tm // sub)))
 
 
@@ -376,7 +392,8 @@ class PeriodPlan:
     """k8's launch: plan_splits' grid, `unroll` tiles loaded before they
     are combined, and `fused`: whether the last block of each slot group
     folds the splits (one launch) or a second launch does. Both fold the
-    splits in order from the identity, so both give the same bits."""
+    splits in order from the identity, so both give the same bits.
+    The grid of tpu_reductions/ops/pallas_reduce.py:227 on the card."""
     splits: int
     unroll: int
     fused: bool
@@ -385,7 +402,8 @@ class PeriodPlan:
 def plan_k8(tiles: int, tm: int, sub: int, sm_count: int) -> PeriodPlan:
     """k8's geometry: plan_splits' grid, so the order of adds is k10's,
     K8_UNROLL, and one launch up to K8_MAX_FUSED_SPLITS splits. A
-    function of the shape and the SM count alone."""
+    function of the shape and the SM count alone.
+    The grid of tpu_reductions/ops/pallas_reduce.py:227 on the card."""
     splits = plan_splits(tiles, tm, sub, sm_count)
     return PeriodPlan(splits, K8_UNROLL, splits <= K8_MAX_FUSED_SPLITS)
 
@@ -394,7 +412,9 @@ def plan_k8(tiles: int, tm: int, sub: int, sm_count: int) -> PeriodPlan:
 class StreamPlan:
     """k10's launch (csrc/accumulate.cu stream_period): plan_splits'
     grid and a ring of `depth` stages of `chunks` consecutive chunks of
-    the block's split each."""
+    the block's split each.
+    The card's form of the copy ring of
+    tpu_reductions/ops/pallas_reduce.py:283."""
     splits: int
     depth: int
     chunks: int
@@ -416,7 +436,8 @@ def plan_k10(tiles: int, tm: int, sub: int, itemsize: int, depth: int,
     """k10's geometry: k8's grid (plan_splits), so the order of adds is
     k8's, and _stream_ring's stages. Raises when the ring does not fit
     one block's shared memory beside its barriers; never clamps the
-    depth."""
+    depth.
+    The grid of tpu_reductions/ops/pallas_reduce.py:338 on the card."""
     chunk = sub * LANES * itemsize
     chunks, deepest = _stream_ring(chunk)
     if depth > deepest:
@@ -432,7 +453,8 @@ def plan_k10(tiles: int, tm: int, sub: int, itemsize: int, depth: int,
 class MxuPlan:
     """k9's pass 1 (csrc/mxu.cu mxu_columns): warp w of `blocks` blocks of
     MXU_WARPS warps folds slabs [w*run, (w+1)*run), cut at the last
-    slab."""
+    slab.
+    The grid of tpu_reductions/ops/pallas_reduce.py:240 on the card."""
     run: int
     blocks: int
 
@@ -441,7 +463,8 @@ def plan_k9(slabs: int, sm_count: int) -> MxuPlan:
     """Equal contiguous runs of slabs over at most one block of MXU_WARPS
     warps per SM (one wave): the shortest run that the resident warps
     cover, then as few warps as that run needs, so only the last run may
-    be shorter. A function of the slab count and the SM count alone."""
+    be shorter. A function of the slab count and the SM count alone.
+    The grid of tpu_reductions/ops/pallas_reduce.py:240 on the card."""
     run = max(1, -(-slabs // (sm_count * MXU_WARPS)))
     return MxuPlan(run, max(1, -(-slabs // (run * MXU_WARPS))))
 
@@ -505,7 +528,8 @@ def elementwise_call(x2d: torch.Tensor, op: ReduceOpSpec,
     last block of each slot group folds the group's splits in the same
     launch (plan_k8; above K8_MAX_FUSED_SPLITS a second CUDA launch does).
     No float atomics: a tensor gives the same bits on every call, and
-    k10's. Counts one launch a call."""
+    k10's. Counts one launch a call.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:227."""
     _check_period(x2d, tm)
     if x2d.device.type == "cpu":
         return elementwise_plain(x2d, op, tm)
@@ -522,7 +546,8 @@ elementwise_call.launches = 0
 
 
 def stream_max_depth(dtype: torch.dtype) -> int:
-    """The deepest ring k10 can have for a dtype (_stream_ring)."""
+    """The deepest ring k10 can have for a dtype (_stream_ring).
+    The bound on n_buffers of tpu_reductions/ops/pallas_reduce.py:338."""
     return _stream_ring(sublanes_for(dtype) * LANES * dtype.itemsize)[1]
 
 
@@ -533,7 +558,8 @@ def stream_call(x2d: torch.Tensor, op: ReduceOpSpec, tm: int,
     warp and released stage by stage by the consumer warps (plan_k10).
     The depth moves copies, not the order of the adds: every depth gives
     the same bits, k8's. A depth that does not fit in shared memory
-    raises; it is never clamped."""
+    raises; it is never clamped.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:338."""
     _check_period(x2d, tm)
     if stream_buffers <= 0:
         raise ValueError("stream_buffers must be positive")
@@ -558,7 +584,8 @@ def mxu_call(x2d: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
     WAIVEs those rows. The warps take equal runs of slabs (plan_k9), 16
     to an SM, so that some have loads in flight while others are in the
     tensor cores; no float atomics, so a tensor gives the same bits on
-    every call. Its two CUDA passes count as one launch."""
+    every call. Its two CUDA passes count as one launch.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:240."""
     if op.name != "SUM":
         raise ValueError("kernel 9 (MXU) implements SUM only")
     if not x2d.dtype.is_floating_point:
@@ -605,12 +632,14 @@ def _multipass_finish(partials: torch.Tensor, op: ReduceOpSpec, threads: int,
 
 def finish(partials: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
     """Reduce an accumulator or partials block (at most a few thousand
-    elements) to a 0-d tensor on its device."""
+    elements) to a 0-d tensor on its device.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:467."""
     return op.reduce(partials)
 
 
 def host_finish(partials: torch.Tensor, op: ReduceOpSpec):
-    """--cpufinal: fetch the partials and finish with the host combine."""
+    """--cpufinal: fetch the partials and finish with the host combine.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:477."""
     return op.np_reduce(host_value(partials))
 
 
@@ -671,7 +700,8 @@ def make_staged_reduce(method: str, n: int, dtype: DtypeLike, *,
     """(stage_fn, reduce_fn): `stage_fn` pads and copies the host payload
     to `device` once, outside the timed loop; `reduce_fn` maps the staged
     tensor to the result (a 0-d device tensor, or a host scalar with
-    cpu_final)."""
+    cpu_final).
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:589."""
     op, stage_fn, device_fn = _make_staged_parts(
         method, n, dtype, threads=threads, max_blocks=max_blocks,
         kernel=kernel, cpu_thresh=cpu_thresh, stream_buffers=stream_buffers,
@@ -687,7 +717,8 @@ def make_staged_core(method: str, n: int, dtype: DtypeLike, *,
                      stream_buffers: int = STREAM_BUFFERS,
                      device: Optional[torch.device] = None):
     """(op, stage_fn, core) with `core(x2d)` a 0-d tensor computed on the
-    device alone: the chainable form ops/chain.py consumes."""
+    device alone: the chainable form ops/chain.py consumes.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:619."""
     op, stage_fn, device_fn = _make_staged_parts(
         method, n, dtype, threads=threads, max_blocks=max_blocks,
         kernel=kernel, cpu_thresh=cpu_thresh, stream_buffers=stream_buffers,
@@ -698,7 +729,8 @@ def make_staged_core(method: str, n: int, dtype: DtypeLike, *,
 def target_device(x: torch.Tensor,
                   device: Union[str, torch.device, None]) -> torch.device:
     """The device an entry point runs on: `device` when given, else x's
-    own CUDA device, else the card (which must exist)."""
+    own CUDA device, else the card (which must exist).
+    No reference analog: the JAX package runs on its default device."""
     if device is None and x.device.type == "cuda":
         return x.device
     target = torch.device("cuda" if device is None else device)
@@ -713,7 +745,8 @@ def kernel_reduce(x: torch.Tensor, method: str, *, threads: int = 256,
                   stream_buffers: int = STREAM_BUFFERS,
                   device: Union[str, torch.device, None] = None):
     """Reduce a flat tensor to a scalar with one of k6-k10, staging
-    included."""
+    included.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:512."""
     target = target_device(x, device)
     stage_fn, reduce_fn = make_staged_reduce(
         method, x.numel(), x.dtype, threads=threads, max_blocks=max_blocks,

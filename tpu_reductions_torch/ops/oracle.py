@@ -1,7 +1,7 @@
 """Host oracle: the CPU reference every device result is checked against,
 and the benchmark payload.
 
-The counterpart of tpu_reductions/ops/oracle.py, with its two routes:
+The counterpart of tpu_reductions/ops/oracle.py:1, with its two routes:
 - native: csrc/oracle.cpp, built by g++ at first use and loaded with
   ctypes (ops/_native.py): Kahan-compensated sums for reals (threaded from
   2^22 elements), a wrapping int32 sum, linear min/max scans, and the
@@ -47,19 +47,22 @@ def _load():
 
 
 def native_available() -> bool:
-    """Whether the native oracle and filler are in use."""
+    """Whether the native oracle and filler are in use.
+    The counterpart of tpu_reductions/ops/oracle.py:94."""
     return _load() is not None
 
 
 def route(dtype: str) -> str:
-    """`native` or `numpy`: the route of a dtype's payload and oracle."""
+    """`native` or `numpy`: the route of a dtype's payload and oracle.
+    The counterpart of tpu_reductions/ops/oracle.py:94."""
     return "native" if native_available() and dtype in _SUFFIX else "numpy"
 
 
 def native_fill(n: int, dtype: str, rank: int = 0, seed: int = 0
                 ) -> Optional[np.ndarray]:
     """The payload from the native MT19937 filler, or None when the library
-    is not in use or the dtype has no native filler (bfloat16)."""
+    is not in use or the dtype has no native filler (bfloat16).
+    The counterpart of tpu_reductions/ops/oracle.py:165."""
     lib = _load()
     if lib is None or dtype not in _SUFFIX:
         return None
@@ -71,7 +74,8 @@ def native_fill(n: int, dtype: str, rank: int = 0, seed: int = 0
 def payload(n: int, dtype: str, rank: int = 0, seed: int = 0
             ) -> torch.Tensor:
     """The benchmark payload as a CPU tensor: the native filler's where it
-    is in use, as the JAX CLI's, else utils/rng's."""
+    is in use, as the JAX CLI's, else utils/rng's.
+    The counterpart of tpu_reductions/ops/oracle.py:165."""
     x = native_fill(n, dtype, rank=rank, seed=seed)
     if x is None:
         return host_data(n, dtype, rank=rank, seed=seed)
@@ -80,7 +84,8 @@ def payload(n: int, dtype: str, rank: int = 0, seed: int = 0
 
 def host_value(x: torch.Tensor) -> np.ndarray:
     """A tensor (any device) as a numpy array on the host; bfloat16, which
-    numpy lacks, widens exactly to float32."""
+    numpy lacks, widens exactly to float32.
+    No reference analog: a jax.Array converts with np.asarray."""
     x = x.detach().cpu()
     if x.dtype == torch.bfloat16:
         x = x.to(torch.float32)
@@ -94,7 +99,8 @@ def host_reduce(x: Union[torch.Tensor, np.ndarray], method: str
     width); SUM of reals is float64, Kahan-compensated on the native route;
     MIN/MAX return the input's value. SCAN's scalar digest is its last
     prefix element, the full SUM (its whole prefix: family.host_scan);
-    ARGMIN/ARGMAX give numpy's first-occurrence index."""
+    ARGMIN/ARGMAX give numpy's first-occurrence index.
+    The counterpart of tpu_reductions/ops/oracle.py:104."""
     method = method.upper()
     if method == "SCAN":
         return host_reduce(x, "SUM")
@@ -148,7 +154,8 @@ class IncrementalOracle:
     running extreme; ARG* keep the extreme and its global index (the
     chunk's offset is `count`), a tie keeping the earlier, lower index.
     state() and from_state() round-trip through JSON, so a resumed stream
-    verifies without reading the chunks it already folded."""
+    verifies without reading the chunks it already folded.
+    The counterpart of tpu_reductions/ops/oracle.py:180."""
 
     def __init__(self, method: str, dtype: str) -> None:
         self.method = method.upper()
@@ -164,7 +171,8 @@ class IncrementalOracle:
         self._extreme_idx: Optional[int] = None   # ARG*: its global index
 
     def update(self, chunk: torch.Tensor) -> None:
-        """Fold one host chunk (a CPU tensor) into the running state."""
+        """Fold one host chunk (a CPU tensor) into the running state.
+        The counterpart of tpu_reductions/ops/oracle.py:218."""
         if chunk.numel() == 0:
             return
         if self.method in ("ARGMIN", "ARGMAX"):
@@ -205,7 +213,8 @@ class IncrementalOracle:
         """The oracle so far, as host_reduce gives it: np.int32 for int32
         SUM, np.float64 for real SUM, the input's value for MIN/MAX
         (bfloat16 as the exact float32, which numpy has), np.int64 for
-        ARG*."""
+        ARG*.
+        The counterpart of tpu_reductions/ops/oracle.py:265."""
         if self.method in ("SUM", "SCAN"):
             if self.dtype == "int32":
                 return np.int64(self._int_total).astype(np.int32)[()]
@@ -220,7 +229,8 @@ class IncrementalOracle:
         return np.dtype(dtype).type(self._extreme)
 
     def state(self) -> dict:
-        """A JSON-able snapshot for the stream's resume checkpoint."""
+        """A JSON-able snapshot for the stream's resume checkpoint.
+        The counterpart of tpu_reductions/ops/oracle.py:284."""
         return {"method": self.method, "dtype": self.dtype,
                 "count": self.count, "int_total": self._int_total,
                 "sum": self._sum, "comp": self._comp,
@@ -228,7 +238,8 @@ class IncrementalOracle:
 
     @classmethod
     def from_state(cls, state: dict) -> "IncrementalOracle":
-        """The oracle an interrupted stream persisted."""
+        """The oracle an interrupted stream persisted.
+        The counterpart of tpu_reductions/ops/oracle.py:294."""
         o = cls(state["method"], state["dtype"])
         o.count = int(state.get("count", 0))
         o._int_total = int(state.get("int_total", 0))
@@ -243,7 +254,8 @@ class IncrementalOracle:
 def verify(device_result, host_result, method: str, dtype: str, n: int
            ) -> tuple[bool, float]:
     """Acceptance check: (passed, abs_diff). Ints and MIN/MAX exact;
-    float SUM within registry.tolerance."""
+    float SUM within registry.tolerance.
+    The counterpart of tpu_reductions/ops/oracle.py:308."""
     tol = tolerance(method, dtype, n)
     diff = abs(float(np.asarray(device_result, dtype=np.float64))
                - float(np.asarray(host_result, dtype=np.float64)))

@@ -1,7 +1,7 @@
 """Reduction op registry: {SUM, MIN, MAX} over {int32, float32, float64,
 bfloat16}, and the reduction family, in torch.
 
-The counterpart of tpu_reductions/ops/registry.py (`ReduceOpSpec`, `OPS`,
+The counterpart of tpu_reductions/ops/registry.py:1 (`ReduceOpSpec`, `OPS`,
 `FAMILY_OPS`, `accum_dtype`, `tolerance`): one table that the kernels'
 wrappers, their plain versions, the comparator, the chain and the oracle
 all key off.
@@ -24,13 +24,15 @@ TORCH_DTYPES = {
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """The torch dtype of a config dtype name (config.DTYPE_ALIASES values)."""
+    """The torch dtype of a config dtype name (config.DTYPE_ALIASES values).
+    No reference analog: the JAX package uses numpy's names."""
     return TORCH_DTYPES[name]
 
 
 def accum_dtype(dtype: torch.dtype) -> torch.dtype:
     """Accumulator dtype for SUM: f32 for sub-32-bit floats (bf16 stays
-    2 B/element in memory but adds in f32), else the input dtype."""
+    2 B/element in memory but adds in f32), else the input dtype.
+    The counterpart of tpu_reductions/ops/registry.py:55."""
     if dtype.is_floating_point and torch.finfo(dtype).bits < 32:
         return torch.float32
     return dtype
@@ -61,7 +63,8 @@ def _sum_same_dtype(x: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class ReduceOpSpec:
-    """One reduction operator, described for every layer of the port."""
+    """One reduction operator, described for every layer of the port.
+    The counterpart of tpu_reductions/ops/registry.py:22."""
 
     name: str                       # SUM | MIN | MAX
     reduce: Callable                # full reduce to a 0-d tensor
@@ -71,11 +74,13 @@ class ReduceOpSpec:
 
     def identity(self, dtype: torch.dtype):
         """Padding identity for `dtype`: what ragged tails are filled with,
-        so padded slots cannot perturb the result."""
+        so padded slots cannot perturb the result.
+        The counterpart of tpu_reductions/ops/registry.py:32."""
         return self.monoid_identity(dtype)
 
     def reduce_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Reduce along `dim`, SUM in the accumulator dtype."""
+        """Reduce along `dim`, SUM in the accumulator dtype.
+        The reduce of tpu_reductions/ops/registry.py:22."""
         if self.name == "SUM":
             return torch.sum(x, dim=dim, dtype=accum_dtype(x.dtype))
         if self.name == "MIN":
@@ -116,7 +121,8 @@ FAMILY_OPS = {
 
 
 def get_op(name: str) -> ReduceOpSpec:
-    """Lookup by the CLI spelling (--method), the family's included."""
+    """Lookup by the CLI spelling (--method), the family's included.
+    The counterpart of tpu_reductions/ops/registry.py:182."""
     key = name.upper()
     if key in OPS:
         return OPS[key]
@@ -130,7 +136,8 @@ def tolerance(method: str, dtype: str, n: int) -> float:
     """Verification tolerance, the JAX package's table: ints exact;
     MIN/MAX and the family's extremes exact (arg indices are integers
     whatever the dtype); float32 SUM 1e-8*n; float64 SUM 1e-12; bfloat16
-    SUM 1e-2*n."""
+    SUM 1e-2*n.
+    The counterpart of tpu_reductions/ops/registry.py:195."""
     if dtype in ("int32", "int64"):
         return 0.0
     if method.upper() in ("MIN", "MAX", "SEGMIN", "SEGMAX", "ARGMIN",

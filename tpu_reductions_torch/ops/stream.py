@@ -1,7 +1,7 @@
 """Streaming reduction pipeline: double-buffered host-to-device staging
 overlapped with accumulation on the device.
 
-The counterpart of tpu_reductions/ops/stream.py. Instead of staging the
+The counterpart of tpu_reductions/ops/stream.py:1. Instead of staging the
 whole payload before the timed loop, the payload is cut into bounded
 chunks (`plan_chunks`, at most config.stage_chunk_bytes each) and
 
@@ -56,7 +56,8 @@ _BLOCK = _SUBLANES * _LANES
 class ChunkPlan:
     """The chunk geometry of one streamed reduction; part of the resume
     contract (a partial checkpointed under one plan is never resumed
-    under another)."""
+    under another).
+    The counterpart of tpu_reductions/ops/stream.py:70."""
 
     n: int                 # payload elements
     dtype: str
@@ -67,12 +68,14 @@ class ChunkPlan:
 
     @property
     def chunk_rows(self) -> int:
-        """Rows of one staged (rows, 128) chunk."""
+        """Rows of one staged (rows, 128) chunk.
+        The counterpart of tpu_reductions/ops/stream.py:87."""
         return self.chunk_elems // _LANES
 
     def chunk_span(self, index: int) -> tuple[int, int]:
         """[start, end) of chunk `index`; the last one may be ragged (its
-        staged tail is padded with the op's identity)."""
+        staged tail is padded with the op's identity).
+        The counterpart of tpu_reductions/ops/stream.py:92."""
         if not 0 <= index < self.num_chunks:
             raise IndexError(f"chunk {index} outside 0..{self.num_chunks}")
         start = index * self.chunk_elems
@@ -83,7 +86,8 @@ def plan_chunks(n: int, dtype: str, chunk_bytes: Optional[int] = None
                 ) -> ChunkPlan:
     """The largest power-of-two count of (8, 128) blocks under the bound.
     float64 counts 4 bytes an element: it streams as two 32-bit planes,
-    each of which keeps to the bound on its own."""
+    each of which keeps to the bound on its own.
+    The counterpart of tpu_reductions/ops/stream.py:104."""
     if n <= 0:
         raise ValueError("n must be positive")
     bound = stage_chunk_bytes(chunk_bytes)
@@ -100,7 +104,8 @@ class StreamReducer:
     """The device half of the pipeline: a resident (8, 128) partial (a pair
     of blocks for float64) that chunks fold into, with checkpoint and
     restore at the fetched-partial grain. Drive it through `run_stream`.
-    `slots` chunks can be on the device at once (two for the pipeline)."""
+    `slots` chunks can be on the device at once (two for the pipeline).
+    The counterpart of tpu_reductions/ops/stream.py:183."""
 
     def __init__(self, method: str, dtype: str, n: int, *,
                  chunk_bytes: Optional[int] = None,
@@ -133,7 +138,8 @@ class StreamReducer:
 
     def restore(self, partial=None) -> None:
         """Put a partial on the device: None is the op's identity (a fresh
-        stream), else what an earlier partial() fetched (a resume)."""
+        stream), else what an earlier partial() fetched (a resume).
+        The counterpart of tpu_reductions/ops/stream.py:229."""
         if partial is None:
             partial = self._identity_partial()
         if self.is_dd:
@@ -144,7 +150,8 @@ class StreamReducer:
     def stage(self, flat: torch.Tensor, index: int):
         """Cut chunk `index` out of the flat host payload, pad a ragged
         tail with the identity (every chunk has the full shape), and start
-        its copy. float64 is encoded into its two planes here."""
+        its copy. float64 is encoded into its two planes here.
+        The counterpart of tpu_reductions/ops/stream.py:247."""
         start, end = self.plan.chunk_span(index)
         rows, elems = self.plan.chunk_rows, self.plan.chunk_elems
         piece = flat[start:end]
@@ -168,7 +175,8 @@ class StreamReducer:
 
     def fold(self, staged) -> None:
         """Fold one staged chunk into the resident partial (queued on the
-        device; the next partial() fetch is its completion point)."""
+        device; the next partial() fetch is its completion point).
+        The counterpart of tpu_reductions/ops/stream.py:283."""
         assert self._acc is not None, "restore() before fold()"
         slot, planes = staged
         self.stager.acquire(slot)
@@ -184,7 +192,8 @@ class StreamReducer:
         self.stager.release(slot)
 
     def partial(self):
-        """The running partial on the host (4 KiB, or two blocks)."""
+        """The running partial on the host (4 KiB, or two blocks).
+        The counterpart of tpu_reductions/ops/stream.py:310."""
         assert self._acc is not None, "restore() before partial()"
         if self.is_dd:
             return tuple(p.cpu() for p in self._acc)
@@ -193,7 +202,8 @@ class StreamReducer:
     def finish(self, partial=None):
         """The final scalar from a fetched partial: int32 SUM wraps modulo
         2^32 like the device accumulator, real SUM adds in float64, and
-        float64 decodes through host_finish_pairs."""
+        float64 decodes through host_finish_pairs.
+        The counterpart of tpu_reductions/ops/stream.py:326."""
         if partial is None:
             partial = self.partial()
         if self.is_dd:
@@ -208,20 +218,23 @@ class StreamReducer:
 
 
 def dtype_name(dtype: torch.dtype) -> str:
-    """The config name of a torch dtype (`torch.int32` -> `int32`)."""
+    """The config name of a torch dtype (`torch.int32` -> `int32`).
+    No reference analog: numpy dtypes carry their names."""
     return str(dtype).removeprefix("torch.")
 
 
 def partial_to_jsonable(partial) -> dict:
     """A fetched partial as JSON for the resume checkpoint; floats round
-    trip exactly, int32 keys as ints."""
+    trip exactly, int32 keys as ints.
+    The counterpart of tpu_reductions/ops/stream.py:351."""
     planes = list(partial) if isinstance(partial, tuple) else [partial]
     return {"dtype": dtype_name(planes[0].dtype),
             "planes": [p.reshape(-1).tolist() for p in planes]}
 
 
 def partial_from_jsonable(spec: dict):
-    """The inverse of partial_to_jsonable: restore()'s input."""
+    """The inverse of partial_to_jsonable: restore()'s input.
+    The counterpart of tpu_reductions/ops/stream.py:365."""
     dt = TORCH_DTYPES[spec["dtype"]]
     planes = [torch.tensor(p, dtype=dt).reshape(_SUBLANES, _LANES)
               for p in spec["planes"]]
@@ -231,7 +244,8 @@ def partial_from_jsonable(spec: dict):
 @dataclasses.dataclass
 class StreamResult:
     """One streamed reduction: the scalar and the sustained rates. The
-    wall clock runs from the first stage to the last materialization."""
+    wall clock runs from the first stage to the last materialization.
+    The counterpart of tpu_reductions/ops/stream.py:377."""
 
     value: object                 # np scalar (np.float64 for float64)
     chunks_done: int
@@ -244,13 +258,15 @@ class StreamResult:
     @property
     def gbps(self) -> float:
         """Sustained GB/s over the streamed span: copies and folds,
-        overlapped; not a kernel rate."""
+        overlapped; not a kernel rate.
+        The counterpart of tpu_reductions/ops/stream.py:393."""
         return (self.nbytes / self.wall_s) / 1e9 if self.wall_s > 0 \
             else float("inf")
 
     @property
     def chunks_per_s(self) -> float:
-        """Chunks folded per second by this run."""
+        """Chunks folded per second by this run.
+        The counterpart of tpu_reductions/ops/stream.py:401."""
         done = self.chunks_done - self.resumed_from
         return done / self.wall_s if self.wall_s > 0 else float("inf")
 
@@ -267,7 +283,8 @@ def run_stream(flat, method: str, *, chunk_bytes: Optional[int] = None,
     folds run over the same chunk boundaries wherever a run starts, so a
     resumed stream's value is the uninterrupted one's, bit for bit. As
     in JAX, the `stream.chunk` fault point fires before each chunk and
-    the `stream.*` events record the run."""
+    the `stream.*` events record the run.
+    The counterpart of tpu_reductions/ops/stream.py:408."""
     flat = torch.as_tensor(flat).reshape(-1)
     r = reducer or StreamReducer(method, dtype_name(flat.dtype),
                                  flat.numel(), chunk_bytes=chunk_bytes,
@@ -351,7 +368,8 @@ def run_stream(flat, method: str, *, chunk_bytes: Optional[int] = None,
 def iter_chunks(flat, plan: ChunkPlan,
                 start: int = 0) -> Iterator[torch.Tensor]:
     """The host chunks of `plan` from `start` on, as views (the
-    incremental oracle's input)."""
+    incremental oracle's input).
+    The counterpart of tpu_reductions/ops/stream.py:528."""
     flat = torch.as_tensor(flat).reshape(-1)
     for i in range(start, plan.num_chunks):
         s, e = plan.chunk_span(i)
