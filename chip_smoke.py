@@ -5,6 +5,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+or, on a machine with several, the rank axis across cards alone
+(`[multicard]`, below; it ends with the same last line):
+
+    python3 chip_smoke.py --phase=multicard
+
 1. Builds the hand-written kernels (tpu_reductions_torch/csrc/*.cu, one
    nvcc per source, all started together) and prints the build time and
    the register report.
@@ -169,6 +174,26 @@ Run from the repository root on a machine with one NVIDIA GPU:
    HBM-bound row may read above 1.05 of the roof; prints the averages
    beside the reference GPU's, each curve's peak, N_1/2 and L2->HBM
    cliff, and the experiment's host seconds.
+   `[multicard]`: with one card it prints that it did not run and why
+   (1 card); with 2 or more, P = min(4, cards): `nvidia-smi topo -m`
+   and the cards' names and power limits, the collective CLI itself in P
+   processes (int32 SUM at k = 2P, n = 2^27: every process exits 0, rank
+   0's placement note, rows, NVLink shares and PASSED), then in P workers
+   of bench/multicard.py over NCCL the reduce.c grid at k = P and k = 2P
+   (int32 and float64 x MAX/MIN/SUM, n = 2^27, periter and chained),
+   SUM and MIN scattered and rooted at k = 2P, the pair route at 2^26 (dd
+   SUM, key MIN/MAX, periter and chained) and float32 SUM on the 8-bit
+   quantized ring, each beside its one-card twin (the same k and n in
+   this process on card 0) with the ratio of their times; a row's
+   periter and chained timings share one payload, warm-up and oracle,
+   in the workers and in the twin: every row PASSED with its label in
+   every process and in the twin, the same bits for every int32 and
+   MIN/MAX row and the ring paths, a float SUM through psum within
+   registry.tolerance of the twin; on a chained row each process's
+   captured chain (NCCL inside the graph) gives the scalar of the same
+   chain run one by one, and its scalar is the twin's (same bits, or
+   within registry.tolerance for float SUM through psum); no process of
+   the phase alive afterwards.
    Last, `[lint]`: the port lint (`python -m tpu_reductions_torch.lint
    tpu_reductions_torch chip_smoke.py --format=json`, a process of its own
    on a machine without jax) with its fact cache cold and then warm; both
@@ -2241,6 +2266,220 @@ def resilience_path(driver, counted, kr, registry, config, staging) -> None:
         raise AssertionError(f"[resilience] compile ledger rows {rows}")
 
 
+# [multicard]: the collective CLI with one process a card, P = min(4,
+# cards), NCCL between them, each row held against its one-card twin
+MC_MAX_P = 4
+MC_RETRIES = 3
+MC_TIMEOUT_S = 420
+MC_OUT = OUT / "smoke_multicard"
+# what the last [multicard] ran: the `kernels` line's note
+MULTICARD = {"ran": False, "processes": 1, "backend": "nccl",
+             "why": "not reached"}
+
+
+def multicard_rows(p: int) -> list:
+    """(argv, label) of every [multicard] row at P cards: the reduce.c grid
+    at k = P (a rank a card) and k = 2P (two, so hops inside a card and
+    across cards mix), periter and chained, at COLL_N; SUM and MIN
+    scattered and rooted at k = 2P; the pair route (dd SUM, key MIN/MAX)
+    at PAIR_N, periter and chained; float32 SUM on the 8-bit quantized
+    ring, chained."""
+    rows = []
+    timed = [f"--retries={MC_RETRIES}", f"--chainspan={COLL_SPAN}"]
+    for k in (p, 2 * p):
+        for dtype in ("int", "double"):
+            for method in METHODS:
+                for timing in ("periter", "chained"):
+                    rows.append(([f"--method={method}", f"--type={dtype}",
+                                  f"--n={COLL_N}", f"--devices={k}",
+                                  f"--timing={timing}"] + timed,
+                                 "all_reduce"))
+    for method, rooted, label in (("SUM", "scatter", "reduce_scatter"),
+                                  ("MIN", "scatter", "reduce_scatter"),
+                                  ("SUM", "root", "reduce_to_root_rs_ag"),
+                                  ("MIN", "root", "reduce_to_root_rs_ag")):
+        rows.append(([f"--method={method}", "--type=int", f"--n={COLL_N}",
+                      f"--devices={2 * p}", f"--rooted={rooted}"] + timed,
+                     label))
+    for method, label in (("SUM", "dd_ring_rs_ag"),
+                          ("MIN", "key_two_phase_all_reduce"),
+                          ("MAX", "key_two_phase_all_reduce")):
+        for timing in ("periter", "chained"):
+            rows.append(([f"--method={method}", "--type=double", "--f64=dd",
+                          f"--n={PAIR_N}", f"--devices={2 * p}",
+                          f"--timing={timing}"] + timed, label))
+    rows.append((["--method=SUM", "--type=float", "--quantized",
+                  "--quant-bits=8", f"--n={COLL_N}", f"--devices={2 * p}",
+                  "--timing=chained"] + timed, "q8_ring_rs_ag"))
+    return rows
+
+
+def _median(xs) -> float:
+    return statistics.median(xs) if xs else 0.0
+
+
+def _cli_across_cards(p: int) -> list:
+    """The collective CLI itself, P processes on P cards (int32 SUM at
+    k = 2P): every process exits 0, rank 0 prints the placement note, its
+    rows, each row's NVLink share and PASSED; returns the survivors and
+    what failed (None when nothing did)."""
+    from tpu_reductions_torch.bench.multicard import free_port, run_group
+    port = free_port()
+    argv = ["--method=SUM", "--type=int", f"--n={COLL_N}",
+            f"--devices={2 * p}", "--retries=2", f"--num-processes={p}",
+            f"--coordinator=127.0.0.1:{port}"]
+    group = run_group(
+        [[sys.executable, "-m", "tpu_reductions_torch.bench.collective_driver",
+          *argv, f"--process-id={i}"] for i in range(p)], 240)
+    outs, rcs = group["outs"], group["rcs"]
+    out0 = outs[0][0]
+    print("  " + out0.replace("\n", "\n  ").rstrip(), flush=True)
+    if (rcs != [0] * p or f"lie on {p} cards" not in out0
+            or "x NVLink's 450 GB/s each way" not in out0
+            or "&&&& tpu_reductions_torch.collective PASSED" not in out0
+            or any(o.strip() for o, _ in outs[1:])):
+        return group["survivors"], (
+            f"the CLI across {p} cards: exit {rcs}; "
+            f"{[e[-2000:] for _, e in outs]}")
+    return group["survivors"], None
+
+
+def _chain_note(mc, tw, recs, head) -> tuple:
+    """(ok, words): a chained row's timed chain scalar in the workers
+    against its one-card twin's, the same bits where the row must keep
+    them, else within registry.tolerance: process 0's always (it holds
+    rank 0, the twin's first row), every process's where the output is
+    replicated. Each process already held its graph's scalar against the
+    chain run one by one (collective_driver)."""
+    exact = mc.bits_required(head["method"], head["dtype"],
+                             head["algorithm"])
+    held = [rec for j, rec in enumerate(recs) if j == 0 or rec["replicated"]]
+    ok = tw["chain"] is not None and all(
+        rec.get("chain") and mc.chain_agrees(
+            mc.chain_scalar(rec), tw["chain"], exact, head["method"],
+            head["dtype"], head["n"]) for rec in held)
+    how = "same bits" if exact else "within registry.tolerance"
+    return ok, (f"chain scalar of {len(held)} process(es) {how} as one "
+                f"card's" if ok else "CHAIN SCALAR DIFFERS from one card's")
+
+
+def multicard_path(driver, counted, kr, registry, config, staging) -> None:
+    """[multicard]: with 2 or more cards, the collective CLI across P =
+    min(4, cards) cards, one process a card over NCCL, then every
+    multicard_rows row in P workers (bench/multicard.launch) and beside
+    it its one-card twin, the same k and n in this process on card 0:
+    every row PASSED with its label in every process and in the twin;
+    the same bits as the twin for every int32 and MIN/MAX row and the ring
+    paths, float SUM through psum within the registry's tolerance of it;
+    a chained row's graph scalar that of the chain run one by one (in
+    each worker) and the twin's (_chain_note); each row printed with its GB/s, busbw, busbw a card against NVLink's
+    450 GB/s each way, the twin's time and the ratio; the topology; no
+    process of the phase alive afterwards. With one card it says so and
+    runs nothing. The collectives launch no kernel of the repository."""
+    from tpu_reductions_torch.bench import multicard as mc
+    from tpu_reductions_torch.bench.collective_driver import NVLINK_GBPS
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        MULTICARD.update(ran=False, processes=1,
+                         why=f"{cards} card (needs 2 or more)")
+        print(f"  [multicard] did not run: {cards} card; the rank axis "
+              f"across cards needs 2 or more", flush=True)
+        return
+    p = min(MC_MAX_P, cards)
+    MULTICARD.update(ran=False, processes=p, why="running")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    topo = (topo.stdout + topo.stderr).rstrip()
+    # the peer access the processes' copies can take, whatever topo says
+    peers = "\n".join(
+        f"  cuda:{i} peer access: " + " ".join(
+            "-" if i == j else
+            ("yes" if torch.cuda.can_device_access_peer(i, j) else "no")
+            for j in range(cards)) for i in range(cards))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout
+    nccl = torch.cuda.nccl.version()
+    print(f"  {cards} cards, P = {p} processes over NCCL "
+          f"{nccl if isinstance(nccl, int) else '.'.join(map(str, nccl))}\n"
+          f"  {smi.strip()}\n  nvidia-smi topo -m: {topo}\n{peers}",
+          flush=True)
+    t0 = time.perf_counter()
+    cli_survivors, cli_fault = _cli_across_cards(p)
+    print(f"  the CLI across {p} cards: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rows = multicard_rows(p)
+    t0 = time.perf_counter()
+    run = mc.launch([argv for argv, _ in rows], p, MC_OUT,
+                    timeout_s=MC_TIMEOUT_S)
+    print(f"  {len(rows)} rows in {p} workers: {run['seconds']:.1f} s, "
+          f"exit {run['rcs']}", flush=True)
+    survivors = run["survivors"] + cli_survivors
+    tails = [(MC_OUT / f"process{i}.log").read_text()[-3000:]
+             for i in range(p)]
+    if run["rcs"] != [0] * p or survivors or any(
+            len(r) != len(rows) for r in run["records"]):
+        raise AssertionError(f"[multicard] workers exit {run['rcs']}, "
+                             f"survivors {survivors}: {tails}")
+    bad = [cli_fault] if cli_fault else []
+    twin_s = 0.0
+    # the twins run as the workers ran the rows: a row's periter and
+    # chained timings over one payload, warm-up and oracle
+    twins = mc.twins([argv for argv, _ in rows])
+    for i, (argv, label) in enumerate(rows):
+        recs = [r[i] for r in run["records"]]
+        tw = next(twins)
+        twin_s += tw["seconds"]
+        errors = [rec["error"] for rec in recs if "error" in rec]
+        if errors:
+            print(f"  {' '.join(argv)}: ERROR {errors[0]}", flush=True)
+            bad.append((argv, errors))
+            continue
+        mine = recs[0]["results"]
+        head = mine[0]
+        statuses = {r["status"] for rec in recs for r in rec["results"]}
+        statuses |= {r["status"] for r in tw["results"]}
+        algs = {r["algorithm"] for rec in recs for r in rec["results"]}
+        algs |= {r["algorithm"] for r in tw["results"]}
+        if mc.bits_required(head["method"], head["dtype"], head["algorithm"]):
+            same = mc.same_bits(tw["views"], recs)
+            bits = "same bits" if same else "BITS DIFFER"
+        else:
+            same, diff = mc.within_tolerance(
+                tw["views"], run["kept"][i], head["method"], head["dtype"],
+                head["n"])
+            bits = (f"max |diff| {diff:.3e} vs one card, within "
+                    f"registry.tolerance" if same else
+                    f"max |diff| {diff:.3e} OVER registry.tolerance")
+        ms = 1e3 * _median([r["time_s"] for r in mine])
+        twin_ms = 1e3 * _median([r["time_s"] for r in tw["results"]])
+        gbps = _median([r["reference_gbps"] for r in mine])
+        busbw = _median([r["busbw_gbps"] for r in mine])
+        share = busbw / p / NVLINK_GBPS
+        timing = "chained" if "--timing=chained" in argv else "periter"
+        chain_ok, chain = (_chain_note(mc, tw, recs, head)
+                           if timing == "chained" else (True, ""))
+        print(f"  {head['dtype']} {head['method']} k={head['ranks']} "
+              f"n={head['n']} rooted={head['rooted']} {timing}: "
+              f"{head['algorithm']} {ms:.5f} ms, {gbps:.4f} GB/s, busbw "
+              f"{busbw:.4f} ({busbw / p:.4f} a card, {share:.4f}x NVLink "
+              f"{NVLINK_GBPS:.0f}); one card {twin_ms:.5f} ms (ratio "
+              f"{ms / twin_ms if twin_ms else float('nan'):.3f}); {bits}"
+              f"{'; ' + chain if chain else ''} "
+              f"[{','.join(sorted(statuses))}]", flush=True)
+        del tw
+        if (statuses != {"PASSED"} or algs != {label} or not same
+                or not chain_ok):
+            bad.append((argv, sorted(statuses), sorted(algs), bits, chain))
+    print(f"  twins: {twin_s:.1f} s; rank 0's log of the first row:\n  "
+          + run["records"][0][0]["log"].replace("\n", "\n  ").rstrip(),
+          flush=True)
+    if bad:
+        print("  worker logs' tails:\n" + "\n".join(tails), flush=True)
+        raise AssertionError(f"[multicard] rows {bad}")
+    MULTICARD.update(ran=True, rows=len(rows), why="ran")
+
+
 # the RED006 count the port's tree gives, pinned at 0 (RED006_PINNED in
 # tests/test_torch_lint_clean.py, which holds the two equal)
 LINT_RED006_PINNED = 0
@@ -2288,7 +2527,8 @@ CLI_PATHS = {"chain": chain_path, "spot": spot_path, "smoke": smoke_path,
              "quant": quant_path, "rank_scaling": rank_scaling_path,
              "exec": exec_path, "serve": serve_path,
              "fleet": fleet_path, "resilience": resilience_path,
-             "experiment": experiment_path, "lint": lint_path}
+             "experiment": experiment_path,
+             "multicard": multicard_path, "lint": lint_path}
 
 
 def main() -> int:
@@ -2406,6 +2646,9 @@ def main() -> int:
         "exec": "no kernel: the cost oracle reads JSON and touches no "
                 "device",
         "lint": "no kernel: a static pass over the port's sources",
+        "multicard": dict(MULTICARD, kernel="no kernel of the repository: "
+                          "the collectives are torch ops over the rank "
+                          "axis and NCCL between the cards"),
         "resilience": "its CLIs run in processes of their own, whose "
                       "launches this process does not count (its hang "
                       "and scheduler rows go through k6, its smoke task "
@@ -2427,6 +2670,45 @@ def main() -> int:
     return 0
 
 
+def multicard_main() -> int:
+    """`--phase=multicard`: the [multicard] phase alone (on a host of
+    several cards), then the cards' names and power limits and the last
+    line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from tpu_reductions_torch import config
+    from tpu_reductions_torch.ops import registry
+    print(f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}: "
+          f"torch {torch.__version__} cuda {torch.version.cuda} python "
+          f"{sys.version.split()[0]}", flush=True)
+    print("[multicard]", flush=True)
+    t0 = time.perf_counter()
+    # redlint: disable=RED018 -- the phase's host seconds against the run's time limit; its rows carry the device times
+    multicard_path(None, None, None, registry, config, None)
+    print(f"[multicard] {time.perf_counter() - t0:.1f} s", flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip()
+    print(smi)
+    print(json.dumps({"multicard": MULTICARD}))
+    print(json.dumps({"ok": True,
+                      "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}}))
+    return 0
+
+
+PHASES = {"multicard": multicard_main}
+
+
 if __name__ == "__main__":
+    args = sys.argv[1:]
+    if args and (len(args) != 1 or not args[0].startswith("--phase=")
+                 or args[0][8:] not in PHASES):
+        print(f"usage: chip_smoke.py [--phase={'|'.join(PHASES)}]",
+              file=sys.stderr)
+        sys.exit(2)
     # redlint: disable=RED017,RED019 -- the card smoke runs under its caller's time limit, which ends the process; arming the watchdog here would end a phase that opens no heartbeat guard, and the CLIs it drives arm their own
-    sys.exit(main())
+    sys.exit(PHASES[args[0][8:]]() if args else main())

@@ -30,6 +30,21 @@ NO_ANALOG = [
     "bench/host.py::time_staging",
     "bench/host.py::time_oracle",
     "bench/host.py::main",
+    # the rank axis across cards, held against one card: the JAX package
+    # has no placement twin
+    "bench/collective_driver.py::bits_required",
+    "bench/collective_driver.py::chain_agrees",
+    "bench/multicard.py",
+    "bench/multicard.py::chain_scalar",
+    "bench/multicard.py::digest",
+    "bench/multicard.py::free_port",
+    "bench/multicard.py::launch",
+    "bench/multicard.py::main",
+    "bench/multicard.py::run_group",
+    "bench/multicard.py::same_bits",
+    "bench/multicard.py::twin",
+    "bench/multicard.py::twins",
+    "bench/multicard.py::within_tolerance",
     "bench/passes.py",
     "bench/passes.py::bits",
     "bench/passes.py::device_ms",
@@ -58,6 +73,7 @@ NO_ANALOG = [
     "ops/_cuda.py::spin_ns",
     "ops/chain.py::counted_wrappers",
     "ops/chain.py::ChainedReduce.close",
+    "ops/chain.py::ChainedReduce.eager",
     "ops/kernel_reduce.py::target_device",
     "ops/oracle.py::host_value",
     "ops/registry.py::torch_dtype",

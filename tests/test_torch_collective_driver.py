@@ -14,6 +14,9 @@
   fallback geometry, gives the JAX CLI's verdict, algorithm column and
   exit code.
 - Resume from an interrupted `--out`.
+- The card's refusals at bring-up, each exit 1 with its reason and the
+  FAILED marker: no card, more processes than the host's cards, and two
+  processes on one card (cards mocked in the CLI's subprocesses).
 - Processes over gloo: `__graft_entry__.dryrun_multihost(2)` as a
   two-process run of the port's CLI, the two-process interleaved
   reduce-scatter that tests/test_mesh_distributed.py runs for JAX, and
@@ -29,8 +32,6 @@ import io
 import json
 import os
 import re
-import signal
-import socket
 import subprocess
 import sys
 import types
@@ -42,6 +43,7 @@ from tpu_reductions import config as jax_config
 from tpu_reductions.bench import collective_driver as jax_driver
 from tpu_reductions_torch import config as port_config
 from tpu_reductions_torch.bench import collective_driver as port_driver
+from tpu_reductions_torch.bench.multicard import free_port, run_group
 from tpu_reductions_torch.utils import timing as port_timing
 
 REPO = Path(__file__).resolve().parents[1]
@@ -376,16 +378,87 @@ def test_quantized_cli_gives_the_jax_verdict_algorithm_and_exit(
     assert [r["status"] for r in p_rows] == [r["status"] for r in j_rows]
 
 
-def test_card_refuses_more_than_one_process():
-    """Without --platform=cpu, --num-processes > 1 exits 1 with its
-    reason before any bring-up, card or none; never moved to the CPU."""
-    rc, out, err = _run(port_driver.main, [
-        "--method=SUM", "--num-processes=2", "--process-id=0",
-        "--coordinator=127.0.0.1:1", "--devices=2"])
-    assert rc == 1
-    assert "NCCL takes one rank per GPU" in err
-    assert "&&&& tpu_reductions_torch.collective FAILED" in out
+# a collective CLI process that sees `cards` mocked cards (none of its
+# collectives runs: every case here is refused at bring-up)
+MOCKED_CARDS = """
+import sys, types
+import torch
+cards = int(sys.argv[1])
+torch.cuda.is_available = lambda: cards > 0
+torch.cuda.device_count = lambda: cards
+torch.cuda.set_device = lambda d: None
+torch.cuda.get_device_properties = lambda d: types.SimpleNamespace(
+    uuid=f"GPU-{getattr(d, 'index', d)}", name="mocked card")
+from tpu_reductions_torch.bench import collective_driver
+sys.exit(collective_driver.main(sys.argv[2:]))
+"""
+
+
+def _refused_group(cards: int, nproc: int, env: dict) -> list:
+    """`nproc` card processes of the collective CLI on `cards` mocked
+    cards, joined at a port from the OS: (exit code, stdout, stderr)."""
+    port = free_port()
+    group = run_group(
+        [[sys.executable, "-c", MOCKED_CARDS, str(cards), "--method=SUM",
+          "--n=4096", f"--devices={nproc}", f"--num-processes={nproc}",
+          f"--process-id={i}", f"--coordinator=127.0.0.1:{port}"]
+         for i in range(nproc)], 120, env={**os.environ, **env})
+    return [(rc, out, err) for rc, (out, err) in zip(group["rcs"],
+                                                    group["outs"])]
+
+
+def _assert_refused(rc, out, err, reason, reports=True):
+    assert rc == 1, (out, err)
+    assert reason in err, err
+    assert "error: bring-up failed" in err
+    if not reports:     # only rank 0 prints the QA markers
+        assert out.strip() == "", out
+        return
+    assert out.rstrip().endswith("&&&& tpu_reductions_torch.collective "
+                                 "FAILED"), out
     assert "DATATYPE" not in out
+
+
+def test_card_refuses_more_than_one_process():
+    """More processes on a host than it has cards: each process of a
+    multi-process card run drives a card of its own, so 2 processes on
+    a host of 1 card exit 1 with that reason before any join; never
+    moved to the CPU."""
+    rc, out, err = _run_mocked(1, [
+        "--num-processes=2", "--process-id=0", "--coordinator=127.0.0.1:1",
+        "--devices=2"])
+    _assert_refused(rc, out, err, "2 processes on this host but 1 card(s)")
+
+
+def _run_mocked(cards: int, argv: list) -> tuple:
+    r = subprocess.run([sys.executable, "-c", MOCKED_CARDS, str(cards),
+                        "--method=SUM", "--n=4096", *argv], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    return r.returncode, r.stdout, r.stderr
+
+
+def test_card_refuses_a_multi_process_run_without_a_card():
+    """No card: --num-processes=2 without --platform=cpu exits 1 with
+    the no-device reason, never on the CPU or over gloo."""
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_reductions_torch.bench.collective_driver",
+         "--method=SUM", "--n=4096", "--devices=2", "--num-processes=2",
+         "--process-id=0", "--coordinator=127.0.0.1:1"], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    _assert_refused(r.returncode, r.stdout, r.stderr,
+                    "no CUDA device is available")
+    assert "gloo" not in r.stderr.lower()
+
+
+def test_card_refuses_two_processes_on_one_card():
+    """Two processes whose LOCAL_RANK names one card: both publish their
+    card at the rendezvous, both see the clash, and both exit 1 with the
+    duplicate-card reason before NCCL is asked."""
+    for i, (rc, out, err) in enumerate(
+            _refused_group(4, 2, {"LOCAL_RANK": "0"})):
+        _assert_refused(rc, out, err, "both drive card", reports=i == 0)
+        assert "processes 0 and 1" in err
 
 
 def test_a_non_positive_slope_waives_the_rep(monkeypatch):
@@ -456,15 +529,9 @@ def test_resume_from_an_interrupted_out(tmp_path):
 # processes over gloo
 # ---------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 # what a process prints when the group's rendezvous itself failed (the
 # TCP store's socket, gloo's connect), before any of the CLI ran: under a
-# loaded host the free port can be taken between _free_port and the bind,
+# loaded host the free port can be taken between free_port and the bind,
 # or the store's client socket can fail its hostname lookup and abort
 _RENDEZVOUS_FAULT = re.compile(
     r"Address already in use|EADDRINUSE|DistNetworkError|"
@@ -491,21 +558,14 @@ def _run_group(nproc: int, argv: list, timeout: float = 180) -> list:
 def _start_group(nproc: int, argv: list, timeout: float) -> list:
     """One group on a fresh port. Every process is killed if one fails to
     finish in time."""
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "tpu_reductions_torch.bench.collective_driver",
-         *argv, "--platform=cpu", f"--coordinator=127.0.0.1:{port}",
-         f"--num-processes={nproc}", f"--process-id={i}"],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        start_new_session=True) for i in range(nproc)]
-    try:
-        outs = [p.communicate(timeout=timeout) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                os.killpg(p.pid, signal.SIGKILL)
-                p.wait()
-    return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+    port = free_port()
+    group = run_group(
+        [[sys.executable, "-m", "tpu_reductions_torch.bench.collective_driver",
+          *argv, "--platform=cpu", f"--coordinator=127.0.0.1:{port}",
+          f"--num-processes={nproc}", f"--process-id={i}"]
+         for i in range(nproc)], timeout)
+    return [(rc, out, err) for rc, (out, err) in zip(group["rcs"],
+                                                    group["outs"])]
 
 
 def _ours(text: str) -> list:

@@ -953,17 +953,21 @@ def test_collective_graph_chain_gives_the_eager_chains_scalar(cuda_device,
 
 @pytest.mark.gpu
 def test_collective_cli_on_card_refuses_two_processes(cuda_device):
-    """On the card --num-processes=2 exits 1 with its reason (NCCL takes
-    one rank per GPU); it is never moved to the CPU."""
+    """On the card more processes than the host's cards exit 1 with their
+    reason (each process drives a card of its own: two on one card is
+    NCCL's duplicate GPU failure); never moved to the CPU."""
     import subprocess
     import sys
+    nproc = torch.cuda.device_count() + 1
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_reductions_torch.bench.collective_driver",
-         "--method=SUM", "--n=4096", "--devices=2", "--num-processes=2",
-         "--process-id=0", "--coordinator=127.0.0.1:1"],
+         "--method=SUM", "--n=4096", f"--devices={nproc}",
+         f"--num-processes={nproc}", "--process-id=0",
+         "--coordinator=127.0.0.1:1"],
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 1
-    assert "NCCL takes one rank per GPU" in proc.stderr
+    assert (f"{nproc} processes on this host but "
+            f"{nproc - 1} card(s)") in proc.stderr
     assert "DATATYPE" not in proc.stdout
 
 
@@ -982,6 +986,94 @@ def test_collective_cli_on_card_passes(cuda_device):
     assert f"rows of one tensor on {torch.cuda.get_device_name()}" in \
         out.getvalue()
     assert "&&&& tpu_reductions_torch.collective PASSED" in out.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# the rank axis across cards (bench/multicard.py): two processes, one a
+# card, NCCL between them, against one card's bits
+# ---------------------------------------------------------------------------
+
+MULTICARD_ROWS = (
+    ["--method=SUM", "--type=int", "--n=4194304", "--devices=4",
+     "--retries=2"],
+    ["--method=SUM", "--type=int", "--n=4194304", "--devices=4",
+     "--retries=2", "--timing=chained"],
+    ["--method=SUM", "--type=double", "--f64=dd", "--n=4194304",
+     "--devices=4", "--retries=2", "--timing=chained", "--chainspan=4"],
+    ["--method=MIN", "--type=int", "--n=4194304", "--devices=4",
+     "--rooted=scatter", "--retries=2", "--timing=chained",
+     "--chainspan=4"],
+)
+
+
+@pytest.fixture(scope="module")
+def two_cards(tmp_path_factory):
+    """The MULTICARD_ROWS in two processes on cards 0 and 1."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more NVIDIA GPUs: run `python -m pytest "
+                    "-q -m gpu --noconftest tests/test_torch_cuda.py -k "
+                    "multicard` on a machine with several cards")
+    from tpu_reductions_torch.bench import multicard
+    return multicard.launch([list(r) for r in MULTICARD_ROWS], 2,
+                            tmp_path_factory.mktemp("multicard"),
+                            timeout_s=300)
+
+
+@pytest.fixture(scope="module")
+def one_card_twins(two_cards):
+    """The MULTICARD_ROWS in this process on one card."""
+    from tpu_reductions_torch.bench import multicard
+    return list(multicard.twins([list(r) for r in MULTICARD_ROWS]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(len(MULTICARD_ROWS)),
+                         ids=["all_reduce", "all_reduce_chained", "dd_ring",
+                              "rooted_scatter"])
+def test_multicard_rows_give_the_one_card_bits(two_cards, one_card_twins,
+                                               i):
+    """An all-reduce (periter, and chained over the same payload), the dd
+    ring and a rooted scatter (the MIN/MAX butterfly) across two cards
+    over NCCL: every row PASSED in both processes, with one card's bits;
+    on a chained row each process's captured chain, NCCL inside the
+    graph, gives the scalar of the same chain run one by one (else the
+    row FAILED in collective_driver) and process 0's is one card's."""
+    from tpu_reductions_torch.bench import multicard
+    assert two_cards["rcs"] == [0, 0] and two_cards["survivors"] == []
+    recs = [r[i] for r in two_cards["records"]]
+    twin = one_card_twins[i]
+    for rec in recs:
+        assert {r["status"] for r in rec["results"]} == {"PASSED"}
+    assert multicard.same_bits(twin["views"], recs)
+    assert {r["status"] for r in twin["results"]} == {"PASSED"}
+    assert "lie on 2 cards" in recs[0]["log"]
+    if "--timing=chained" in MULTICARD_ROWS[i]:
+        for j, rec in enumerate(recs):
+            if j == 0 or rec["replicated"]:
+                assert multicard.chain_agrees(
+                    multicard.chain_scalar(rec), twin["chain"], True,
+                    "SUM", "int32", 4194304)
+    else:
+        assert twin["chain"] is None and recs[0]["chain"] is None
+
+
+@pytest.mark.gpu
+def test_multicard_int32_sum_wraps_as_the_oracle(two_cards):
+    """NCCL's int32 SUM across two cards, at a payload whose every sum
+    overflows int32, against the host oracle (wrapping mod 2^32)."""
+    import sys
+    from pathlib import Path
+    from tpu_reductions_torch.bench import multicard
+    code = (Path(__file__).resolve().parent
+            / "multicard_overflow.py").read_text()
+    port = multicard.free_port()
+    group = multicard.run_group(
+        [[sys.executable, "-c", code, "gpu", str(port), str(i)]
+         for i in range(2)], 180)
+    for rc, (out, err) in zip(group["rcs"], group["outs"]):
+        assert rc == 0, err
+        assert out.startswith("wrapped ")
+    assert group["survivors"] == []
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port stands alone: tpu_reductions_torch/ and chip_smoke.py import
 neither jax nor any tpu_reductions module, and without a card and without
 an explicit CPU request the entry points (the benchmark, collective,
-round, exec, serve, loadgen, ledger, router and relay CLIs), the serving
+round, exec, serve, loadgen, ledger, router and relay CLIs, a process of
+a multi-process collective run and bench/multicard's worker), the serving
 executor, its shard route and the fleet's process replicas, and the kernel
 wrappers raise rather than run on the CPU. Every kernel wrapper (k6-k10 and the pair kernel dd)
 takes its plain version only for a CPU tensor."""
@@ -122,6 +123,31 @@ def test_collective_and_round_clis_raise_without_card(no_card, argv):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert "PASSED" not in proc.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    ["tpu_reductions_torch.bench.collective_driver", "--method=SUM",
+     "--n=4096", "--devices=2", "--num-processes=2", "--process-id=0",
+     "--coordinator=127.0.0.1:1"],
+    ["tpu_reductions_torch.bench.multicard", "--rows={rows}",
+     "--out={out}", "--num-processes=2", "--process-id=0",
+     "--coordinator=127.0.0.1:1"],
+], ids=["collective_processes", "multicard_worker"])
+def test_multi_process_entry_points_raise_without_card(no_card, argv,
+                                                       tmp_path):
+    """A card process of a multi-process run, without a card: exit 1 with
+    the no-device reason; never gloo on the CPU, and no row."""
+    rows = tmp_path / "rows.json"
+    rows.write_text('[["--method=SUM", "--n=4096", "--devices=2"]]')
+    argv = [a.format(rows=rows, out=tmp_path) for a in argv]
+    proc = subprocess.run(
+        [sys.executable, "-m", *argv], cwd=REPO, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "no CUDA device" in proc.stderr
+    assert "PASSED" not in proc.stdout and "DATATYPE" not in proc.stdout
+    assert not (tmp_path / "process0.jsonl").exists() \
+        or (tmp_path / "process0.jsonl").read_text() == ""
 
 
 # the subpackages of the execution core and the serving path

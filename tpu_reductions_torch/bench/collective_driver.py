@@ -18,13 +18,19 @@ SUM rings over float32/bfloat16 and the dd planes, held to their declared
 error bound, and the exact coarse-key MIN/MAX; float64 under
 `--quantized` always rides the dd planes, as in the JAX package.
 
-On the card every rank is a row of one tensor on one GPU, so a hop is a
-copy inside the card: a row's GB/s is a copy-and-combine rate inside
-device memory and its busbw the registry's wire factor applied to that
-time; neither is a link rate. Each run says so in a `note:` line before
-its header. Across processes (--platform=cpu only) the ranks of other
-processes are reached over gloo; the card refuses --num-processes > 1,
-since NCCL takes one rank per GPU.
+In one process every rank is a row of one tensor on one card, so a hop
+is a copy inside the card: a row's GB/s is a copy-and-combine rate
+inside device memory and its busbw the registry's wire factor applied to
+that time; neither is a link rate. With --num-processes=P each process
+drives a card of its own (device.own_card) and holds --devices / P
+ranks as rows on it; the processes join over NCCL, so a hop between
+ranks of two cards crosses NVLink, while a hop between ranks of one card
+stays a copy inside it, and each row then states its busbw a card
+against NVLink's 450 GB/s each way (NVLINK_GBPS). On the CPU the
+processes join over gloo. Each run says which in a `note:` line before
+its header. Rank 0 reports (reduce.c:68,81,95); across processes a
+periter repeat starts after a barrier, untimed, so that it times the
+collective and not the skew each process's verification leaves.
 
 CLI:
     python -m tpu_reductions_torch.bench.collective_driver --method=SUM
@@ -157,22 +163,34 @@ def _resume_rows(cfg: CollectiveConfig, checkpoint, row_key,
 
 def run_collective_benchmark(cfg: CollectiveConfig,
                              logger: Optional[BenchLogger] = None,
-                             checkpoint=None, row_key=None
-                             ) -> List[CollectiveResult]:
+                             checkpoint=None, row_key=None,
+                             on_result=None,
+                             timings=None) -> List[CollectiveResult]:
     """Run `retries` collectives on one (method, dtype, rank count) mesh:
     one reduce.c process run (its warm-up and timed loop, reduce.c:61-96).
 
     `checkpoint` (bench/resume.Checkpoint) persists each row as it lands,
     and when an interrupted artifact already holds this config's full
     row set, reuses it without touching the device (`row_key(rep)` maps a
-    repeat to its checkpoint key; default the repeat itself)."""
+    repeat to its checkpoint key; default the repeat itself).
+    `on_result(out, coll, chain)`, when given, sees the verified output
+    of the last collective, the collective, and the timed chain's scalar
+    on the host (None without chained timing; bench/multicard.py compares
+    them across placements). `timings`, a sequence of "periter" and
+    "chained", times the one payload, warm-up and oracle each way in
+    turn in place of cfg.timing, `retries` rows each, in that order
+    (bench/multicard.py; not with a checkpoint, whose rows are keyed by
+    repeat)."""
     logger = logger or BenchLogger(None, None)
     if checkpoint is not None:
+        if timings is not None:
+            raise ValueError("timings= runs without a checkpoint")
         reused = _resume_rows(cfg, checkpoint, row_key, logger)
         if reused is not None:
             return reused
     return _run_collective_benchmark(cfg, logger, checkpoint=checkpoint,
-                                     row_key=row_key)
+                                     row_key=row_key, on_result=on_result,
+                                     timings=tuple(timings or (cfg.timing,)))
 
 
 def _use_dd_planes(cfg: CollectiveConfig) -> bool:
@@ -187,13 +205,102 @@ def _use_dd_planes(cfg: CollectiveConfig) -> bool:
         or os.environ.get("TPU_REDUCTIONS_FORCE_DD") == "1")
 
 
+RING_LABELS = ("dd_ring_rs_ag", "dd_ring_naive")
+
+
+def bits_required(method: str, dtype: str, algorithm: str) -> bool:
+    """Whether a row's result has one set of bits wherever its ranks lie
+    and however its chain runs: int32 and MIN/MAX rows (exact), and the
+    ring paths (the dd ring, the quantized ring), which combine in the
+    ranks' order. A float SUM through psum may combine in another order
+    (a card's rows first, then the cards'; NCCL's own algorithm).
+    No reference analog: the JAX package holds no placement twin."""
+    return (dtype == "int32" or method in ("MIN", "MAX")
+            or algorithm in RING_LABELS
+            or (algorithm.startswith("q") and "ring" in algorithm))
+
+
+def chain_agrees(got: torch.Tensor, want: torch.Tensor, exact: bool,
+                 method: str, dtype: str, n: int) -> bool:
+    """Whether two chain scalars agree: the same bits where `exact`
+    (bits_required), else within ops/registry.tolerance scaled by the
+    larger of 1 and |want|, as _check scales its float tolerance.
+    No reference analog: the JAX chain is one program, with nothing to
+    hold its scalar against."""
+    got, want = got.detach().cpu().reshape(1), want.detach().cpu().reshape(1)
+    if exact:
+        return got.dtype == want.dtype and torch.equal(
+            got.view(torch.uint8), want.view(torch.uint8))
+    from tpu_reductions_torch.ops.registry import tolerance
+    a, b = float(got.double()), float(want.double())
+    return abs(a - b) <= tolerance(method, dtype, n) * max(1.0, abs(b))
+
+
+def _check_chain(chained, x_dev, k: int, exact: bool,
+                 cfg: CollectiveConfig, logger: BenchLogger,
+                 keep: bool) -> tuple:
+    """(scalar, agrees): the timed chain's scalar at k iterations (on the
+    card one more replay of its captured graph) and whether it agrees
+    with the same k iterations run one by one (ChainedReduce.eager), so
+    that a graph that left a collective out, or replayed one wrongly,
+    fails its rows. On the CPU the chain is that eager loop already, so
+    its scalar is held against nothing and is only computed to `keep`."""
+    lead = x_dev[0] if isinstance(x_dev, tuple) else x_dev
+    if lead.device.type != "cuda":
+        return (chained(x_dev, k).cpu() if keep else None), True
+    got = chained(x_dev, k)
+    want = chained.eager(x_dev, k)
+    ok = chain_agrees(got, want, exact, cfg.method, cfg.dtype, cfg.n)
+    if not ok:
+        logger.log(f"note: the chain's graph gave {got.item()!r} after {k} "
+                   f"collectives, the same chain run one by one "
+                   f"{want.item()!r}; its rows FAILED")
+    return got.cpu(), ok
+
+
+# NVLink of an H100 SXM: 900 GB/s to the other cards of the host, 450
+# GB/s each way (NVIDIA's data sheet)
+NVLINK_GBPS = 450.0
+
 FALLBACK_NOTE = ("note: per-rank length does not divide by k*Q8_BLOCK; "
                  "quantized ring fell back to the exact f32 psum (full "
                  "wire)")
 
 
+def _rank_lists(mesh) -> str:
+    """`process 0: ranks 0-1; process 1: ranks 2-3; ...`."""
+    parts = []
+    for p in range(mesh.num_processes):
+        ranks = mesh.owned_by(p)
+        contiguous = ranks == tuple(range(ranks[0], ranks[-1] + 1))
+        spell = (f"{ranks[0]}-{ranks[-1]}" if contiguous and len(ranks) > 1
+                 else ",".join(map(str, ranks)))
+        parts.append(f"process {p}: rank{'s' if len(ranks) > 1 else ''} "
+                     f"{spell}")
+    return "; ".join(parts)
+
+
+def _crosses_cards(mesh) -> bool:
+    """Whether the mesh's hops cross cards: its ranks lie on the cards of
+    more than one process."""
+    return mesh.device.type == "cuda" and mesh.spans_processes
+
+
 def _placement_note(mesh) -> str:
     where = device_mod.name(mesh.device)
+    if _crosses_cards(mesh):
+        per = mesh.k_local
+        inside = (f"a hop between two ranks of one card, and the combine "
+                  f"of a card's own rows before an all-reduce, is a copy "
+                  f"inside its memory" if per > 1 else
+                  "no hop stays inside a card")
+        return (f"note: the {mesh.k} ranks lie on {mesh.num_processes} "
+                f"cards ({where}), {per} a card as rows of one tensor, one "
+                f"process a card ({_rank_lists(mesh)}); a hop between "
+                f"ranks of two cards, and every all-reduce or all-gather "
+                f"between the processes, crosses NVLink through NCCL; "
+                f"{inside}; each row's busbw a card is held against "
+                f"NVLink's {NVLINK_GBPS:.0f} GB/s each way")
     note = (f"note: the {mesh.k} ranks are rows of one tensor on {where} "
             f"({mesh.device}); a hop between two ranks is a copy inside "
             f"it, so GB/sec and busbw are copy-and-combine rates of its "
@@ -205,10 +312,30 @@ def _placement_note(mesh) -> str:
     return note
 
 
+def _link_note(mesh, busbw_gbps: float) -> str:
+    """A cross-card row's busbw a card against NVLink, unclipped: the
+    registry's busbw sums the wire bytes of all k ranks, so a card's
+    share is busbw / P, which also counts the hops inside the card where
+    it holds more than one rank."""
+    per_card = busbw_gbps / mesh.num_processes
+    ratio = per_card / NVLINK_GBPS
+    note = (f"note: busbw {busbw_gbps:.2f} GB/s over "
+            f"{mesh.num_processes} cards: {per_card:.2f} GB/s a card = "
+            f"{ratio:.3f}x NVLink's {NVLINK_GBPS:.0f} GB/s each way")
+    if mesh.k_local > 1:
+        note += " (counting the hops inside a card too)"
+    if ratio > 1:
+        note += (" -- above the link's rate: NCCL reduces inside the "
+                 "NVSwitch (NVLS) or the card's share counts copies in "
+                 "its memory; not clipped")
+    return note
+
+
 def _run_collective_benchmark(cfg: CollectiveConfig,
                               logger: BenchLogger,
-                              checkpoint=None, row_key=None
-                              ) -> List[CollectiveResult]:
+                              checkpoint=None, row_key=None,
+                              on_result=None,
+                              timings=("periter",)) -> List[CollectiveResult]:
     from tpu_reductions_torch.collectives import (
         bandwidth_report, host_collective_oracle, make_collective_reduce,
         make_dd_sum_all_reduce, make_key_minmax_all_reduce,
@@ -318,7 +445,18 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
     t_launch = Stopwatch()
     t_launch.start()
 
+    def row(dt: float) -> dict:
+        bw = bandwidth_report(payload_bytes, k, dt, algorithm=algorithm)
+        logger.log(collective_row(dtype, method, k, bw["reference_gbps"]))
+        if _crosses_cards(mesh):
+            logger.log(_link_note(mesh, bw["busbw_gbps"]))
+        return bw
+
+    chain_scalar = None
+
     def done() -> None:
+        if on_result is not None:
+            on_result(out, coll, chain_scalar)
         ledger.emit("collective.done", algorithm=algorithm,
                     method=method, dtype=dtype, ranks=k,
                     wall_s=round(t_launch.stop(), 6), rows=len(results))
@@ -362,21 +500,30 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
                     quant_atol=quant_atol)
         return QAStatus.PASSED if ok else QAStatus.FAILED
 
-    if cfg.timing == "chained":
+    def chained_rows(verified: Optional[QAStatus]) -> tuple:
         # each "retry" is one slope sample over chain_span data-dependent
         # collectives (one CUDA graph a trip on the card), chaining the
-        # collective that was warmed up and is verified here
+        # collective that was warmed up and is verified here (or by the
+        # periter rows just before, on the same payload); the graph's
+        # scalar is then held against the chain run one by one
         from tpu_reductions_torch.collectives import (
             make_chained_collective, make_chained_pair_collective)
         from tpu_reductions_torch.utils.timing import time_chained
         chained = (make_chained_pair_collective(method, coll) if dd_planes
                    else make_chained_collective(method, coll=coll))
+        k_hi = 1 + cfg.chain_span
         try:
-            sw = time_chained(chained, x_dev, k_lo=1,
-                              k_hi=1 + cfg.chain_span, reps=cfg.retries)
+            sw = time_chained(chained, x_dev, k_lo=1, k_hi=k_hi,
+                              reps=cfg.retries)
+            scalar, agrees = _check_chain(
+                chained, x_dev, k_hi,
+                bits_required(method, dtype, algorithm), cfg, logger,
+                keep=on_result is not None)
         finally:
             chained.close()
-        status = verify(out)
+        if verified is None:
+            verified = verify(out)
+        status = verified if agrees else QAStatus.FAILED
         for rep, dt in enumerate(sw.samples):
             if dt <= 0:
                 # a non-positive slope carries no bandwidth: the rep is
@@ -389,30 +536,43 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
                     status if status == QAStatus.FAILED
                     else QAStatus.WAIVED, algorithm))
                 continue
-            bw = bandwidth_report(payload_bytes, k, dt, algorithm=algorithm)
-            logger.log(collective_row(dtype, method, k,
-                                      bw["reference_gbps"]))
+            bw = row(dt)
             book(CollectiveResult(
                 method, dtype, cfg.n, k, rep, rooted, dt,
                 bw["reference_gbps"], bw["busbw_gbps"], status, algorithm))
-        done()
-        return results
+        return scalar, verified
 
-    for rep in range(cfg.retries):
-        # the previous result is released first, so that the timed call
-        # reuses its memory instead of allocating anew
-        out = None
-        sw = Stopwatch()
-        sw.start()
-        out = run(x_dev)
-        sync()
-        dt = sw.stop()
-        status = verify(out)
-        bw = bandwidth_report(payload_bytes, k, dt, algorithm=algorithm)
-        logger.log(collective_row(dtype, method, k, bw["reference_gbps"]))
-        book(CollectiveResult(
-            method, dtype, cfg.n, k, rep, rooted, dt,
-            bw["reference_gbps"], bw["busbw_gbps"], status, algorithm))
+    def periter_rows() -> QAStatus:
+        nonlocal out
+        status = None
+        for rep in range(cfg.retries):
+            # the previous result is released first, so that the timed
+            # call reuses its memory instead of allocating anew
+            out = None
+            if mesh.spans_processes:
+                # the processes enter each timed collective together:
+                # each verified the previous repeat on its own, and rank
+                # 0 would otherwise time that skew with the collective
+                import torch.distributed as dist
+                dist.barrier(group=mesh.group)
+            sw = Stopwatch()
+            sw.start()
+            out = run(x_dev)
+            sync()
+            dt = sw.stop()
+            status = verify(out)
+            bw = row(dt)
+            book(CollectiveResult(
+                method, dtype, cfg.n, k, rep, rooted, dt,
+                bw["reference_gbps"], bw["busbw_gbps"], status, algorithm))
+        return status
+
+    status = None
+    for timing in timings:
+        if timing == "chained":
+            chain_scalar, status = chained_rows(status)
+        else:
+            status = periter_rows()
     done()
     return results
 
@@ -491,6 +651,24 @@ def _rank0_hint(args) -> bool:
     return True
 
 
+def bring_up(cfg: CollectiveConfig) -> tuple:
+    """The run's devices and processes, before any collective: this
+    process's device (on the card with --num-processes > 1 its own card,
+    refused where the host's processes outnumber its cards), then the
+    join (NCCL on the card, gloo on the CPU; parallel/mesh.py). Returns
+    (joined, reporting): whether it joined a group, which the caller
+    destroys, and whether this process reports (rank 0).
+    The bring-up of tpu_reductions/bench/collective_driver.py:585."""
+    from tpu_reductions_torch.parallel.mesh import initialize_distributed
+    nproc = cfg.num_processes or 1
+    device_mod.resolve(cfg.platform, process_id=cfg.process_id,
+                       num_processes=nproc)
+    joined = initialize_distributed(
+        coordinator_address=cfg.coordinator, num_processes=nproc,
+        process_id=cfg.process_id, platform=cfg.platform)
+    return joined, nproc <= 1 or cfg.process_id in (None, 0)
+
+
 def main(argv=None) -> int:
     """CLI: RUNNING marker, parse, bring-up, run, terminal marker; returns
     the QA exit code (module docstring).
@@ -531,29 +709,13 @@ def _main(argv, qa_out) -> int:
     except Exception as e:   # a value CollectiveConfig refuses
         print(f"error: {type(e).__name__}: {e}", file=sys.stderr)
         return qa_finish(NAME, QAStatus.FAILED, out=qa_out)
-    nproc = cfg.num_processes or 1
-    if cfg.platform == "gpu" and nproc > 1:
-        print(f"error: --num-processes={nproc} is refused on the card: "
-              "NCCL takes one rank per GPU, and this port places every "
-              "rank as a row of one tensor on one card; run the ranks in "
-              "one process (--devices=K), or pass --platform=cpu to split "
-              "them among processes over gloo", file=sys.stderr)
-        return qa_finish(NAME, QAStatus.FAILED, out=qa_out)
     from tpu_reductions_torch.exec.core import maybe_arm
     from tpu_reductions_torch.obs.ledger import arm_session
     arm_session("bench.collective_driver", argv=list(argv) if argv else sys.argv[1:])
     maybe_arm(cfg.platform)
-    joined = False
     try:
-        device_mod.resolve(cfg.platform)
-        if nproc > 1:
-            from tpu_reductions_torch.parallel.mesh import \
-                initialize_distributed
-            joined = initialize_distributed(
-                coordinator_address=cfg.coordinator, num_processes=nproc,
-                process_id=cfg.process_id)
-        reporting = nproc <= 1 or cfg.process_id in (None, 0)
-    except Exception as e:   # no card, a dead coordinator, ...
+        joined, reporting = bring_up(cfg)
+    except Exception as e:   # no card, too few cards, a dead coordinator
         print(f"error: bring-up failed: {type(e).__name__}: {e}",
               file=sys.stderr)
         return qa_finish(NAME, QAStatus.FAILED, out=qa_out)
@@ -586,8 +748,8 @@ def _main(argv, qa_out) -> int:
                          out=qa_out)
     finally:
         if joined:
-            import torch.distributed as dist
-            dist.destroy_process_group()
+            from tpu_reductions_torch.parallel.mesh import leave_distributed
+            leave_distributed()
 
 
 if __name__ == "__main__":

@@ -10,10 +10,11 @@ rank axis of parallel/mesh.py:
   per-rank sendbuf   ->  row r of a (k_local, L) tensor on this process's
                          device (`shard_payload`)
   psum/pmin/pmax     ->  the owned rows combined over axis 0, then
-                         `dist.all_reduce` across processes (gloo)
+                         `dist.all_reduce` across processes (NCCL
+                         between cards, gloo on the CPU)
   ppermute           ->  collectives/rings.ppermute: a gather along the
-                         rank axis (a copy inside the device), gloo
-                         send/receive between processes
+                         rank axis (a copy inside the device), one
+                         batched send/receive a hop between processes
   recvbuf            ->  per-rank buffers: every constructor returns
                          (k_local, ...) tensors, one row per owned rank,
                          so an all-gather phase really runs and every
@@ -27,7 +28,9 @@ slices and their global positions otherwise.
 Bandwidth accounting is the registry's (collectives/algorithms.py). On
 one card the "wire" is the card's own memory: a row's GB/s is a
 copy-and-combine rate inside HBM, and busbw is the registry's factor
-applied to that time, not a link rate.
+applied to that time, not a link rate. With one process per card the
+hops between processes cross NVLink (bench/collective_driver.py says
+which).
 
 No constructor writes into its input: the chain (ops/chain.py) folds into
 its own copy, and the driver verifies the output of an earlier call.
@@ -73,15 +76,16 @@ def _dist_op(method: str):
 
 def reduce_ranks(x: torch.Tensor, method: str, mesh) -> torch.Tensor:
     """The elementwise op over every rank of the mesh: this process's
-    rows combined over axis 0 (int32 SUM wraps mod 2^32 as the oracle
-    does; bf16 SUM adds in float32 and rounds once), then across
-    processes. Returns one (L,) tensor."""
+    rows combined over axis 0, then across processes, in the
+    accumulation dtype, cast once at the end: int32 SUM wraps mod 2^32
+    as the oracle does; bf16 SUM adds in float32 and rounds once, across
+    processes too. Returns one (L,) tensor."""
     method = method.upper()
-    red = get_op(method).reduce_dim(x, 0).to(x.dtype)
+    red = get_op(method).reduce_dim(x, 0)
     if mesh.spans_processes:
         import torch.distributed as dist
         dist.all_reduce(red, op=_dist_op(method), group=mesh.group)
-    return red
+    return red.to(x.dtype)
 
 
 def _replicate(red: torch.Tensor, mesh) -> torch.Tensor:
@@ -109,22 +113,27 @@ _COLLECTIVES = {"SUM": psum, "MIN": pmin, "MAX": pmax}
 
 def _all_gather_rows(pieces: torch.Tensor, mesh) -> torch.Tensor:
     """Every rank's piece, in rank order: (k, c) from this process's
-    (k_local, c)."""
+    (k_local, c), on its device. Each process sends its rows padded to
+    the largest share; a cached index puts the gathered rows in rank
+    order, so a captured graph holds no host-to-device copy."""
     if not mesh.spans_processes:
         return pieces
     import torch.distributed as dist
     counts = [len(mesh.owned_by(p)) for p in range(mesh.num_processes)]
     pad = max(counts)
-    mine = torch.zeros((pad, *pieces.shape[1:]), dtype=pieces.dtype)
+    mine = pieces.new_zeros((pad, *pieces.shape[1:]))
     mine[:pieces.shape[0]] = pieces
     got = [torch.empty_like(mine) for _ in counts]
     dist.all_gather(got, mine, group=mesh.group)
-    full = torch.empty((mesh.k, *pieces.shape[1:]), dtype=pieces.dtype)
-    for p, part in enumerate(got):
-        ranks = mesh.owned_by(p)
-        if ranks:
-            full[list(ranks)] = part[:len(ranks)]
-    return full
+
+    def build():
+        at = {r: p * pad + i for p in range(mesh.num_processes)
+              for i, r in enumerate(mesh.owned_by(p))}
+        # redlint: disable=RED020 -- k int64 row positions, made once per mesh
+        return torch.tensor([at[r] for r in range(mesh.k)],
+                            dtype=torch.long, device=pieces.device)
+    return torch.cat(got).index_select(
+        0, mesh.cached(("gather_rows", pad), build))
 
 
 def mesh_spans_processes(mesh) -> bool:

@@ -269,8 +269,9 @@ def coarse_key(key32: torch.Tensor, bits: int) -> torch.Tensor:
 
 def _reduce_keys(c: torch.Tensor, method: str, mesh) -> torch.Tensor:
     """The op over every rank of a coarse-key plane: one (L,) tensor.
-    gloo's all_reduce takes no int16, so a phase that crosses processes
-    runs widened to int32 and narrows back: the same values and bits."""
+    Neither gloo's all_reduce nor NCCL's takes int16, so a phase that
+    crosses processes runs widened to int32 and narrows back: the same
+    values and bits."""
     from tpu_reductions_torch.collectives.core import reduce_ranks
     if not mesh.spans_processes:
         return reduce_ranks(c, method, mesh)

@@ -11,8 +11,10 @@ this process's ranks.
   result is row `src` of `x` for each `(src, dst)` pair, zeros where no
   pair names the row. Within a process it is one `index_select` along the
   rank axis with an index tensor made once per permutation (a copy inside
-  the device); rows whose source lies in another process arrive by gloo
-  `isend`/`irecv`.
+  the device); rows whose source lies in another process arrive by one
+  `dist.batch_isend_irecv` a hop (NCCL between cards, over NVLink; gloo
+  on the CPU), its sends and receives in the order of the permutation's
+  pairs, which both ends derive from the permutation alone.
 - `_chunk`/`_put` are vectorised: every row gathers (or writes) its own
   chunk index, which differs by rank, in one gather (or scatter) launch.
 - Every combine keeps the JAX order: the target chunk first, the arrival
@@ -52,26 +54,35 @@ def grid_factors(k: int) -> tuple:
 
 class _Hop:
     """One permutation's plan on a mesh: the rows this process fills from
-    its own rows, and the rows it sends to and receives from others."""
+    its own rows, and the rows it sends to and receives from others.
+
+    The cross-process rows go as one `batch_isend_irecv` list: NCCL
+    matches sends and receives by order between each pair of processes
+    (it ignores tags) and creates no pair communicator mid-ring, so every
+    process lists its operations in the order of the pairs `(s, d)` in
+    `perm`, the order the other end lists them in too. A row travels as
+    its bytes (NCCL takes no int16), into a buffer on the device."""
 
     def __init__(self, perm: tuple, mesh) -> None:
         src_of = {d: s for s, d in perm}
         self.mesh = mesh
         local_dst, local_src = [], []
-        self.recvs, self.sends = [], []       # (row, peer process, tag)
         for i, r in enumerate(mesh.owned):
             s = src_of.get(r)
-            if s is None:
-                continue
-            if mesh.owners[s] == mesh.process:
+            if s is not None and mesh.owners[s] == mesh.process:
                 local_dst.append(i)
                 local_src.append(mesh.row(s))
-            else:
-                self.recvs.append((i, mesh.owners[s], r))
+        # (is_send, row, peer process, tag): the cross-process pairs, in
+        # perm's order
+        self.wire = []
         for s, d in perm:
-            if (mesh.owners[s] == mesh.process
-                    and mesh.owners[d] != mesh.process):
-                self.sends.append((mesh.row(s), mesh.owners[d], d))
+            ps, pd = mesh.owners[s], mesh.owners[d]
+            if ps == pd:
+                continue
+            if ps == mesh.process:
+                self.wire.append((True, mesh.row(s), pd, d))
+            elif pd == mesh.process:
+                self.wire.append((False, mesh.row(d), ps, d))
         dev = mesh.device
         # every row filled locally, in order: one index_select
         self.full = local_dst == list(range(mesh.k_local))
@@ -83,19 +94,25 @@ class _Hop:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.full:
             return x.index_select(0, self.src)
-        out = torch.zeros_like(x)
+        # contiguous, so that a received row's bytes land in `out` itself
+        out = torch.zeros_like(x, memory_format=torch.contiguous_format)
         if self.dst.numel():
             out.index_copy_(0, self.dst, x.index_select(0, self.src))
-        if self.sends or self.recvs:
+        if self.wire:
             import torch.distributed as dist
             group = self.mesh.group
-            reqs = [dist.isend(x[row].contiguous(), peer, group=group,
-                               tag=tag) for row, peer, tag in self.sends]
-            reqs += [dist.irecv(out[row], peer, group=group, tag=tag)
-                     for row, peer, tag in self.recvs]
-            for req in reqs:
+            ops = [dist.P2POp(dist.isend if send else dist.irecv,
+                              _bytes(x[row] if send else out[row]), peer,
+                              group=group, tag=tag)
+                   for send, row, peer, tag in self.wire]
+            for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return out
+
+
+def _bytes(row: torch.Tensor) -> torch.Tensor:
+    """A contiguous row's bytes, as one flat uint8 view."""
+    return row.contiguous().reshape(-1).view(torch.uint8)
 
 
 def hop_plan(perm, mesh) -> _Hop:

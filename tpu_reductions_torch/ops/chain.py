@@ -13,9 +13,14 @@ program is a CUDA graph: on a CUDA tensor the k iterations (core, then
 fold) are captured once per (k, staged shape) and replayed for every
 timed trip, so an iteration costs its kernels and no Python. The capture
 falls inside time_chained's discarded warm-up trips, as the JAX compile
-does. A core that cannot be captured raises: the eager loop never runs
-on the card. On a CPU tensor the chain is that eager loop, the plain
-path the tests run.
+does. A core that cannot be captured raises: the eager loop is never
+timed on the card. It runs there only as `eager`, the check a timed
+chain's scalar is held against (bench/collective_driver.py). With one
+process a card (collectives/core.py over NCCL)
+each process captures its own graph of the k collectives after the
+warm-up collective has made every communicator, and the processes then
+replay in step, each trip's collectives meeting across the cards. On a CPU
+tensor the chain is that eager loop, the plain path the tests run.
 
 `core` is `core(x2d) -> scalar`, or, on the f64 pair route, `core(hi2d,
 lo2d) -> (s_hi, s_lo)` with `x2d` the tuple of the two planes: then the
@@ -98,6 +103,17 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
+def _capture_mode() -> str:
+    """CUDA's stream-capture mode for a chain's graph: "global" (torch's
+    default) in one process; "thread_local" when a process group runs, so
+    that its communication library's own threads may still query their
+    events while this thread captures the collectives."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return "thread_local"
+    return "global"
+
+
 def _refill(buffers: tuple, planes: tuple) -> None:
     for buf, p in zip(buffers, planes):
         buf.copy_(p)
@@ -139,11 +155,7 @@ class ChainedReduce:
         pair = isinstance(x2d, tuple)
         planes = tuple(x2d) if pair else (x2d,)
         if planes[0].device.type != "cuda":
-            planes = tuple(p.clone() for p in planes)
-            last = None
-            for _ in range(k):
-                last = self._step(planes, pair)
-            return last
+            return self.eager(x2d, k)
         shapes = tuple((p.shape, p.dtype, p.device) for p in planes)
         buffers = self._buffers.get(shapes)
         if buffers is None:
@@ -160,6 +172,18 @@ class ChainedReduce:
             wrapper.launches += n
         return entry.out.clone()
 
+    def eager(self, x2d: Staged, k: int) -> torch.Tensor:
+        """The k iterations one by one, on copies of `x2d`, on whatever
+        device it lies: the chain itself on the CPU; on the card the
+        untimed check of a captured graph's scalar.
+        No reference analog: the JAX chain has no second spelling."""
+        pair = isinstance(x2d, tuple)
+        planes = tuple(p.clone() for p in (x2d if pair else (x2d,)))
+        last = None
+        for _ in range(k):
+            last = self._step(planes, pair)
+        return last
+
     def _capture(self, buffers: tuple, pair: bool, k: int) -> _Graph:
         """Capture k iterations over `buffers` on the capture stream,
         after one eager step there (its first-use costs: library loads,
@@ -173,7 +197,8 @@ class ChainedReduce:
         wrappers = counted_wrappers()
         before = [w.launches for w in wrappers]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode=_capture_mode()):
             for _ in range(k):
                 out = self._step(buffers, pair)
         launches = tuple(w.launches - b for w, b in zip(wrappers, before))

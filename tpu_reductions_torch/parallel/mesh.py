@@ -3,16 +3,18 @@
 The counterpart of tpu_reductions/parallel/mesh.py. The JAX package
 places one rank on each device of a `jax.sharding.Mesh` and runs its rank
 ladder on virtual CPU devices, up to 1024. torch has no virtual devices,
-and NCCL takes one rank per GPU, so the port's mesh is a rank axis inside
-each process: this process's ranks are the rows of one `(k_local, L)`
-tensor on its device, and a hop between two of them is a copy inside that
-device (collectives/rings.py). The same code runs on the CPU and on the
-card.
+so the port's mesh is a rank axis inside each process: this process's
+ranks are the rows of one `(k_local, L)` tensor on its device, and a hop
+between two of them is a copy inside that device (collectives/rings.py).
+The same code runs on the CPU and on the card.
 
-Across processes (`initialize_distributed`, gloo over TCP) the rank axis
-is split: each process owns the ranks whose virtual device it provides,
-and a hop between ranks of two processes is a gloo send and receive. The
-card refuses more than one process (bench/collective_driver.py).
+Across processes (`initialize_distributed`) the rank axis is split, the
+MPI model of reduce.c: each process owns the ranks whose virtual device
+it provides, and a hop between ranks of two processes is a send and a
+receive between them. On the card every process drives a card of its
+own (device.own_card: `cuda:<local rank>`) and the processes join over
+NCCL, so such a hop crosses NVLink; on the CPU they join over gloo.
+The join sets the process's card as its current device.
 
 Reference mapping, as in the JAX package:
 - MPI_Init / Comm_size (reduce.c:32-34): `device_inventory`, `build_mesh`;
@@ -27,7 +29,9 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import math
+import socket
 from typing import Optional, Sequence
 
 import torch
@@ -60,22 +64,41 @@ def _world() -> tuple:
     return 0, 1
 
 
+def _device(platform: str) -> torch.device:
+    """This process's device: the CPU, or on the card the one it drives
+    (its own card when other processes joined)."""
+    me, world = _world()
+    return device_mod.resolve(platform, process_id=me, num_processes=world)
+
+
 def device_inventory(platform: str = "gpu",
                      local_ranks: Optional[int] = None) -> dict:
     """What the mesh can place (the deviceQuery analog, and the
     MPI_Comm_size source): `num_devices` is the ranks every process
-    provides together, `local_ranks` each (default: the platform's
-    device count, 1 on the CPU)."""
-    dev = device_mod.resolve(platform)
+    provides together, `local_ranks` each (default 1: the one device a
+    process drives, the CPU or its card). On the card `cards` lists every
+    process's card, `host/cuda:i`, by process."""
+    dev = _device(platform)
     me, world = _world()
-    local = device_mod.count(platform) if local_ranks is None else local_ranks
-    return {
+    local = 1 if local_ranks is None else local_ranks
+    inv = {
         "platform": platform,
         "num_devices": local * world,
         "num_processes": world,
         "process_index": me,
         "device_kinds": [device_mod.name(dev)],
     }
+    if dev.type == "cuda":
+        mine = (f"{socket.gethostname()}/{dev}", device_mod.name(dev))
+        got = [mine]
+        if world > 1:
+            import torch.distributed as dist
+            got = [None] * world
+            # redlint: disable=RED016 -- the inventory's card names, once: metadata of the mesh, not a hop of the rank axis
+            dist.all_gather_object(got, mine)
+        inv["cards"] = [where for where, _ in got]
+        inv["device_kinds"] = sorted({kind for _, kind in got})
+    return inv
 
 
 def _order_devices(devs: list, mapping: str) -> list:
@@ -168,15 +191,16 @@ def build_mesh(num_devices: Optional[int] = None,
                device: Optional[torch.device] = None) -> RankMesh:
     """Build the reduction mesh.
 
-    Each process provides `local_ranks` virtual devices (default: the
-    platform's device count, 1 on the CPU; the collective CLI provisions
-    --devices / processes of them, twice that under mode=co, as the JAX
-    CLI provisions virtual CPU devices). `num_devices` is the rank count
-    (defaults to all after `mode` filtering); `mesh_shape`/`axis_names`
-    allow a multi-axis mesh whose first axis is the rank axis. The
-    refusals keep the JAX package's words."""
+    Each process provides `local_ranks` virtual devices (default 1: the
+    one device it drives, the CPU or its own card; the collective CLI
+    provisions --devices / processes of them, twice that under mode=co,
+    as the JAX CLI provisions virtual CPU devices), all on its device.
+    `num_devices` is the rank count (defaults to all after `mode`
+    filtering); `mesh_shape`/`axis_names` allow a multi-axis mesh whose
+    first axis is the rank axis. The refusals keep the JAX package's
+    words."""
     me, world = _world()
-    local = device_mod.count(platform) if local_ranks is None else local_ranks
+    local = 1 if local_ranks is None else local_ranks
     devs = [Place(p, i) for p in range(world) for i in range(local)]
     if mode == "co":
         devs = coarsen_to_chips(devs)
@@ -204,7 +228,7 @@ def build_mesh(num_devices: Optional[int] = None,
             raise ValueError(f"{len(axis_names)} axis names for "
                              f"{len(mesh_shape)}-d mesh")
     if device is None:
-        device = device_mod.resolve(platform)
+        device = _device(platform)
     group = None
     if world > 1:
         import torch.distributed as dist
@@ -214,11 +238,43 @@ def build_mesh(num_devices: Optional[int] = None,
                     num_processes=world, device=device, group=group)
 
 
+def _claim_card(store, card: torch.device, process_id: int,
+                num_processes: int) -> None:
+    """Publish this process's card (host and UUID) on the rendezvous
+    store and read every other's; raises, in every process alike, when
+    two processes drive one card, before NCCL sees them. Process 0, whose
+    store the others read, waits until each has read them all."""
+    props = torch.cuda.get_device_properties(card)
+    mine = f"{socket.gethostname()}/{getattr(props, 'uuid', card.index)}"
+    key = "tpu_reductions_torch/card"
+    store.set(f"{key}/{process_id}", mine)
+    seen: dict = {}
+    clash = None
+    for p in range(num_processes):
+        who = store.get(f"{key}/{p}").decode()
+        if who in seen and clash is None:
+            clash = (seen[who], p, who)
+        seen.setdefault(who, p)
+    store.set(f"{key}/read/{process_id}", "1")
+    if process_id == 0:
+        store.wait([f"{key}/read/{p}" for p in range(1, num_processes)])
+    if clash is not None:
+        raise RuntimeError(
+            f"processes {clash[0]} and {clash[1]} both drive card "
+            f"{clash[2]}: two processes on one card is NCCL's duplicate "
+            f"GPU failure; give each process its own card (LOCAL_RANK, or "
+            f"--process-id on one host)")
+
+
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
-                           process_id: Optional[int] = None) -> bool:
-    """Join the processes of one run: gloo over TCP at
-    `coordinator_address` (host:port of process 0). Every participating
+                           process_id: Optional[int] = None,
+                           platform: str = "gpu") -> bool:
+    """Join the processes of one run at `coordinator_address` (host:port
+    of process 0): over NCCL on the card, each process on its own card
+    (device.own_card), which no two processes may share, the communicator
+    bound to it at once (`device_id`), so a failure shows here; over gloo
+    on the CPU. A card run never joins over gloo. Every participating
     process calls this before build_mesh. Returns True when it joined,
     False when it did nothing (one process, or a group already exists)."""
     import torch.distributed as dist
@@ -226,8 +282,35 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         return False
     if dist.is_initialized():
         return False
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id,
-        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT_S)
+    url = f"tcp://{coordinator_address}"
+    if platform == "cpu":
+        dist.init_process_group("gloo", init_method=url,
+                                world_size=num_processes, rank=process_id,
+                                timeout=timeout)
+        return True
+    if not torch.cuda.is_available():
+        device_mod.resolve(platform)        # raises: no card, never gloo
+    card = device_mod.own_card(process_id, num_processes)
+    store, _, _ = next(dist.rendezvous(url, rank=process_id,
+                                       world_size=num_processes,
+                                       timeout=timeout))
+    store.set_timeout(timeout)
+    _claim_card(store, card, process_id, num_processes)
+    dist.init_process_group("nccl", store=store, world_size=num_processes,
+                            rank=process_id, timeout=timeout,
+                            device_id=card)
     return True
+
+
+def leave_distributed() -> None:
+    """Destroy the process group of `initialize_distributed`, with the
+    garbage collected before and after: a run's meshes, hop plans and
+    their works sit in reference cycles, and torch's group objects that
+    the interpreter's finalization frees instead can abort the process
+    after its rows are done (seen on the CPU after the pair rows)."""
+    import torch.distributed as dist
+    gc.collect()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    gc.collect()
