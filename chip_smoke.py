@@ -129,8 +129,9 @@ or, on a machine with several, the rank axis across cards alone
    route, docs/PORT.md "The fleet on one card") into out/smoke_fleet:
    the load generator's --scale at --devices=8 --replicas=4 over 64, 256
    and 1024 open-loop clients (every series' requests resolved ok; the
-   sharded row of 160,000,000 int32 ok over 8 ranks with its algorithm
-   and its seconds of fill, fold, combine and verify), --elastic
+   sharded row of 160,000,000 int32 ok over 8 ranks on every card of the
+   host, `cards` 1 on one, with its algorithm and its seconds of fill,
+   fold, gather, combine and verify), --elastic
    --plan=diurnal --devices=8 (the replica count rises and falls, the
    drain sheds nothing where the kill sheds, the drain's reshard verified
    within its declared memory), --recovery --recovery-requests=48
@@ -193,7 +194,19 @@ or, on a machine with several, the rank axis across cards alone
    captured chain (NCCL inside the graph) gives the scalar of the same
    chain run one by one, and its scalar is the twin's (same bits, or
    within registry.tolerance for float SUM through psum); no process of
-   the phase alive afterwards.
+   the phase alive afterwards. Then the sharded serving part on the C = P
+   cards (serve/executor.run_sharded over the host's cards): int32 SUM,
+   MIN and MAX, float32 SUM, bfloat16 SUM and float32 SUM on the 8-bit
+   quantized combine at n = 160,000,000 (the fleet's sharded row), at
+   K = C and 2C, each ok with `cards` C and its one-card twin's algorithm
+   and bits (the same K with cards=[cuda:0]), printed with its latency,
+   fill, each card's fold, gather, combine and verify seconds, the twin's
+   latency and the ratio, each partial's card before the gather, each
+   card's chunks and how its partials reached cuda:0; then `python -m
+   tpu_reductions_torch.serve --devices=2C` in a process of its own,
+   whose answers to an oversized int32 SUM and float32 SUM must be ok
+   with `cards` C and a `serve.shard` event each; that process gone
+   afterwards. The part launches no kernel of the repository.
    Last, `[lint]`: the port lint (`python -m tpu_reductions_torch.lint
    tpu_reductions_torch chip_smoke.py --format=json`, a process of its own
    on a machine without jax) with its fact cache cold and then warm; both
@@ -217,6 +230,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -1797,8 +1811,9 @@ def fleet_pids(out_dir) -> set:
 
 def fleet_path(driver, counted, kr, registry, config, staging) -> None:
     """The fleet on the card: `--scale` (every series' rows resolved and
-    ok; the sharded row ok over FLEET_RANKS ranks with its algorithm and
-    its fill, fold and combine seconds), `--elastic` (the replica count
+    ok; the sharded row ok over FLEET_RANKS ranks on every card of the
+    host with its algorithm and its fill, fold, gather and combine
+    seconds), `--elastic` (the replica count
     rises and falls; the drain sheds nothing where the kill sheds; the
     drain's reshard verified within its memory bound), `--recovery`
     (every idempotency key settles once, ok; no duplicate device execution
@@ -1833,16 +1848,20 @@ def fleet_path(driver, counted, kr, registry, config, staging) -> None:
     if len(grid) != 11 or any(r["requests"] != r["clients"]
                               or r["ok"] != r["requests"] for r in grid):
         bad.append(("scale", "grid"))
+    # the shard route spans every card of the host: one here
+    cards = min(torch.cuda.device_count(), FLEET_RANKS)
     if len(sharded) != 1 or sharded[0]["status"] != "ok" \
             or sharded[0].get("devices") != FLEET_RANKS \
+            or sharded[0].get("cards") != cards \
             or not sharded[0].get("algorithm"):
         bad.append(("scale", "sharded"))
     else:
         s = sharded[0]["seconds"]
         print(f"  fleet sharded n={sharded[0]['n']}: latency "
-              f"{sharded[0]['latency_s']} s, fill {s['fill']:.4f} s, fold "
-              f"{s['fold']:.4f} s, combine {s['combine']:.4f} s, verify "
-              f"{s['verify']:.4f} s", flush=True)
+              f"{sharded[0]['latency_s']} s on {sharded[0]['cards']} "
+              f"card(s), fill {s['fill']:.4f} s, fold {s['fold']:.4f} s, "
+              f"gather {s['gather']:.6f} s, combine {s['combine']:.4f} s, "
+              f"verify {s['verify']:.4f} s", flush=True)
 
     rows = mode("elastic", ["--elastic", "--plan=diurnal",
                             f"--devices={FLEET_RANKS}", "--seed=0",
@@ -2363,6 +2382,161 @@ def _chain_note(mc, tw, recs, head) -> tuple:
                 f"card's" if ok else "CHAIN SCALAR DIFFERS from one card's")
 
 
+# the sharded serving part of [multicard]: the executor's shard route over
+# the host's cards at the fleet's sharded row (loadgen --sharded-n, 640 MB
+# of int32), each row beside its one-card twin (cards=[cuda:0])
+SHARD_N = 160_000_000
+SHARD_ROWS = (("SUM", "int32", False), ("MIN", "int32", False),
+              ("MAX", "int32", False), ("SUM", "float32", False),
+              ("SUM", "bfloat16", False), ("SUM", "float32", True))
+SHARD_QUANT_BITS = 8
+# the front end's two oversized requests: int32 and float32 SUM
+SHARD_REQUESTS = ({"method": "SUM", "type": "int", "n": SHARD_N, "seed": 1},
+                  {"method": "SUM", "type": "float", "n": SHARD_N,
+                   "seed": 2})
+
+
+def _timed_shard(ex, method, dtype, quantized, seed):
+    """(response, host seconds, last_shard) of one run_sharded call."""
+    t0 = time.perf_counter()
+    res = ex.run_sharded(method, dtype, SHARD_N, seed, quantized=quantized,
+                         quant_bits=SHARD_QUANT_BITS)
+    return res, time.perf_counter() - t0, dict(ex.last_shard)
+
+
+def _shard_rows(c: int) -> list:
+    """The executor's rows at K = C and 2C over C cards, each beside its
+    one-card twin: every row ok, with the twin's algorithm and bits,
+    `cards` C against the twin's 1; prints each row's latency and steps,
+    each partial's card, each card's chunks and how its partials reached
+    cuda:0. Returns what failed."""
+    from tpu_reductions_torch.device import rank_blocks
+    from tpu_reductions_torch.serve.executor import BatchExecutor
+    lead = torch.device("cuda", 0)
+    bad = []
+    # every row's ops and combine once at 2^22 over the cards first: the
+    # cards' contexts and each op's first load on each card stay out of
+    # the timed rows, as they are out of the twins' (cuda:0 ran them)
+    t0 = time.perf_counter()
+    for k in (c, 2 * c):
+        for method, dtype, quantized in SHARD_ROWS:
+            BatchExecutor("gpu", ranks=k).run_sharded(
+                method, dtype, 1 << 22, 0, quantized=quantized,
+                quant_bits=SHARD_QUANT_BITS)
+    print(f"  sharded: warm-up of every row at n = 2^22 over {c} cards "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for k in (c, 2 * c):
+        for seed, (method, dtype, quantized) in enumerate(SHARD_ROWS):
+            got, lat, steps = _timed_shard(BatchExecutor("gpu", ranks=k),
+                                           method, dtype, quantized, seed)
+            want, twin_lat, twin_steps = _timed_shard(
+                BatchExecutor("gpu", ranks=k, cards=[lead]), method, dtype,
+                quantized, seed)
+            same = (got["result"] == want["result"]
+                    and got["host"] == want["host"])
+            label = (f"{dtype} {method}{' q8' if quantized else ''} k={k} "
+                     f"n={SHARD_N}")
+            folds = ", ".join(f"{s:.4f}" for s in steps["fold_cards"])
+            print(f"  sharded {label}: {got['algorithm']} ok={got['ok']} "
+                  f"cards={got['cards']} latency {lat:.4f} s (fill "
+                  f"{steps['fill']:.4f}, fold {steps['fold']:.4f} [cards "
+                  f"{folds}], gather {steps['gather']:.6f}, combine "
+                  f"{steps['combine']:.4f}, verify {steps['verify']:.4f}); "
+                  f"one card {twin_lat:.4f} s (fill "
+                  f"{twin_steps['fill']:.4f}, fold "
+                  f"{twin_steps['fold']:.4f}; ratio {lat / twin_lat:.3f}); "
+                  f"{'same bits' if same else 'BITS DIFFER'} as one card "
+                  f"({got['result']!r} vs {want['result']!r})\n"
+                  f"    partials on {got['partials_on']}; chunks a card "
+                  f"{got['card_chunks']}; gather {got['gather_route']}; "
+                  f"{got['note']}", flush=True)
+            if not (got["ok"] and want["ok"] and same
+                    and got["algorithm"] == want["algorithm"]
+                    and got["cards"] == c and want["cards"] == 1
+                    and got["partials_on"] == [
+                        f"cuda:{i}" for i, b in enumerate(
+                            rank_blocks(k, c)) for _ in b]):
+                bad.append(("sharded", label, got["ok"], want["ok"], same,
+                            got["algorithm"], want["algorithm"],
+                            got["cards"]))
+    return bad
+
+
+def _shard_front_end(c: int) -> list:
+    """`python -m tpu_reductions_torch.serve --devices=2C` in a process of
+    its own on the C cards: both SHARD_REQUESTS answered ok with `cards`
+    C and a `serve.shard` event each; the process gone afterwards.
+    Returns what failed."""
+    out_dir = (MC_OUT / "front_end").resolve()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    port_file, led = out_dir / "port", out_dir / "ledger.jsonl"
+    env = dict(os.environ, TPU_REDUCTIONS_LEDGER=str(led))
+    bad, answers = [], []
+    t0 = time.perf_counter()
+    with open(out_dir / "serve.log", "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_reductions_torch.serve",
+             f"--devices={2 * c}", "--port=0", f"--port-file={port_file}",
+             "--max-seconds=300"], stdout=log, stderr=subprocess.STDOUT,
+            env=env)
+    try:
+        while not (port_file.exists() and port_file.read_text().strip()):
+            if proc.poll() is not None or time.perf_counter() - t0 > 120:
+                raise AssertionError(
+                    "[multicard] the front end did not start: "
+                    + (out_dir / "serve.log").read_text()[-2000:])
+            time.sleep(0.1)
+        up = time.perf_counter() - t0
+        port = int(port_file.read_text())
+        with socket.create_connection(("127.0.0.1", port), timeout=300) as s:
+            rfile = s.makefile("rb")
+            for req in SHARD_REQUESTS:
+                r0 = time.perf_counter()
+                s.sendall((json.dumps(req) + "\n").encode())
+                answers.append((json.loads(rfile.readline()),
+                                time.perf_counter() - r0))
+    finally:
+        proc.send_signal(2)          # SIGINT: the front end's own stop
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+    events = [json.loads(line) for line in led.read_text().splitlines()
+              if line.strip()]
+    shards = [e for e in events if e.get("ev") == "serve.shard"]
+    for (resp, sec), req in zip(answers, SHARD_REQUESTS):
+        print(f"  front end --devices={2 * c}: {req['type']} SUM "
+              f"n={req['n']}: {resp.get('status')} cards={resp.get('cards')} "
+              f"latency {resp.get('latency_s')} s ({sec:.4f} s on the "
+              f"socket)", flush=True)
+    alive = pid_alive(proc.pid)
+    print(f"  front end up in {up:.1f} s, exit {proc.returncode}; "
+          f"serve.shard events {[e.get('cards') for e in shards]}; pid "
+          f"{proc.pid} alive: {alive}", flush=True)
+    if (len(answers) != len(SHARD_REQUESTS)
+            or any(r.get("status") != "ok" or r.get("cards") != c
+                   for r, _ in answers)
+            or len(shards) != len(SHARD_REQUESTS)
+            or any(e.get("cards") != c for e in shards) or alive):
+        bad.append(("front end", [r for r, _ in answers],
+                    [e.get("cards") for e in shards], alive))
+    return bad
+
+
+def sharded_serving(c: int) -> list:
+    """[multicard]'s sharded serving part on C cards: the executor's rows
+    and the TCP front end. It launches no kernel of the repository: the
+    shard fold and the combine are torch ops, as the JAX route's are jnp
+    under jit and an XLA collective. Returns what failed."""
+    t0 = time.perf_counter()
+    bad = _shard_rows(c) + _shard_front_end(c)
+    print(f"  sharded serving part: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return bad
+
+
 def multicard_path(driver, counted, kr, registry, config, staging) -> None:
     """[multicard]: with 2 or more cards, the collective CLI across P =
     min(4, cards) cards, one process a card over NCCL, then every
@@ -2374,8 +2548,9 @@ def multicard_path(driver, counted, kr, registry, config, staging) -> None:
     a chained row's graph scalar that of the chain run one by one (in
     each worker) and the twin's (_chain_note); each row printed with its GB/s, busbw, busbw a card against NVLink's
     450 GB/s each way, the twin's time and the ratio; the topology; no
-    process of the phase alive afterwards. With one card it says so and
-    runs nothing. The collectives launch no kernel of the repository."""
+    process of the phase alive afterwards; then the sharded serving part
+    (sharded_serving). With one card it says so and runs nothing. The
+    collectives launch no kernel of the repository."""
     from tpu_reductions_torch.bench import multicard as mc
     from tpu_reductions_torch.bench.collective_driver import NVLINK_GBPS
     cards = torch.cuda.device_count()
@@ -2474,10 +2649,12 @@ def multicard_path(driver, counted, kr, registry, config, staging) -> None:
     print(f"  twins: {twin_s:.1f} s; rank 0's log of the first row:\n  "
           + run["records"][0][0]["log"].replace("\n", "\n  ").rstrip(),
           flush=True)
+    bad += sharded_serving(p)
     if bad:
         print("  worker logs' tails:\n" + "\n".join(tails), flush=True)
         raise AssertionError(f"[multicard] rows {bad}")
-    MULTICARD.update(ran=True, rows=len(rows), why="ran")
+    MULTICARD.update(ran=True, rows=len(rows), why="ran",
+                     sharded_rows=2 * len(SHARD_ROWS))
 
 
 # the RED006 count the port's tree gives, pinned at 0 (RED006_PINNED in
@@ -2648,7 +2825,11 @@ def main() -> int:
         "lint": "no kernel: a static pass over the port's sources",
         "multicard": dict(MULTICARD, kernel="no kernel of the repository: "
                           "the collectives are torch ops over the rank "
-                          "axis and NCCL between the cards"),
+                          "axis and NCCL between the cards; the sharded "
+                          "serving part folds each card's shards and "
+                          "combines the gathered partials with torch ops, "
+                          "as the JAX shard route folds with jnp under "
+                          "jax.jit and never reaches pl.pallas_call"),
         "resilience": "its CLIs run in processes of their own, whose "
                       "launches this process does not count (its hang "
                       "and scheduler rows go through k6, its smoke task "

@@ -1229,7 +1229,7 @@ def test_reshard_cell_on_card(cuda_device, pair, wire):
     ("MAX", "bfloat16", False), ("SUM", "float32", True)])
 def test_run_sharded_on_card_gives_the_cpu_result(cuda_device, method, dtype,
                                                   quantized):
-    """The shard route at ranks=8 on the card: the same selection as the
+    """The shard route at ranks=8 on one card: the same selection as the
     CPU run, int32 and MIN/MAX the same value, float SUM within the
     registry's tolerance (the card folds in another order), every
     response verified; the drain's reshard at 8 ranks verified with its
@@ -1238,9 +1238,10 @@ def test_run_sharded_on_card_gives_the_cpu_result(cuda_device, method, dtype,
     from tpu_reductions_torch.serve.autoscale import _reshard_partials
     from tpu_reductions_torch.serve.executor import BatchExecutor
     n = (1 << 20) + 37
-    got, want = (BatchExecutor(p, ranks=8).run_sharded(
+    got, want = (BatchExecutor(p, ranks=8, cards=cards).run_sharded(
         method, dtype, n, 3, chunk_bytes=1 << 16, quantized=quantized)
-        for p in ("gpu", "cpu"))
+        for p, cards in (("gpu", [torch.device("cuda", 0)]),
+                         ("cpu", None)))
     assert got["ok"] is want["ok"] is True
     for key in ("algorithm", "wire_factor", "quantized", "devices",
                 "per_device_chunks", "host"):
@@ -1254,3 +1255,68 @@ def test_run_sharded_on_card_gives_the_cpu_result(cuda_device, method, dtype,
     res = _reshard_partials("v", executor=BatchExecutor("gpu", ranks=8),
                             mem_bound=2.0, seed=3)
     assert res["ok"] and res["measured_mem_factor"] <= res["mem_factor"]
+
+
+# ---------------------------------------------------------------------------
+# the serving shard route across the host's cards (serve/executor.py): each
+# card folds its ranks' shards, the partials gathered onto cuda:0
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def host_cards():
+    """Every card of the host; skips with fewer than two."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more NVIDIA GPUs: run `python -m pytest "
+                    "-q -m gpu --noconftest tests/test_torch_cuda.py -k "
+                    "sharded_cards` on a machine with several cards")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+SHARDED_CARDS_ROWS = (("SUM", "int32", False), ("SUM", "float32", False),
+                      ("SUM", "bfloat16", False), ("MIN", "int32", False),
+                      ("SUM", "float32", True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,dtype,quantized", SHARDED_CARDS_ROWS)
+def test_sharded_cards_give_the_one_card_bits(host_cards, method, dtype,
+                                              quantized):
+    """run_sharded over every card (K = 2C) gives the bits, algorithm and
+    selection of the same K on cuda:0 alone, every response verified."""
+    from tpu_reductions_torch.serve.executor import BatchExecutor
+    k, n = 2 * len(host_cards), (1 << 22) + 37
+    got, want = (BatchExecutor("gpu", ranks=k, cards=cards).run_sharded(
+        method, dtype, n, 3, chunk_bytes=1 << 20, quantized=quantized)
+        for cards in (None, host_cards[:1]))
+    assert got["ok"] is want["ok"] is True
+    assert (got["cards"], want["cards"]) == (len(host_cards), 1)
+    for key in ("result", "host", "algorithm", "wire_factor", "quantized",
+                "devices", "per_device_chunks"):
+        assert got[key] == want[key], key
+    assert got["note"].startswith(f"{k} ranks on {len(host_cards)} cards")
+
+
+@pytest.mark.gpu
+def test_sharded_cards_put_each_partial_on_its_card(host_cards):
+    """Before the gather rank r's partial lies on card r // (K / C) (the
+    contiguous rule), each card folded its ranks' chunks, and each card's
+    route onto cuda:0 is named."""
+    from tpu_reductions_torch.device import rank_blocks
+    from tpu_reductions_torch.ops.stream import plan_chunks
+    from tpu_reductions_torch.serve.executor import BatchExecutor
+    c = len(host_cards)
+    k, n = 2 * c, (1 << 22) + 37
+    ex = BatchExecutor("gpu", ranks=k)
+    res = ex.run_sharded("SUM", "int32", n, 5, chunk_bytes=1 << 20)
+    assert res["ok"]
+    blocks = rank_blocks(k, c)
+    want = [str(host_cards[i]) for i, b in enumerate(blocks) for _ in b]
+    assert res["partials_on"] == want
+    base = -(-n // k)
+    elems = plan_chunks(base, "int32", 1 << 20).chunk_elems
+    chunks = [-(-(min(n, (r + 1) * base) - r * base) // elems)
+              for r in range(k)]
+    assert res["card_chunks"] == [sum(chunks[r] for r in b) for b in blocks]
+    assert res["gather_route"][0] == "local"
+    assert set(res["gather_route"][1:]) <= {"peer", "host"}
+    assert len(ex.last_shard["fold_cards"]) == c

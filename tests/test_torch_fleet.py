@@ -435,8 +435,28 @@ def test_adopt_fleet_stale_and_dead_verdicts_like_jax(tmp_path):
 
 # ------------------------------------------------------- relay and gate
 
+def _until_refused(port, limit_s=5.0):
+    """Wait until a connect to `port` is refused: a relay whose schedule
+    starts with `refuse` listens from `start()` (to learn its port) until
+    its behaviour thread's first tick closes the listener, a window that
+    a loaded host can stretch past the scenario's first probe."""
+    deadline = time.monotonic() + limit_s
+    while time.monotonic() < deadline:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=0.5).close()
+        except ConnectionRefusedError:
+            return
+        except OSError:
+            pass
+        time.sleep(0.02)
+    raise AssertionError(f"the relay on {port} still accepts after "
+                         f"{limit_s} s")
+
+
 def _gate_scenario(side, schedule, delay):
     with side.relay.FakeRelay([side.Phase(**p) for p in schedule]) as relay:
+        if schedule[0]["behavior"] == "refuse":
+            _until_refused(relay.port)
         gate = side.transport.RelayTransport(
             ports=(relay.port,), assume_tunneled=True, drain=True,
             connect_timeout_s=0.5, read_cap_s=1.0)

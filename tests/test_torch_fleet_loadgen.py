@@ -24,7 +24,7 @@ EXAMPLES = REPO / "examples" / "tpu_run"
 # what the port's rows add to the JAX rows: the sharded row's host seconds
 # of fill, fold, combine and verify, and the routers' spawn lines of the
 # kill-router scenario
-PORT_EXTRA = {"sharded": {"seconds"}, "kill_router": {"routers"}}
+PORT_EXTRA = {"sharded": {"seconds", "cards"}, "kill_router": {"routers"}}
 
 
 @pytest.fixture(autouse=True)
@@ -164,7 +164,9 @@ def test_scale_writes_the_jax_grammar_and_resumes(tmp_path, monkeypatch,
         assert r["ok"] == r["requests"] == r["clients"]
     sh = art["rows"][-1]
     assert sh["status"] == "ok" and sh["devices"] == 8 and sh["algorithm"]
-    assert set(sh["seconds"]) == {"fill", "fold", "combine", "verify"}
+    assert sh["cards"] == 1          # the CPU: one device
+    assert set(sh["seconds"]) == {"fill", "fold", "fold_cards", "gather",
+                                  "combine", "verify"}
     assert "device-parallel sharded row" in capsys.readouterr().out
     # an incomplete artifact resumes every row it holds
     art["complete"] = False

@@ -206,7 +206,7 @@ def test_run_batch_matches_jax(method, dtype, n, k, both_native):
 def test_capabilities_on_one_device():
     caps = port_executor.BatchExecutor("cpu").capabilities()
     assert caps == {"backend": "cpu", "supports_f64": True,
-                    "device_count": 1}
+                    "device_count": 1, "cards": 1}
     # one rank: the shard route is the stream, as in JAX on one device
     ex = port_executor.BatchExecutor("cpu")
     got = ex.run_sharded("SUM", "int32", 4, 0)

@@ -65,7 +65,9 @@ def test_int32_is_exactly_jax(jax_ex, method, n, both_native):
     assert got["devices"] == 8 and got["per_device_chunks"] >= 2
     assert got["note"] == "the 8 ranks are rows of one tensor on cpu"
     assert port.launches == {f"serve-shard/{method.lower()}": 1}
-    assert set(port.last_shard) == {"fill", "fold", "combine", "verify"}
+    assert set(port.last_shard) == {"fill", "fold", "fold_cards", "gather",
+                                    "combine", "verify"}
+    assert got["cards"] == 1 and len(port.last_shard["fold_cards"]) == 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -9,12 +9,17 @@ id), the MPI model of one process per rank group: `resolve` names it and
 refuses a host whose processes outnumber its cards, and `own_card`, which
 the join calls once the watchdog is armed (parallel/mesh.py), also sets
 it as the process's current device.
+
+One process can also spread work over the host's cards: `cards` lists
+them (a query, no context), and `rank_blocks` places K ranks on them in
+contiguous, rank-ordered blocks (the serving shard route,
+serve/executor.py).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -77,6 +82,30 @@ def own_card(process_id: Optional[int], num_processes: int
     card = card_of(process_id, num_processes)
     torch.cuda.set_device(card)
     return card
+
+
+def cards(platform: str) -> List[torch.device]:
+    """The host's cards in index order, `cuda:0` up to
+    `cuda:<device_count - 1>` (CUDA_VISIBLE_DEVICES restricts them), or
+    `[cpu]` for platform cpu. A query: it creates no CUDA context."""
+    if platform == "cpu":
+        return [torch.device("cpu")]
+    if platform != "gpu":
+        raise ValueError(f"platform must be one of {PLATFORMS}, "
+                         f"got {platform!r}")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
+def rank_blocks(ranks: int, num_cards: int) -> List[range]:
+    """K ranks on C' = min(C, K) cards in contiguous, rank-ordered
+    blocks: card c holds ranks [c*K//C', (c+1)*K//C')."""
+    if ranks < 1 or num_cards < 1:
+        raise ValueError(f"ranks and cards must be >= 1, got {ranks} "
+                         f"ranks on {num_cards} card(s)")
+    used = min(ranks, num_cards)
+    return [range(c * ranks // used, (c + 1) * ranks // used)
+            for c in range(used)]
 
 
 def count(platform: str) -> int:

@@ -12,7 +12,8 @@ and the `{"op": ...}` control plane: `ping`, `drain` (close admission),
 `drain_status` (draining, queued, warm keys, stats) and `prewarm`. The
 engine runs on the card; without one it raises unless --platform=cpu.
 The flight recorder arms from TPU_REDUCTIONS_LEDGER. --devices K gives
-the executor K ranks for the shard route; --relay-port gates each launch
+the executor K ranks for the shard route, spread over every card of the
+host (serve/executor.py); --relay-port gates each launch
 on a chaos relay (the replica fleet's modeled round trip).
 
     python -m tpu_reductions_torch.serve [--port 0] [--port-file PATH] \
@@ -134,8 +135,9 @@ def main(argv=None) -> int:
     p.add_argument("--devices", dest="num_devices", type=int,
                    default=None,
                    help="ranks of the shard route: a request over the "
-                        "shard threshold is split over this many rows "
-                        "of one tensor on the device (default 1: "
+                        "shard threshold is split into this many shards, "
+                        "folded in rank-ordered blocks on every card of "
+                        "the host and combined on the first (default 1: "
                         "oversized requests stream)")
     p.add_argument("--relay-port", type=int, default=None,
                    help="gate launches against this relay port (a "

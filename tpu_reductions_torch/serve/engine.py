@@ -552,7 +552,8 @@ class ServeEngine:
 
     def _respond(self, adm: _Admitted, status: str, *,
                  result: Optional[float] = None,
-                 error: Optional[str] = None) -> None:
+                 error: Optional[str] = None,
+                 cards: Optional[int] = None) -> None:
         now = time.monotonic()
         latency = now - adm.t_enqueue
         queue_s = (adm.t_launch - adm.t_enqueue) if adm.t_launch else None
@@ -564,7 +565,7 @@ class ServeEngine:
                               latency_s=round(latency, 6),
                               queue_s=(round(queue_s, 6)
                                        if queue_s is not None else None),
-                              batch_size=adm.batch_size)
+                              batch_size=adm.batch_size, cards=cards)
         fields = {"req": adm.request_id, "status": status,
                   "latency_s": resp.latency_s, "queue_s": resp.queue_s,
                   "batch_size": adm.batch_size,
@@ -770,12 +771,13 @@ class ServeEngine:
 
     def _launch_sharded(self, adm: _Admitted) -> None:
         """Serve one oversized request device-parallel: split across
-        local devices in utils/staging-bounded per-device chunks,
-        per-device fold, then a collective combine whose algorithm
-        comes from collectives/algorithms.select_algorithm
+        the executor's ranks and cards in utils/staging-bounded
+        per-device chunks, per-device fold, then a collective combine
+        whose algorithm comes from collectives/algorithms.select_algorithm
         (executor.run_sharded — all device work stays in the
         executor). Same transport gate, deadline checks, crash
-        containment and response vocabulary as every other launch."""
+        containment and response vocabulary as every other launch; the
+        `serve.shard` event and the response carry the cards."""
         now = time.monotonic()
         if adm.expired(now):
             self._respond(adm, "expired",
@@ -784,9 +786,12 @@ class ServeEngine:
         r = adm.request
         est = self._cost_model.estimate((r.method, r.dtype, r.n))
         quantized = self._quant_wire(adm, est)
+        caps = self._capabilities()
         ledger.emit("serve.shard", req=adm.request_id, method=r.method,
                     dtype=r.dtype, n=r.n, nbytes=r.nbytes,
                     quantized=quantized,
+                    cards=min(caps.get("cards", 1),
+                              caps.get("device_count", 1), r.n),
                     **trace.request_fields(adm.request_id))
         t0 = time.monotonic()
         adm.t_launch = t0
@@ -815,13 +820,14 @@ class ServeEngine:
                     ok=int(res["ok"]), failed=int(not res["ok"]),
                     exec_s=round(dt, 6),
                     algorithm=res.get("algorithm"),
-                    devices=res.get("devices"),
+                    devices=res.get("devices"), cards=res.get("cards"),
                     **trace.request_fields(adm.request_id))
         if adm.expired(time.monotonic()):
             self._respond(adm, "expired",
                           error="deadline passed before response")
         elif res["ok"]:
-            self._respond(adm, "ok", result=res["result"])
+            self._respond(adm, "ok", result=res["result"],
+                          cards=res.get("cards"))
         else:
             self._respond(adm, "error",
                           error=(f"verification failed: device "

@@ -28,30 +28,37 @@ of each bucket key. `seconds` accumulates the host seconds of each
 batch's steps (fill, stack, copy, reduce, verify) and `launches` counts
 launches per surface.
 
-The shard route and the drain's reshard, on the rank axis of one card
-(docs/PORT.md "The fleet on one card"): `BatchExecutor(ranks=K)` reports
-`device_count: K`, and the engine then sends a request over the shard
-threshold to `run_sharded`, which splits the payload into K contiguous
-shards, folds each chunk by chunk (every host-to-device copy bounded by
-ops/stream.plan_chunks) into its row of one (K, width*8, 128) tensor on
-the device, and combines the K rows with the collective that
+The shard route (docs/PORT.md "The shard route across cards") and the
+drain's reshard: `BatchExecutor(ranks=K)` reports `device_count: K`, and
+the engine then sends a request over the shard threshold to
+`run_sharded`, which splits the payload into K contiguous shards and
+places them on the executor's cards (`cards`, by default every card of
+the host, device.cards) in contiguous, rank-ordered blocks
+(device.rank_blocks). One host thread a card folds its ranks' shards on
+that card, chunk by chunk (every host-to-device copy bounded by
+ops/stream.plan_chunks), into (width*8, 128) partials; the K partials
+are then copied onto the executor's own card in rank order, the rows of
+one (K, width*8*128) tensor, and combined there with the collective that
 collectives/algorithms.select_algorithm names (`collective.select`,
 `collective.launch` and `collective.done` events): the JAX package's
-per-device folds and XLA collective over a device mesh, with the ranks
-rows of one tensor, as the collective driver's are. The fold is one torch
-reduction over a chunk's blocks, as JAX's `_jit_shard_fold` is jnp under
-jit; no kernel of the repository runs here. `last_shard` keeps the
-seconds of the last sharded request's fill, fold, combine and verify.
-`run_reshard` runs a planner program (reshard/primitives.execute_plan) on
-a rank mesh of the same device, the drain's device seam.
+per-device folds and XLA collective over a device mesh. With one card
+the K ranks are rows of one tensor on it, as the collective driver's
+are. The fold is one torch reduction over a chunk's blocks, as JAX's
+`_jit_shard_fold` is jnp under jit; no kernel of the repository runs
+here. `last_shard` keeps the seconds of the last sharded request's
+fill, fold (and each card's), gather, combine and verify. `run_reshard`
+runs a planner program (reshard/primitives.execute_plan) on a rank mesh
+of the executor's card, the drain's device seam.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import time
 from collections import Counter
-from typing import Dict, List, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -85,6 +92,29 @@ def _fill(n: int, dtype: str, seed: int) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
+def _shard_note(k: int, blocks: List[range], lead: torch.device) -> str:
+    """The shard route's placement in words: with one card, the ranks as
+    rows of one tensor; with more, the split and where the partials
+    meet."""
+    if len(blocks) == 1:
+        return f"the {k} ranks are rows of one tensor on {lead.type}"
+    sizes = sorted({len(b) for b in blocks})
+    each = "-".join(str(s) for s in sizes)
+    return (f"{k} ranks on {len(blocks)} cards ({each} a card), each card "
+            f"folding its ranks' shards; the {k} partials gathered onto "
+            f"{lead} for the combine")
+
+
+def _gather_route(card: torch.device, lead: torch.device) -> str:
+    """How a card's partials reach the lead card: `local` (the same
+    device), `peer` (a direct peer copy) or `host` (the driver stages a
+    copy between cards without peer access through host memory)."""
+    if card == lead or card.type != "cuda" or lead.type != "cuda":
+        return "local"
+    return ("peer" if torch.cuda.can_device_access_peer(lead, card)
+            else "host")
+
+
 def _verified(value, host, method: str, dtype: str, n: int,
               verify_as: Optional[str] = None) -> Dict:
     from tpu_reductions_torch.ops import oracle as oracle_mod
@@ -99,14 +129,22 @@ class BatchExecutor:
     """Stacked launches for the serving engine (module docstring). The
     engine calls `capabilities()`, `run_batch(...)` and `run_stream(...)`.
     `platform` is "gpu" (the card, the default) or "cpu"; constructing
-    one touches no device."""
+    one touches no device. `cards`, the devices the shard route folds
+    on (JAX's `devices=`), defaults to every card of the host
+    (device.cards); the executor's own card (`device`) leads."""
 
-    def __init__(self, platform: str = "gpu", ranks: int = 1) -> None:
+    def __init__(self, platform: str = "gpu", ranks: int = 1,
+                 cards: Optional[Sequence[torch.device]] = None) -> None:
         if ranks < 1:
             raise ValueError(f"ranks must be >= 1, got {ranks}")
+        if cards is not None and not cards:
+            raise ValueError("cards must name at least one device")
         self.platform = platform
         self.ranks = int(ranks)
-        self.last_shard: Optional[Dict[str, float]] = None
+        self._cards = (None if cards is None
+                       else [torch.device(c) for c in cards])
+        # seconds of the last sharded request's steps; `fold_cards` a list
+        self.last_shard: Optional[Dict] = None
         self._device: Optional[torch.device] = None
         self._caps: Optional[dict] = None
         self.seconds: Dict[str, float] = dict.fromkeys(STEPS, 0.0)
@@ -126,21 +164,34 @@ class BatchExecutor:
             self._device = dev
         return self._device
 
+    @property
+    def cards(self) -> List[torch.device]:
+        """The shard route's devices: the constructor's, else every card
+        of the host (a query; each card's context is made by its first
+        sharded request)."""
+        if self._cards is None:
+            from tpu_reductions_torch import device as device_mod
+            self._cards = device_mod.cards(self.platform)
+        return self._cards
+
     def capabilities(self) -> dict:
-        """{'backend', 'supports_f64', 'device_count'}: the card adds
-        float64 natively and so does the CPU; `device_count` is the
-        ranks of the shard route (the engine shards only above 1)."""
+        """{'backend', 'supports_f64', 'device_count', 'cards'}: the card
+        adds float64 natively and so does the CPU; `device_count` is the
+        ranks of the shard route (the engine shards only above 1),
+        `cards` the devices its folds spread over."""
         if self._caps is None:
             self._caps = {"backend": self.device.type,
                           "supports_f64": True,
-                          "device_count": self.ranks}
+                          "device_count": self.ranks,
+                          "cards": len(self.cards)}
         return self._caps
 
     @contextlib.contextmanager
-    def _on_card(self):
-        """The calling thread's device set to the card, its work on the
-        card's default stream (a no-op on the CPU)."""
-        dev = self.device
+    def _on_card(self, card: Optional[torch.device] = None):
+        """The calling thread's device set to `card` (the executor's own
+        by default), its work on that card's default stream (a no-op on
+        the CPU)."""
+        dev = self.device if card is None else card
         if dev.type != "cuda":
             yield
             return
@@ -148,9 +199,11 @@ class BatchExecutor:
         with torch.cuda.stream(torch.cuda.default_stream(dev)):
             yield
 
-    def _sync(self) -> None:
+    def _sync(self, card: Optional[torch.device] = None) -> None:
+        """Wait for `card`'s queued work (the executor's own card by
+        default)."""
         from tpu_reductions_torch import device as device_mod
-        device_mod.synchronize(self.device)
+        device_mod.synchronize(self.device if card is None else card)
 
     def reset_counts(self) -> None:
         """Zero `seconds` and `launches`."""
@@ -450,13 +503,21 @@ class BatchExecutor:
                     quantized: bool = False, quant_bits: int = 8,
                     devices: Optional[int] = None) -> Dict:
         """One oversized request over the rank axis (module docstring):
-        K contiguous shards folded chunk by chunk into K resident
-        (width*8, 128) partials, then one collective combine. With
-        `quantized` the combine rides the block-scaled wire
-        (collectives/quant.py) where the geometry carries it, and the
-        check accepts its declared bound. `devices`, a rank count,
-        overrides `ranks` (JAX's takes the devices themselves). Same
-        response as run_batch, plus the selection and `devices`."""
+        K contiguous shards, placed on the cards in rank-ordered blocks,
+        each card folding its shards chunk by chunk into resident
+        (width*8, 128) partials in a host thread of its own; the K
+        partials gathered onto the executor's card in rank order, then
+        one collective combine there. With `quantized` the combine rides
+        the block-scaled wire (collectives/quant.py) where the geometry
+        carries it, and the check accepts its declared bound. `devices`,
+        a rank count, overrides `ranks` (JAX's takes the devices
+        themselves). A failure on any card fails the request. Same
+        response as run_batch, plus the selection, `devices`, `cards`,
+        each partial's device before the gather (`partials_on`), the
+        chunks each card folded (`card_chunks`) and how each card's
+        partials reached the lead (`gather_route`: local, peer or
+        host)."""
+        from tpu_reductions_torch import device as device_mod
         from tpu_reductions_torch.collectives.algorithms import \
             select_algorithm
         from tpu_reductions_torch.collectives.core import \
@@ -513,41 +574,74 @@ class BatchExecutor:
         width = min(16, plan.chunk_elems // _BLOCK)
         per_rank = width * _BLOCK
         dev = self.device
+        blocks = device_mod.rank_blocks(k, len(self.cards))
+        cards = self.cards[:len(blocks)]
         pad_value = op.identity(x.dtype)
         surface = f"serve-shard/{method.lower()}"
+        parts: List[Optional[torch.Tensor]] = [None] * k
+        card_chunks = [0] * len(cards)
+        card_s = [0.0] * len(cards)
 
-        def fold_shard(rank: int) -> torch.Tensor:
+        def fold_shard(rank: int, c: int) -> torch.Tensor:
             # shard `rank`, one bounded copy a chunk, folded into its
-            # partial; a ragged chunk pads to whole fold blocks with the
-            # identity
+            # partial on card c; a ragged chunk pads to whole fold blocks
+            # with the identity
+            card_device = cards[c]
             shard = x[rank * base:min(n, (rank + 1) * base)]
-            with self._on_card():
+            with self._on_card(card_device):
                 acc = torch.full((width * _SUBLANES, _LANES),
                                  op.identity(acc_dt), dtype=acc_dt,
-                                 device=dev)
-                for c in range(-(-shard.numel() // plan.chunk_elems)):
-                    piece = shard[c * plan.chunk_elems:
-                                  (c + 1) * plan.chunk_elems]
+                                 device=card_device)
+                for i in range(-(-shard.numel() // plan.chunk_elems)):
+                    piece = shard[i * plan.chunk_elems:
+                                  (i + 1) * plan.chunk_elems]
                     pad = -piece.numel() % per_rank
                     if pad:
                         piece = torch.cat([piece, piece.new_full(
                             (pad,), pad_value)])
                     # redlint: disable=RED015 -- one plan_chunks chunk, at most config.stage_chunk_bytes
-                    staged = piece.to(dev).view(-1, width * _SUBLANES,
-                                                _LANES)
+                    staged = piece.to(card_device).view(
+                        -1, width * _SUBLANES, _LANES)
                     acc = op.combine(acc,
                                      op.reduce_dim(staged, 0).to(acc_dt))
+                    card_chunks[c] += 1
+                # the shard's work done on its card before its ctx.call
+                # returns: the heartbeat guard covers a stuck card
                 # redlint: disable=RED018 -- the shard fold's host seconds are serving latency the client sees, not a kernel time
-                self._sync()
+                self._sync(card_device)
             return acc
 
+        def fold_card(ctx, c: int) -> None:
+            # card c's ranks, one ctx.call a shard, in this card's thread
+            f0 = time.perf_counter()
+            for r in blocks[c]:
+                parts[r] = ctx.call(lambda r=r: fold_shard(r, c),
+                                    phase="serve")
+            card_s[c] = time.perf_counter() - f0
+
+        marks = {}
+
         def launch(ctx):
-            # the k partials: rows of one tensor on the device
             self.launches[surface] += 1
-            parts = [ctx.call(lambda r=r: fold_shard(r), phase="serve")
-                     for r in range(k)]
+            # one host thread a card, so that no card's waits hold back
+            # another card's copies; every card's folds done (and
+            # synchronised) before the gather
+            with ThreadPoolExecutor(len(cards)) as pool:
+                futures = [pool.submit(contextvars.copy_context().run,
+                                       fold_card, ctx, c)
+                           for c in range(len(cards))]
+            for fut in futures:
+                fut.result()
+            marks["partials_on"] = [str(p.device) for p in parts]
+            g0 = time.perf_counter()
             with self._on_card():
-                return torch.stack(parts).view(k, per_rank)
+                # the gather: K copies onto the lead card, in rank order
+                rows = torch.empty((k, per_rank), dtype=acc_dt, device=dev)
+                for r, p in enumerate(parts):
+                    rows[r].copy_(p.view(-1))
+                self._sync()
+            marks["gather"] = time.perf_counter() - g0
+            return rows
 
         rows = exec_core.run(launch_plan(
             surface, "serve", launch, timing="serve",
@@ -624,7 +718,9 @@ class BatchExecutor:
                                       k, max_abs) * per_rank
             out["ok"] = out["diff"] <= bound
         t4 = time.perf_counter()
-        self.last_shard = {"fill": t1 - t0, "fold": t2 - t1,
+        self.last_shard = {"fill": t1 - t0,
+                           "fold": t2 - t1 - marks["gather"],
+                           "fold_cards": card_s, "gather": marks["gather"],
                            "combine": t3 - t2, "verify": t4 - t3}
         return {**out,
                 "algorithm": selection.algorithm,
@@ -632,10 +728,14 @@ class BatchExecutor:
                 "quantized": use_quant,
                 "quant_bound": bound,
                 "devices": k,
-                "note": f"the {k} ranks are rows of one tensor on "
-                        f"{dev.type}",
+                "cards": len(cards),
+                "note": _shard_note(k, blocks, dev),
                 "per_device_chunks": plan.num_chunks,
-                "chunk_bytes": plan.chunk_bytes}
+                "chunk_bytes": plan.chunk_bytes,
+                "partials_on": marks["partials_on"],
+                "card_chunks": card_chunks,
+                "gather_route": [_gather_route(card, dev)
+                                 for card in cards]}
 
     def run_reshard(self, plan, carried: np.ndarray) -> Dict:
         """Run one planner program (reshard/planner.plan_reshard) on a

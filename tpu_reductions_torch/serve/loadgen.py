@@ -17,9 +17,10 @@ build on:
                engines behind serve/router.py) over one seeded workload
                at each client count, poisson and bursty, and one
                `sharded` row: an oversized request through the engine's
-               shard route over --devices ranks, its collective choice
-               read back from the ledger and the host seconds of its
-               fill, fold, combine and verify (`seconds`);
+               shard route over --devices ranks on the host's cards,
+               its collective choice and `cards` read back from the
+               ledger and the host seconds of its fill, fold (and each
+               card's), gather, combine and verify (`seconds`);
   --elastic    an autoscaled fleet (serve/autoscale.py) tracking the
                seeded --plan=diurnal shape at each client count, then
                the drain-versus-kill pair on one seeded mid-burst
@@ -543,10 +544,12 @@ def _run_scale(ns, methods: List[str]) -> int:
                    "shard_threshold_mib":
                        engine._shard_threshold / (1 << 20),
                    "result": resp.result, "error": resp.error,
-                   "latency_s": resp.latency_s,
+                   "latency_s": resp.latency_s, "cards": resp.cards,
                    # the host seconds of the sharded request's steps
-                   # (executor.last_shard): fill, fold, combine, verify
-                   "seconds": ({k: round(v, 6)
+                   # (executor.last_shard): fill, fold (and each
+                   # card's), gather, combine, verify
+                   "seconds": ({k: (round(v, 6) if isinstance(v, float)
+                                    else [round(c, 6) for c in v])
                                 for k, v in shard_ex.last_shard.items()}
                                if shard_ex.last_shard else None)}
             row.update(_sharded_evidence(ledger_path))
@@ -583,8 +586,9 @@ def _sharded_evidence(ledger_path: Optional[str]) -> dict:
                     out["quantized"] = ev.get("quantized")
                     out["ranks"] = ev.get("ranks")
                 elif ev.get("ev") == "serve.verify":
-                    if ev.get("devices") is not None:
-                        out["devices"] = ev.get("devices")
+                    for key in ("devices", "cards"):
+                        if ev.get(key) is not None:
+                            out[key] = ev.get(key)
     except OSError:
         pass
     return out
@@ -1414,7 +1418,8 @@ def _tcp_submit(addr: str):
             d.get("method", req.method), d.get("dtype", req.dtype),
             d.get("n", req.n), result=d.get("result"),
             error=d.get("error"), latency_s=d.get("latency_s"),
-            queue_s=d.get("queue_s"), batch_size=d.get("batch_size"))
+            queue_s=d.get("queue_s"), batch_size=d.get("batch_size"),
+            cards=d.get("cards"))
 
     return submit
 
@@ -1559,8 +1564,9 @@ def main(argv=None) -> int:
                         "os._exit (--recovery)")
     p.add_argument("--devices", dest="num_devices", type=int,
                    default=None,
-                   help="ranks of the shard route and of the drains' "
-                        "reshard: rows of one tensor on the device (the "
+                   help="ranks of the shard route, folded on every "
+                        "card of the host, and of the drains' reshard, "
+                        "rows of one tensor on the executor's card (the "
                         "sharded row needs > 1)")
     p.add_argument("--platform", default="gpu", choices=PLATFORMS)
     p.add_argument("--out", default=None)

@@ -90,7 +90,9 @@ class ReduceRequest:
 @dataclasses.dataclass
 class ReduceResponse:
     """One terminal outcome. `latency_s` runs from submission to the
-    response; `queue_s` is its admission-to-launch share."""
+    response; `queue_s` is its admission-to-launch share. `cards`, set
+    only on a sharded request's response, is the number of cards its
+    shards folded on."""
 
     request_id: str
     status: str
@@ -102,14 +104,19 @@ class ReduceResponse:
     latency_s: Optional[float] = None
     queue_s: Optional[float] = None
     batch_size: Optional[int] = None
+    cards: Optional[int] = None
 
     @property
     def ok(self) -> bool:
         return self.status == "ok"
 
     def to_dict(self) -> dict:
-        """JSON-ready: the TCP front end's response line."""
-        return dataclasses.asdict(self)
+        """JSON-ready: the TCP front end's response line (the JAX
+        package's, with `cards` added where it is set)."""
+        d = dataclasses.asdict(self)
+        if d["cards"] is None:
+            del d["cards"]
+        return d
 
 
 class PendingResponse:

@@ -348,7 +348,7 @@ class ProcessReplica:
                     result=d.get("result"), error=d.get("error"),
                     latency_s=d.get("latency_s"),
                     queue_s=d.get("queue_s"),
-                    batch_size=d.get("batch_size")))
+                    batch_size=d.get("batch_size"), cards=d.get("cards")))
             except socket.timeout:
                 self._drop_conn(conn)
                 conn = rfile = None
@@ -818,8 +818,8 @@ def main(argv=None) -> int:
     p.add_argument("--max-seconds", type=float, default=None)
     p.add_argument("--platform", default="gpu", choices=PLATFORMS)
     p.add_argument("--devices", type=int, default=None,
-                   help="every replica's shard-route ranks (serve "
-                        "--devices)")
+                   help="every replica's shard-route ranks, spread "
+                        "over the host's cards (serve --devices)")
     p.add_argument("--relay-port", type=int, default=None,
                    help="every replica gates launches on this relay "
                         "port (faults/relay.py)")
