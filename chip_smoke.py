@@ -206,7 +206,21 @@ or, on a machine with several, the rank axis across cards alone
    tpu_reductions_torch.serve --devices=2C` in a process of its own,
    whose answers to an oversized int32 SUM and float32 SUM must be ok
    with `cards` C and a `serve.shard` event each; that process gone
-   afterwards. The part launches no kernel of the repository.
+   afterwards. The part launches no kernel of the repository. Last, the
+   ladder part: bench.rank_scaling across the P cards (one process a
+   card, spawned once; each rung's k ranks on min(k, P) cards in
+   contiguous blocks): the sweep at n = 2^26, int32 and float64 x
+   MAX/MIN/SUM, one retry, over ranks 2, 4, 8, 64 and 1024, the
+   amortisation probe at 1024, and the quantized and reshard curves at
+   2^24 over ranks 2, 4 and 8, then the same at --cards=1 on cuda:0 as
+   its twin: every row PASSED in both, 51 quant and 21 reshard cells in
+   each, every row with one card's bits (int32, MIN/MAX, the quantized
+   rings, the reshard programs that only move data) or within
+   registry.tolerance (float64 SUM through psum, partial_to_row), each
+   reshard row's accounted memory factor within its declared one, the
+   k = 2 rung on two cards, no worker alive; each rung printed with its
+   ms, GB/s, busbw a card against NVLink, the twin's ms and the ratio.
+   It launches no kernel of the repository either.
    Last, `[lint]`: the port lint (`python -m tpu_reductions_torch.lint
    tpu_reductions_torch chip_smoke.py --format=json`, a process of its own
    on a machine without jax) with its fact cache cold and then warm; both
@@ -2537,6 +2551,149 @@ def sharded_serving(c: int) -> list:
     return bad
 
 
+# the ladder part of [multicard]: bench.rank_scaling across the P cards
+# (each rung's ranks on min(k, P) cards, one process a card, NCCL between
+# them) beside its one-card twin (--cards=1 on cuda:0); the sweep at the
+# [rank_scaling] phase's n with rung 4 added (one or two ranks a card at
+# 2, 4 and 8), the curves over the rungs where a card holds one or two
+MC_LADDER_KS = (2, 4, 8, 64, 1024)
+MC_CURVE_KS = (2, 4, 8)
+MC_LADDER_OUT = OUT / "smoke_multicard_ladder"
+MC_LADDER_QUANT_CELLS = 51
+MC_LADDER_RESHARD_CELLS = 21
+
+
+def _ladder(cards: int, where: str):
+    """bench.rank_scaling at the ladder part's settings on `cards` cards
+    (one process a card past one), a Witness recording every row's
+    output; returns (its result, host seconds)."""
+    from tpu_reductions_torch.bench import multicard, rank_scaling
+    from tpu_reductions_torch.utils.logging import BenchLogger
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    try:
+        # redlint: disable=RED018 -- the ladder's host seconds against the phase's time limit; its rows carry the device times
+        res = rank_scaling.run_rank_scaling(
+            MC_LADDER_OUT / where, ranks=MC_LADDER_KS, n=LADDER_N,
+            retries=1, curve_n=1 << 24, rows=4096,
+            curve_ranks=MC_CURVE_KS, platform="gpu", cards=cards,
+            witness=multicard.Witness(MC_LADDER_OUT / f"evidence_{where}"),
+            logger=BenchLogger(None, None, console=log))
+    finally:
+        (MC_LADDER_OUT / f"{where}.log").write_text(log.getvalue())
+    return res, time.perf_counter() - t0
+
+
+def ladder_across_cards(p: int) -> list:
+    """[multicard]'s ladder part: bench.rank_scaling with --cards=P (the
+    sweep at 2^26, int32 and float64 x MAX/MIN/SUM, one retry, over ranks
+    2, 4, 8, 64 and 1024; the amortisation probe at 1024; the quantized
+    and reshard curves at 2^24 over ranks 2, 4 and 8), then the same at
+    --cards=1 on cuda:0 as its twin. Every row PASSED in both, the same
+    count of quant and reshard cells, every row with one card's bits or
+    within registry.tolerance (bench/multicard.ladder_agrees: the same
+    bits for int32, MIN/MAX, the quantized rings and the reshard programs
+    that only move data), each reshard row's accounted memory factor
+    within its declared one, the k = 2 rung on two cards, no worker
+    alive; prints each rung's ms, GB/s, busbw a card against NVLink, the
+    twin's ms and the ratio, and both runs' stage seconds. Returns what
+    failed. The ladder launches no kernel of the repository."""
+    import types
+    from tpu_reductions_torch.bench import multicard
+    shutil.rmtree(MC_LADDER_OUT, ignore_errors=True)
+    MC_LADDER_OUT.mkdir(parents=True)
+    bad = []
+    try:
+        ladder, ladder_s = _ladder(p, "cards")
+    except multicard.LadderFailed as e:
+        return [("ladder", f"exit {e.code}", str(e)[-3000:])]
+    twin, twin_s = _ladder(1, "twin")
+    print(f"  ladder part: {ladder_s + twin_s:.1f} s; across {p} cards "
+          f"{ladder_s:.1f} s (stages {ladder['seconds']}); its one-card "
+          f"twin {twin_s:.1f} s (stages {twin['seconds']}); no worker "
+          f"alive", flush=True)
+    shape = ladder["shape"]
+    print(f"  ranks a card: {shape.get('ranks_a_card')}; note: "
+          f"{shape['note']}", flush=True)
+    twins = {(r["ranks"], r["dtype"], r["method"], r["repeat"]): r
+             for r in twin["sweep"]}
+    for r in ladder["sweep"]:
+        tw = twins.get((r["ranks"], r["dtype"], r["method"], r["repeat"]))
+        bound_ms = collective_bound_ms(types.SimpleNamespace(**r))
+        ratio = r["time_s"] / tw["time_s"] if tw and tw["time_s"] else 0.0
+        share = r.get("nvlink_share")
+        print(f"  ladder {r['dtype']} {r['method']} k={r['ranks']} on "
+              f"{r.get('cards')} cards: {r['algorithm']} "
+              f"{1e3 * r['time_s']:.5f} ms, {r['reference_gbps']:.4f} "
+              f"GB/s, busbw {r['busbw_gbps']:.4f} "
+              f"({r.get('busbw_per_card_gbps', 0.0):.4f} a card, "
+              + (f"{share:.4f}x NVLink" if share is not None
+                 else "no link share") + "), "
+              f"bound {bound_ms:.5f} ms; one card "
+              f"{1e3 * tw['time_s'] if tw else float('nan'):.5f} ms (ratio "
+              f"{ratio:.3f}) [{r['status']}, twin "
+              f"{tw['status'] if tw else 'MISSING'}]", flush=True)
+        if (r["status"] != "PASSED" or tw is None
+                or tw["status"] != "PASSED"
+                or r.get("cards") != min(r["ranks"], p)):
+            bad.append(("ladder sweep", r["ranks"], r["dtype"], r["method"],
+                        r["status"], r.get("cards")))
+    print(f"  amortisation probe at k={shape['amortization_probe_ranks']}:"
+          f" {shape['amortization_probe']} (one card "
+          f"{twin['shape']['amortization_probe']})", flush=True)
+    quant, reshard = ladder["quant"], ladder["reshard"]
+    tw_reshard = {(r["pair"], r["wire"], r["ranks"]): r
+                  for r in twin["reshard"]}
+    for r in reshard:
+        tw = tw_reshard.get((r["pair"], r["wire"], r["ranks"]), {})
+        print(f"  ladder reshard {r['pair']} {r['wire']} k={r['ranks']} "
+              f"[{'+'.join(r['program'])}] {1e3 * r['wall_s']:.5f} ms, "
+              f"{r['gbps']:.3f} GB/s; one card "
+              f"{1e3 * tw.get('wall_s', float('nan')):.5f} ms; mem "
+              f"accounted/declared {r['measured_mem_factor']}/"
+              f"{r['mem_factor']}, largest card peak "
+              f"{r['device_mem_factor']} (one card "
+              f"{tw.get('device_mem_factor')}) [{r['status']}]", flush=True)
+    q_worst = max((r["max_err"] / r["bound"] for r in quant
+                   if r["bound"] > 0), default=0.0)
+    print(f"  ladder quant_curve: {len(quant)} cells "
+          f"{sorted({r['status'] for r in quant})}, worst err/bound "
+          f"{q_worst:.3f}; one card {len(twin['quant'])} cells", flush=True)
+    if (len(quant) != MC_LADDER_QUANT_CELLS
+            or len(twin["quant"]) != len(quant)
+            or len(reshard) != MC_LADDER_RESHARD_CELLS
+            or len(twin["reshard"]) != len(reshard)
+            or ladder["probe_dropped"] or twin["probe_dropped"]
+            or len(shape["amortization_probe"]) != 3):
+        bad.append(("ladder cells", len(quant), len(twin["quant"]),
+                    len(reshard), len(twin["reshard"]),
+                    ladder["probe_dropped"], twin["probe_dropped"]))
+    bad += [("ladder cell", r.get("pair") or r.get("method"),
+             r.get("wire") or r.get("dtype"), r["ranks"], r["status"])
+            for r in quant + reshard + twin["quant"] + twin["reshard"]
+            if r["status"] != "PASSED"]
+    bad += [("ladder reshard memory", r["pair"], r["wire"], r["ranks"])
+            for r in reshard if r["measured_mem_factor"] > r["mem_factor"]]
+    verdicts = multicard.ladder_agrees(MC_LADDER_OUT / "evidence_cards",
+                                       MC_LADDER_OUT / "evidence_twin")
+    counts: dict = {}
+    for stage, key, ok, words in verdicts:
+        rule = "same bits" if "bits" in words else "registry.tolerance"
+        counts[(stage, rule)] = counts.get((stage, rule), 0) + 1
+        if not ok:
+            bad.append(("ladder twin", stage, key, words))
+            print(f"  twin check {stage} {key}: {words}", flush=True)
+        elif rule != "same bits":
+            print(f"  twin check {stage} {key}: {words}", flush=True)
+    print("  twin check: " + "; ".join(
+        f"{stage} {n} row(s) by {rule}"
+        for (stage, rule), n in sorted(counts.items())), flush=True)
+    # the kept views are large (float64 SUM at 2^26): gone once checked
+    for npy in MC_LADDER_OUT.glob("evidence_*/*.npy"):
+        npy.unlink()
+    return bad
+
+
 def multicard_path(driver, counted, kr, registry, config, staging) -> None:
     """[multicard]: with 2 or more cards, the collective CLI across P =
     min(4, cards) cards, one process a card over NCCL, then every
@@ -2650,11 +2807,15 @@ def multicard_path(driver, counted, kr, registry, config, staging) -> None:
           + run["records"][0][0]["log"].replace("\n", "\n  ").rstrip(),
           flush=True)
     bad += sharded_serving(p)
+    bad += ladder_across_cards(p)
     if bad:
         print("  worker logs' tails:\n" + "\n".join(tails), flush=True)
         raise AssertionError(f"[multicard] rows {bad}")
     MULTICARD.update(ran=True, rows=len(rows), why="ran",
-                     sharded_rows=2 * len(SHARD_ROWS))
+                     sharded_rows=2 * len(SHARD_ROWS),
+                     ladder_rungs=list(MC_LADDER_KS),
+                     ladder_curve_cells=MC_LADDER_QUANT_CELLS
+                     + MC_LADDER_RESHARD_CELLS)
 
 
 # the RED006 count the port's tree gives, pinned at 0 (RED006_PINNED in

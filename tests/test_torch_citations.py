@@ -45,6 +45,22 @@ NO_ANALOG = [
     "bench/multicard.py::twin",
     "bench/multicard.py::twins",
     "bench/multicard.py::within_tolerance",
+    # the rank ladder across cards: the JAX mesh takes every device, and
+    # holds no one-card twin
+    "bench/collective_driver.py::link_share",
+    "bench/multicard.py::LadderFailed",
+    "bench/multicard.py::Witness",
+    "bench/multicard.py::Witness.collective",
+    "bench/multicard.py::Witness.keep",
+    "bench/multicard.py::Witness.record",
+    "bench/multicard.py::host_cards",
+    "bench/multicard.py::ladder_agrees",
+    "bench/multicard.py::reporting",
+    "bench/multicard.py::run_ladder",
+    "bench/multicard.py::rung_done",
+    "bench/multicard.py::shared_checkpoint",
+    "bench/multicard.py::spawns",
+    "bench/rank_scaling.py::placement",
     "bench/passes.py",
     "bench/passes.py::bits",
     "bench/passes.py::device_ms",

@@ -1320,3 +1320,114 @@ def test_sharded_cards_put_each_partial_on_its_card(host_cards):
     assert res["gather_route"][0] == "local"
     assert set(res["gather_route"][1:]) <= {"peer", "host"}
     assert len(ex.last_shard["fold_cards"]) == c
+
+
+# ---------------------------------------------------------------------------
+# the rank ladder across the host's cards (bench/multicard.run_ladder): each
+# rung's ranks on min(k, C) cards, one process a card, NCCL between them,
+# against the same ladder on one card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ladder_cards(tmp_path_factory):
+    """run_rank_scaling across C = min(4, cards) cards (ranks 2, 4, 8 at
+    2^20; the curves at 2^20 over 2, 4, 8) and on cuda:0 alone, each with
+    a Witness; skips with fewer than two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more NVIDIA GPUs: run `python -m pytest "
+                    "-q -m gpu --noconftest tests/test_torch_cuda.py -k "
+                    "ladder_cards` on a machine with several cards")
+    import io
+    from tpu_reductions_torch.bench import multicard, rank_scaling
+    from tpu_reductions_torch.utils.logging import BenchLogger
+    root = tmp_path_factory.mktemp("ladder_cards")
+    c = min(4, torch.cuda.device_count())
+    kw = dict(ranks=[2, 4, 8], n=1 << 20, retries=1, curve_n=1 << 20,
+              rows=256, curve_ranks=[2, 4, 8], platform="gpu")
+    runs = {}
+    for cards in (c, 1):
+        runs[cards] = rank_scaling.run_rank_scaling(
+            root / f"c{cards}", cards=cards,
+            witness=multicard.Witness(root / f"ev{cards}"),
+            logger=BenchLogger(None, None, console=io.StringIO()), **kw)
+    return root, c, runs
+
+
+@pytest.mark.gpu
+def test_ladder_cards_give_one_cards_bits_or_its_tolerance(ladder_cards):
+    """Every row of the ladder across the cards (the sweep, the probe,
+    both curves) PASSED and holds its one-card twin's bits where the rule
+    asks (int32, MIN/MAX, the quantized rings, the reshard programs that
+    only move data), else registry.tolerance."""
+    from tpu_reductions_torch.bench import multicard
+    root, c, runs = ladder_cards
+    verdicts = multicard.ladder_agrees(root / f"ev{c}", root / "ev1")
+    assert [v for v in verdicts if not v[2]] == []
+    assert {v[0] for v in verdicts} == {"sweep", "probe", "quant",
+                                        "reshard"}
+    for run in runs.values():
+        assert {r["status"] for r in run["sweep"]} == {"PASSED"}
+        assert {r["status"] for r in run["quant"] + run["reshard"]} == \
+            {"PASSED"}
+        assert run["probe_dropped"] == []
+    assert len(runs[c]["quant"]) == len(runs[1]["quant"])
+    assert len(runs[c]["reshard"]) == len(runs[1]["reshard"])
+
+
+@pytest.mark.gpu
+def test_ladder_cards_place_each_rung(ladder_cards):
+    """Rung k on min(k, C) cards, each sweep row with its busbw a card
+    against NVLink; the shape names the placement."""
+    root, c, runs = ladder_cards
+    for r in runs[c]["sweep"]:
+        assert r["cards"] == min(r["ranks"], c)
+        assert r["nvlink_share"] == pytest.approx(
+            r["busbw_gbps"] / r["cards"] / 450.0)
+    assert runs[c]["shape"]["cards"] == c
+    assert f"min(k, {c}) cards" in runs[c]["shape"]["note"]
+    assert all("cards" not in r for r in runs[1]["sweep"])
+    assert all(r["device_mem_factor"] is not None
+               for r in runs[c]["reshard"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("devices", [2, 6])
+def test_ladder_cards_collective_cli_at_devices_that_do_not_divide(
+        ladder_cards, devices):
+    """The collective CLI in C processes at --devices=2 (two cards, the
+    rest idle) and 6 (blocks 1, 2, 1, 2 on four): every process exits 0,
+    rank 0 alone prints its rows and PASSED."""
+    import sys
+    from tpu_reductions_torch.bench import multicard
+    _, c, _ = ladder_cards
+    port = multicard.free_port()
+    group = multicard.run_group(
+        [[sys.executable, "-m",
+          "tpu_reductions_torch.bench.collective_driver", "--method=SUM",
+          "--type=int", "--n=4194304", f"--devices={devices}",
+          "--retries=2", f"--num-processes={c}",
+          f"--coordinator=127.0.0.1:{port}", f"--process-id={i}"]
+         for i in range(c)], 240)
+    assert group["rcs"] == [0] * c, group["outs"]
+    assert group["survivors"] == []
+    out0 = group["outs"][0][0]
+    assert f"lie on {min(devices, c)} cards" in out0
+    assert "&&&& tpu_reductions_torch.collective PASSED" in out0
+
+
+@pytest.mark.gpu
+def test_ladder_cards_sweep_cli(ladder_cards, tmp_path):
+    """`python -m tpu_reductions_torch.bench.sweep` with its default
+    --cards (every card of the host) exits 0 with rank 0's rows."""
+    import json
+    import sys
+    from tpu_reductions_torch.bench import multicard
+    _, c, _ = ladder_cards
+    group = multicard.run_group(
+        [[sys.executable, "-m", "tpu_reductions_torch.bench.sweep",
+          "--ranks=2,8", "--n=1048576", "--types=int",
+          f"--out-dir={tmp_path}"]], 300)
+    assert group["rcs"] == [0], group["outs"]
+    rows = json.loads((tmp_path / "collective_sweep.json").read_text())
+    assert [r["cards"] for r in rows["rows"]] == \
+        [min(r["ranks"], torch.cuda.device_count()) for r in rows["rows"]]

@@ -22,8 +22,10 @@ In one process every rank is a row of one tensor on one card, so a hop
 is a copy inside the card: a row's GB/s is a copy-and-combine rate
 inside device memory and its busbw the registry's wire factor applied to
 that time; neither is a link rate. With --num-processes=P each process
-drives a card of its own (device.own_card) and holds --devices / P
-ranks as rows on it; the processes join over NCCL, so a hop between
+drives a card of its own (device.own_card) and holds a contiguous block
+of the --devices ranks as rows on it (parallel/mesh.placement: --devices
+= 6 on 4 cards is 1, 2, 1, 2; --devices = 2 uses the first two cards and
+leaves the others idle); the processes join over NCCL, so a hop between
 ranks of two cards crosses NVLink, while a hop between ranks of one card
 stays a copy inside it, and each row then states its busbw a card
 against NVLink's 450 GB/s each way (NVLINK_GBPS). On the CPU the
@@ -86,6 +88,11 @@ class CollectiveResult:
     busbw_gbps: float
     status: QAStatus
     algorithm: str = "all_reduce"    # the wire pattern that ran
+    # the port's, only where the mesh spans processes: the processes
+    # (cards) holding its ranks, and on the card busbw a card over
+    # NVLink's rate (link_share); to_dict leaves them out otherwise
+    cards: Optional[int] = None
+    nvlink_share: Optional[float] = None
 
     @property
     def passed(self) -> bool:
@@ -98,6 +105,11 @@ class CollectiveResult:
         The counterpart of tpu_reductions/bench/collective_driver.py:62."""
         d = dataclasses.asdict(self)
         d["status"] = self.status.name
+        for key in ("cards", "nvlink_share"):
+            if d[key] is None:
+                del d[key]
+        if self.cards:
+            d["busbw_per_card_gbps"] = self.busbw_gbps / self.cards
         return d
 
 
@@ -134,7 +146,8 @@ def _result_from_collective_row(row: dict) -> CollectiveResult:
         row.get("time_s", 0.0), row.get("reference_gbps", 0.0),
         row.get("busbw_gbps", 0.0),
         QAStatus[row.get("status", "FAILED")],
-        row.get("algorithm", "all_reduce"))
+        row.get("algorithm", "all_reduce"), row.get("cards"),
+        row.get("nvlink_share"))
 
 
 def _resume_rows(cfg: CollectiveConfig, checkpoint, row_key,
@@ -270,7 +283,7 @@ FALLBACK_NOTE = ("note: per-rank length does not divide by k*Q8_BLOCK; "
 def _rank_lists(mesh) -> str:
     """`process 0: ranks 0-1; process 1: ranks 2-3; ...`."""
     parts = []
-    for p in range(mesh.num_processes):
+    for p in mesh.members:
         ranks = mesh.owned_by(p)
         contiguous = ranks == tuple(range(ranks[0], ranks[-1] + 1))
         spell = (f"{ranks[0]}-{ranks[-1]}" if contiguous and len(ranks) > 1
@@ -286,20 +299,32 @@ def _crosses_cards(mesh) -> bool:
     return mesh.device.type == "cuda" and mesh.spans_processes
 
 
+def _per_card(mesh) -> tuple:
+    """(the ranks each of the mesh's processes holds, in member order,
+    spelled `2` or `2, 1, 2, 1`; whether any holds more than one)."""
+    counts = [len(mesh.owned_by(p)) for p in mesh.members]
+    same = len(set(counts)) == 1
+    return (str(counts[0]) if same else ", ".join(map(str, counts)),
+            max(counts) > 1)
+
+
 def _placement_note(mesh) -> str:
     where = device_mod.name(mesh.device)
     if _crosses_cards(mesh):
-        per = mesh.k_local
+        per, shared = _per_card(mesh)
         inside = (f"a hop between two ranks of one card, and the combine "
                   f"of a card's own rows before an all-reduce, is a copy "
-                  f"inside its memory" if per > 1 else
+                  f"inside its memory" if shared else
                   "no hop stays inside a card")
-        return (f"note: the {mesh.k} ranks lie on {mesh.num_processes} "
+        idle = mesh.num_processes - len(mesh.members)
+        rest = (f"; the other {idle} process(es) of the group hold none "
+                f"and take no part" if idle else "")
+        return (f"note: the {mesh.k} ranks lie on {len(mesh.members)} "
                 f"cards ({where}), {per} a card as rows of one tensor, one "
-                f"process a card ({_rank_lists(mesh)}); a hop between "
-                f"ranks of two cards, and every all-reduce or all-gather "
-                f"between the processes, crosses NVLink through NCCL; "
-                f"{inside}; each row's busbw a card is held against "
+                f"process a card ({_rank_lists(mesh)}){rest}; a hop "
+                f"between ranks of two cards, and every all-reduce or "
+                f"all-gather between the processes, crosses NVLink through "
+                f"NCCL; {inside}; each row's busbw a card is held against "
                 f"NVLink's {NVLINK_GBPS:.0f} GB/s each way")
     note = (f"note: the {mesh.k} ranks are rows of one tensor on {where} "
             f"({mesh.device}); a hop between two ranks is a copy inside "
@@ -307,22 +332,29 @@ def _placement_note(mesh) -> str:
             f"memory, not link rates")
     if mesh.spans_processes:
         note += (f"; this process holds {mesh.k_local} of them, the other "
-                 f"{mesh.num_processes - 1} process(es) the rest, reached "
+                 f"{len(mesh.members) - 1} process(es) the rest, reached "
                  f"over gloo")
     return note
 
 
+def link_share(mesh, busbw_gbps: float) -> tuple:
+    """(busbw a card, that over NVLink's rate each way) of a row whose
+    mesh spans processes: the registry's busbw sums the wire bytes of all
+    k ranks, so a card's share is busbw over the mesh's cards, which also
+    counts the hops inside a card where it holds more than one rank.
+    No reference analog: the JAX rows state no link share."""
+    per_card = busbw_gbps / len(mesh.members)
+    return per_card, per_card / NVLINK_GBPS
+
+
 def _link_note(mesh, busbw_gbps: float) -> str:
-    """A cross-card row's busbw a card against NVLink, unclipped: the
-    registry's busbw sums the wire bytes of all k ranks, so a card's
-    share is busbw / P, which also counts the hops inside the card where
-    it holds more than one rank."""
-    per_card = busbw_gbps / mesh.num_processes
-    ratio = per_card / NVLINK_GBPS
+    """A cross-card row's busbw a card against NVLink, unclipped
+    (link_share)."""
+    per_card, ratio = link_share(mesh, busbw_gbps)
     note = (f"note: busbw {busbw_gbps:.2f} GB/s over "
-            f"{mesh.num_processes} cards: {per_card:.2f} GB/s a card = "
+            f"{len(mesh.members)} cards: {per_card:.2f} GB/s a card = "
             f"{ratio:.3f}x NVLink's {NVLINK_GBPS:.0f} GB/s each way")
-    if mesh.k_local > 1:
+    if _per_card(mesh)[1]:
         note += " (counting the hops inside a card too)"
     if ratio > 1:
         note += (" -- above the link's rate: NCCL reduces inside the "
@@ -346,6 +378,10 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
     results: List[CollectiveResult] = []
 
     def book(res: CollectiveResult) -> CollectiveResult:
+        if mesh.spans_processes:
+            res.cards = len(mesh.members)
+            if _crosses_cards(mesh):
+                res.nvlink_share = link_share(mesh, res.busbw_gbps)[1]
         # persisted the moment it exists
         results.append(res)
         if checkpoint is not None:
@@ -356,6 +392,10 @@ def _run_collective_benchmark(cfg: CollectiveConfig,
                       mesh_shape=cfg.mesh_shape, mapping=cfg.mapping,
                       mode=cfg.mode, platform=cfg.platform,
                       local_ranks=cfg.provisioned_ranks)
+    if not mesh.member:
+        # a process outside the mesh (fewer ranks than processes) holds
+        # no rank: it enters none of the mesh's collectives and has no row
+        return results
     k = mesh.k
 
     # --- payload staging (untimed, like reduce.c's fill before its loop)

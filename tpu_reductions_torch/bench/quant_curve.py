@@ -115,12 +115,20 @@ def _draw(dtype: str, k: int, n: int, seed: int):
 
 
 def measure_cell(method: str, dtype: str, bits: int, k: int, n: int,
-                 seed: int, platform: str = "gpu") -> dict:
+                 seed: int, platform: str = "gpu",
+                 witness=None) -> Optional[dict]:
     """One curve cell: the selected quantized collective on a k-rank mesh
     on `platform`, its result against the float64 host oracle, the error
     beside the declared bound and the registry's wire accounting. SUM
     passes within its bound, MIN/MAX only when exact, and either only
     when every replica holds rank 0's bits (compared on the device).
+
+    In a joined group the mesh lies on the processes in blocks
+    (parallel/mesh.build_mesh): every replica is held against rank 0's
+    row across them, each process of the mesh computes the error from
+    its row (rank 0's bits, or the cell fails everywhere), and a process
+    outside the mesh returns None. `witness` (bench/multicard.Witness)
+    records rank 0's row.
     The counterpart of tpu_reductions/bench/quant_curve.py:83."""
     import numpy as np
     import torch
@@ -128,6 +136,7 @@ def measure_cell(method: str, dtype: str, bits: int, k: int, n: int,
     from tpu_reductions_torch.collectives import (
         make_quant_key_minmax_all_reduce, make_quant_sum_all_reduce,
         quant_error_bound, select_algorithm, shard_payload)
+    from tpu_reductions_torch.collectives.core import replicas_agree
     from tpu_reductions_torch.parallel.mesh import build_mesh
 
     if n % k:
@@ -145,6 +154,8 @@ def measure_cell(method: str, dtype: str, bits: int, k: int, n: int,
                 baseline_wire_factor=round(sel_b.wire_factor, 6),
                 quantized=True)
     mesh = build_mesh(num_devices=k, platform=platform, local_ranks=k)
+    if not mesh.member:
+        return None         # a process outside the cell's mesh
     # one draw for every (bits, op) at a (dtype, k): the curve compares
     # bit widths on the same data
     x, x64, m_abs = _draw(dtype, k, n, seed)
@@ -172,7 +183,7 @@ def measure_cell(method: str, dtype: str, bits: int, k: int, n: int,
         with heartbeat.guard("collective"):
             out = fn(*staged)
             out = out if isinstance(out, tuple) else (out,)
-            replicas = all(torch.equal(o, o[:1].expand_as(o)) for o in out)
+            replicas = replicas_agree(out, mesh)
             rank0 = [o[0].cpu() for o in out]
         ledger.emit("collective.done", algorithm=sel_q.algorithm,
                     method=method, dtype=dtype, ranks=k,
@@ -188,6 +199,17 @@ def measure_cell(method: str, dtype: str, bits: int, k: int, n: int,
     max_err = float(np.abs(got - want).max())
     exact = bool(np.array_equal(got, want))
     ok = replicas and (exact if bound == 0.0 else max_err <= bound)
+    if witness is not None:
+        from tpu_reductions_torch.bench.collective_driver import \
+            bits_required
+        from tpu_reductions_torch.collectives.core import _host
+        # the decoded row first (what a tolerance holds), then its
+        # planes; the dd planes travel and add as float32
+        witness.record("quant", (method, dtype, bits, k),
+                       [got, *(_host(r) for r in rank0)], mesh,
+                       exact=bits_required(method, dtype, sel_q.algorithm),
+                       replicated=True, method=method,
+                       dtype="float32" if dd else dtype, n=n)
     return {"method": method, "dtype": dtype, "bits": bits,
             "ranks": k, "n": int(n),
             "algorithm": sel_q.algorithm,
@@ -202,22 +224,27 @@ def measure_cell(method: str, dtype: str, bits: int, k: int, n: int,
 def run_curve(*, n: int, seed: int, ranks=DEFAULT_RANKS,
               bits: Optional[tuple] = None, out: Optional[str] = None,
               platform: str = "gpu",
-              logger: Optional[BenchLogger] = None) -> List[dict]:
+              logger: Optional[BenchLogger] = None,
+              witness=None) -> List[dict]:
     """The grid, each cell persisted as it lands and resumed from an
     interrupted `out` (bench/resume.run_checkpointed_cells). Returns the
-    rows in grid order.
+    rows in grid order. In a joined group every process runs the grid
+    (the cells a process is outside of add no row) and only rank 0
+    writes `out` (bench/multicard.shared_checkpoint).
     The counterpart of tpu_reductions/bench/quant_curve.py:208."""
-    from tpu_reductions_torch.bench.resume import (Checkpoint,
-                                                   run_checkpointed_cells)
+    from tpu_reductions_torch.bench.multicard import shared_checkpoint
+    from tpu_reductions_torch.bench.resume import run_checkpointed_cells
     logger = logger or BenchLogger(None, None)
-    ck = Checkpoint(out, {"n": n, "seed": seed},
-                    key_fn=lambda r: (r.get("method"), r.get("dtype"),
-                                      r.get("bits"), r.get("ranks")))
+    ck = shared_checkpoint(out, {"n": n, "seed": seed},
+                           key_fn=lambda r: (r.get("method"),
+                                             r.get("dtype"), r.get("bits"),
+                                             r.get("ranks")))
     logger.log(QUANT_CURVE_HEADER)
 
     def measure(key):
         method, dtype, b, k = key
-        return measure_cell(method, dtype, b, k, n, seed, platform)
+        return measure_cell(method, dtype, b, k, n, seed, platform,
+                            witness=witness)
 
     def on_row(key, row):
         _, dtype, b, k = key

@@ -92,11 +92,17 @@ def curve_cells(ranks=DEFAULT_RANKS, quant_bits: Optional[int] = 8
 
 def measure_cell(pair: str, wire: str, k: int, n: int, rows: int,
                  seed: int, mem_bound: Optional[float] = None,
-                 platform: str = "gpu") -> dict:
+                 platform: str = "gpu", witness=None) -> Optional[dict]:
     """One curve cell: plan, execute on a k-rank mesh on `platform`,
     verify every rank against the oracle, account the memory. PASSED
     only when every rank's block is right within the declared bound and
-    the accounted peak-memory factor is within the plan's.
+    the accounted peak-memory factor is within the plan's. In a joined
+    group the mesh lies on its processes in blocks, each process of the
+    mesh verifies the gathered placement and measures its own card
+    (execute_plan), and a process outside the mesh returns None.
+    `witness` (bench/multicard.Witness) records every rank's block; a
+    program with a reduce_scatter, which adds partials, need not keep
+    one card's bits.
     The counterpart of tpu_reductions/bench/reshard_curve.py:89."""
     import numpy as np
 
@@ -117,6 +123,8 @@ def measure_cell(pair: str, wire: str, k: int, n: int, rows: int,
     naive = naive_plan(src, dst, shape, 4, quant_bits=qb)
     fault_point("reshard.cell")
     mesh = make_mesh(k, platform)
+    if not mesh.member:
+        return None         # a process outside the cell's mesh
     # the same draw per (pair, k) on either wire: exact and quantized
     # rows compare on the same data
     rng = np.random.default_rng([seed, k])
@@ -137,6 +145,13 @@ def measure_cell(pair: str, wire: str, k: int, n: int, rows: int,
     wall_s = res["wall_s"]
     mem_ok = res["measured_mem_factor"] <= plan.mem_factor + 1e-9
     ok = bool(verdict["ok"]) and mem_ok
+    if witness is not None:
+        program = [s.primitive for s in plan.steps]
+        witness.record(
+            "reshard", (pair, wire, k),
+            [np.concatenate([np.ravel(b) for b in res["shards"]])], mesh,
+            exact="reduce_scatter" not in program, replicated=True,
+            method="SUM", dtype="float32", n=n)
     return {"pair": pair, "wire": wire, "ranks": k, "n": int(n),
             "shape": list(shape),
             "src": src.to_json(), "dst": dst.to_json(),
@@ -161,19 +176,22 @@ def run_curve(*, n: int, rows: int, seed: int, ranks=DEFAULT_RANKS,
               quant_bits: Optional[int] = 8,
               mem_bound: Optional[float] = None,
               out: Optional[str] = None, platform: str = "gpu",
-              logger: Optional[BenchLogger] = None) -> List[dict]:
+              logger: Optional[BenchLogger] = None,
+              witness=None) -> List[dict]:
     """The grid, each cell persisted as it lands and resumed from an
     interrupted `out` (bench/resume.run_checkpointed_cells). Returns the
-    rows in grid order.
+    rows in grid order. In a joined group every process runs the grid
+    (the cells a process is outside of add no row) and only rank 0
+    writes `out` (bench/multicard.shared_checkpoint).
     The counterpart of tpu_reductions/bench/reshard_curve.py:160."""
-    from tpu_reductions_torch.bench.resume import (Checkpoint,
-                                                   run_checkpointed_cells)
+    from tpu_reductions_torch.bench.multicard import shared_checkpoint
+    from tpu_reductions_torch.bench.resume import run_checkpointed_cells
     logger = logger or BenchLogger(None, None)
     # the meta key is dim0, not "rows": that name is the artifact's rows
-    ck = Checkpoint(out, {"n": n, "dim0": rows, "seed": seed,
-                          "mem_bound": mem_bound},
-                    key_fn=lambda r: (r.get("pair"), r.get("wire"),
-                                      r.get("ranks")))
+    ck = shared_checkpoint(out, {"n": n, "dim0": rows, "seed": seed,
+                                 "mem_bound": mem_bound},
+                           key_fn=lambda r: (r.get("pair"), r.get("wire"),
+                                             r.get("ranks")))
     if ck.path is not None and ck._prior:
         print(f"reshard_curve: {len(ck._prior)} row(s) resumed from "
               f"prior artifact {ck.path}", file=sys.stderr)
@@ -181,7 +199,7 @@ def run_curve(*, n: int, rows: int, seed: int, ranks=DEFAULT_RANKS,
     def measure(key):
         pair, wire, k = key
         return measure_cell(pair, wire, k, n, rows, seed, mem_bound,
-                            platform)
+                            platform, witness=witness)
 
     def on_row(key, row):
         beat = (f" naive={row['naive_wire_bytes']:.0f}B"

@@ -143,14 +143,17 @@ def run_checkpointed_cells(ck: Checkpoint, cells, measure,
     """The per-cell resume loop of a grid instrument: for each cell key,
     the prior run's row when the Checkpoint takes it, else
     `measure(key)`; either way `add()`ed, then `on_row(key, row)`; the
-    artifact is finalized once the grid is done. Returns the rows in grid
-    order.
+    artifact is finalized once the grid is done. A `measure` that returns
+    None (a process outside the cell's mesh, across cards) adds no row.
+    Returns the rows in grid order.
     The counterpart of tpu_reductions/bench/resume.py:191."""
     rows: List[dict] = []
     for key in cells:
         row = ck.resume(key)
         if row is None:
             row = measure(key)
+        if row is None:
+            continue
         ck.add(row)
         if on_row is not None:
             on_row(key, row)

@@ -16,7 +16,16 @@ one rank count; `main` is the CLI over sweep_collective:
     python -m tpu_reductions_torch.bench.sweep --out-dir=DIR
         [--ranks=2,4,8] [--methods=MAX,MIN,SUM] [--types=int32,float64]
         [--n=1048576] [--retries=1] [--timing=periter|chained]
-        [--chainspan=16] [--platform=gpu|cpu]
+        [--chainspan=16] [--platform=gpu|cpu] [--cards=C]
+
+The collective sweeps run across the host's cards as the JAX sweeps run
+across its devices: `cards` (--cards) defaults to every card of the
+host, one process a card with NCCL between them (bench/multicard.
+run_ladder, spawned once for the whole ladder); each rung's k ranks lie
+on min(k, C) of them in contiguous blocks, and rank 0 alone writes the
+job files and the checkpoint. --cards=1 keeps every rung's ranks as
+rows of one tensor on one card. On the CPU the default is one process;
+--cards=C there runs C gloo processes.
 """
 
 from __future__ import annotations
@@ -236,7 +245,9 @@ def sweep_collective(*, rank_counts=(2, 4, 8), methods=("MAX", "MIN", "SUM"),
                      mode: str = "vn", mapping: str = "default",
                      timing: str = "periter", chain_span: int = 16,
                      platform: str = "gpu", out_dir: Optional[str] = None,
-                     logger: Optional[BenchLogger] = None) -> List[dict]:
+                     logger: Optional[BenchLogger] = None,
+                     cards: Optional[int] = None,
+                     witness=None) -> List[dict]:
     """Rank-count sweep of the collective benchmark, the submit_all.sh
     analog (sbatch --nodes {32,128,512}, mpi/submit_all.sh:3-4), in the
     reference's op order (MAX, MIN, SUM, reduce.c:73), `retries` repeats
@@ -247,14 +258,36 @@ def sweep_collective(*, rank_counts=(2, 4, 8), methods=("MAX", "MIN", "SUM"),
     With an out_dir every row persists to out_dir/collective_sweep.json
     as it lands (bench/resume.Checkpoint), and a run over an interrupted
     sweep reuses its rows per (ranks, dtype, method, repeat) instead of
-    climbing the ladder again; a completed sweep measures afresh."""
+    climbing the ladder again; a completed sweep measures afresh.
+
+    Across `cards` (module docstring; default every card of the host)
+    the ladder runs in that many processes (bench/multicard.run_ladder,
+    its control files under out_dir/ladder) and returns rank 0's rows,
+    each with its `cards` and busbw a card (on the card, `nvlink_share`
+    against NVLink's 450 GB/s); only rank 0 writes the job files and the
+    checkpoint, whose prior rows every process resumes alike. `witness`
+    (bench/multicard.Witness) records every measured row's output."""
+    from tpu_reductions_torch.bench import multicard
     from tpu_reductions_torch.bench.collective_driver import \
         run_collective_benchmark
-    from tpu_reductions_torch.bench.resume import Checkpoint
     from tpu_reductions_torch.config import CollectiveConfig
 
     logger = logger or BenchLogger(None, None)
-    raw_dir = Path(out_dir) / "raw_output" if out_dir else None
+    cards = multicard.host_cards(platform, cards)
+    if multicard.spawns(cards):
+        return multicard.run_ladder(
+            "tpu_reductions_torch.bench.sweep:sweep_collective",
+            dict(rank_counts=list(rank_counts), methods=list(methods),
+                 dtypes=list(dtypes), n=n, retries=retries, rooted=rooted,
+                 mode=mode, mapping=mapping, timing=timing,
+                 chain_span=chain_span, platform=platform,
+                 out_dir=out_dir, cards=cards), cards,
+            platform=platform,
+            work_dir=Path(out_dir) / "ladder" if out_dir else None,
+            logger=logger,
+            evidence=witness.root if witness is not None else None)
+    writer = multicard.reporting()
+    raw_dir = Path(out_dir) / "raw_output" if out_dir and writer else None
     if raw_dir:
         raw_dir.mkdir(parents=True, exist_ok=True)
     ck = None
@@ -262,13 +295,13 @@ def sweep_collective(*, rank_counts=(2, 4, 8), methods=("MAX", "MIN", "SUM"),
         # rank, dtype and method live in the row key, not the meta: a
         # sweep run again with another rank list reuses the rungs it
         # shares with the interrupted one
-        ck = Checkpoint(Path(out_dir) / "collective_sweep.json",
-                        {"n": n, "retries": retries, "rooted": rooted,
-                         "mode": mode, "mapping": mapping,
-                         "timing": timing, "chain_span": chain_span},
-                        key_fn=lambda r: (r.get("ranks"), r.get("dtype"),
-                                          r.get("method"),
-                                          r.get("repeat")))
+        ck = multicard.shared_checkpoint(
+            Path(out_dir) / "collective_sweep.json",
+            {"n": n, "retries": retries, "rooted": rooted, "mode": mode,
+             "mapping": mapping, "timing": timing,
+             "chain_span": chain_span},
+            key_fn=lambda r: (r.get("ranks"), r.get("dtype"),
+                              r.get("method"), r.get("repeat")))
     rows = []
     for k in rank_counts:
         ledger.emit("sweep.rank", ranks=k)   # how far up the ladder
@@ -285,11 +318,17 @@ def sweep_collective(*, rank_counts=(2, 4, 8), methods=("MAX", "MIN", "SUM"),
                                        mapping=mapping, timing=timing,
                                        chain_span=chain_span,
                                        platform=platform)
-                for res in run_collective_benchmark(
-                        cfg, logger=job_logger, checkpoint=ck,
-                        row_key=lambda rep, _k=k, _d=cfg.dtype,
-                        _m=cfg.method: (_k, _d, _m, rep)):
-                    rows.append(res.to_dict())
+                results = run_collective_benchmark(
+                    cfg, logger=job_logger, checkpoint=ck,
+                    row_key=lambda rep, _k=k, _d=cfg.dtype,
+                    _m=cfg.method: (_k, _d, _m, rep),
+                    on_result=witness.keep if witness is not None
+                    else None)
+                if witness is not None:
+                    witness.collective("sweep", (k, dtype, method),
+                                       results)
+                rows.extend(res.to_dict() for res in results)
+        multicard.rung_done()
     if ck is not None:
         ck.finalize()
     return rows
@@ -300,17 +339,28 @@ def shmoo_collective(*, method: str = "SUM", dtype: str = "float64",
                      min_pow: int = 10, max_pow: int = 24,
                      retries: int = 3, timing: str = "periter",
                      chain_span: int = 16, platform: str = "gpu",
-                     logger: Optional[BenchLogger] = None) -> List[dict]:
+                     logger: Optional[BenchLogger] = None,
+                     cards: Optional[int] = None) -> List[dict]:
     """Payload-size sweep of the collective at one rank count, n =
     2^min_pow..2^max_pow: the bandwidth-vs-N axis the reference's MPI
     side never had (its payload was constants.h's fixed 2 GiB). Each row
-    carries `gbps` (its reference GB/s) for plot_vs_n.
+    carries `gbps` (its reference GB/s) for plot_vs_n. Across `cards`
+    as sweep_collective (rank 0's rows).
     The counterpart of tpu_reductions/bench/sweep.py:252."""
+    from tpu_reductions_torch.bench import multicard
     from tpu_reductions_torch.bench.collective_driver import \
         run_collective_benchmark
     from tpu_reductions_torch.config import CollectiveConfig
 
     logger = logger or BenchLogger(None, None)
+    cards = multicard.host_cards(platform, cards)
+    if multicard.spawns(cards):
+        return multicard.run_ladder(
+            "tpu_reductions_torch.bench.sweep:shmoo_collective",
+            dict(method=method, dtype=dtype, num_devices=num_devices,
+                 min_pow=min_pow, max_pow=max_pow, retries=retries,
+                 timing=timing, chain_span=chain_span, platform=platform,
+                 cards=cards), cards, platform=platform, logger=logger)
     rows = []
     for p in range(min_pow, max_pow + 1):
         cfg = CollectiveConfig(method=method, dtype=dtype, n=1 << p,
@@ -351,7 +401,14 @@ def main(argv=None) -> int:
     p.add_argument("--platform", type=str, default="gpu", choices=PLATFORMS,
                    help="gpu (default): the ranks are rows on the card; "
                         "cpu: on the host")
+    p.add_argument("--cards", type=int, default=None,
+                   help="processes, one a card, that each rung's ranks "
+                        "lie on (min(k, C) of them; NCCL between the "
+                        "cards, gloo with --platform=cpu); default every "
+                        "card of the host, one process on the CPU")
     ns = p.parse_args(argv)
+    if ns.cards is not None and ns.cards < 1:
+        p.error(f"--cards must be >= 1, got {ns.cards}")
     from tpu_reductions_torch.exec.core import maybe_arm
     from tpu_reductions_torch.obs.ledger import arm_session
     arm_session("bench.sweep", argv=list(argv) if argv else sys.argv[1:])
@@ -372,12 +429,25 @@ def main(argv=None) -> int:
         p.error(f"--ranks must be comma-separated ints, got {ns.ranks!r}")
     if not rank_counts or any(k < 2 for k in rank_counts):
         p.error(f"--ranks must all be >= 2, got {ns.ranks!r}")
+    from tpu_reductions_torch.bench.multicard import (LadderFailed,
+                                                      host_cards)
+    try:
+        host_cards(ns.platform, ns.cards)
+    except (RuntimeError, ValueError) as e:
+        # cards this host cannot give: refused with the reason, no rung
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     logger = BenchLogger(None, None, console=sys.stderr)
-    rows = sweep_collective(rank_counts=rank_counts, methods=methods,
-                            dtypes=dtypes, n=ns.n, retries=ns.retries,
-                            timing=ns.timing, chain_span=ns.chain_span,
-                            platform=ns.platform, out_dir=ns.out_dir,
-                            logger=logger)
+    try:
+        rows = sweep_collective(rank_counts=rank_counts, methods=methods,
+                                dtypes=dtypes, n=ns.n, retries=ns.retries,
+                                timing=ns.timing, chain_span=ns.chain_span,
+                                platform=ns.platform, out_dir=ns.out_dir,
+                                logger=logger, cards=ns.cards)
+    except LadderFailed as e:
+        # a worker that died fails the ladder with its exit code
+        print(f"error: {e}", file=sys.stderr)
+        return e.code
     bad = [r for r in rows if r.get("status") not in ("PASSED", "WAIVED")]
     print(f"swept {len(rows)} rows across ranks={list(rank_counts)} "
           f"-> {ns.out_dir}/collective_sweep.json"

@@ -113,13 +113,15 @@ _COLLECTIVES = {"SUM": psum, "MIN": pmin, "MAX": pmax}
 
 def _all_gather_rows(pieces: torch.Tensor, mesh) -> torch.Tensor:
     """Every rank's piece, in rank order: (k, c) from this process's
-    (k_local, c), on its device. Each process sends its rows padded to
-    the largest share; a cached index puts the gathered rows in rank
-    order, so a captured graph holds no host-to-device copy."""
+    (k_local, c), on its device. Each process of the mesh sends its rows
+    padded to the largest share over the mesh's group (a subgroup where
+    the mesh leaves processes out); a cached index puts the gathered rows
+    in rank order, so a captured graph holds no host-to-device copy."""
     if not mesh.spans_processes:
         return pieces
     import torch.distributed as dist
-    counts = [len(mesh.owned_by(p)) for p in range(mesh.num_processes)]
+    # the mesh's processes in the order of its group's ranks
+    counts = [len(mesh.owned_by(p)) for p in mesh.members]
     pad = max(counts)
     mine = pieces.new_zeros((pad, *pieces.shape[1:]))
     mine[:pieces.shape[0]] = pieces
@@ -127,13 +129,37 @@ def _all_gather_rows(pieces: torch.Tensor, mesh) -> torch.Tensor:
     dist.all_gather(got, mine, group=mesh.group)
 
     def build():
-        at = {r: p * pad + i for p in range(mesh.num_processes)
+        at = {r: j * pad + i for j, p in enumerate(mesh.members)
               for i, r in enumerate(mesh.owned_by(p))}
         # redlint: disable=RED020 -- k int64 row positions, made once per mesh
         return torch.tensor([at[r] for r in range(mesh.k)],
                             dtype=torch.long, device=pieces.device)
     return torch.cat(got).index_select(
         0, mesh.cached(("gather_rows", pad), build))
+
+
+def replicas_agree(out: tuple, mesh) -> bool:
+    """Whether every replica of a replicated output (a tuple of planes)
+    holds rank 0's bits, compared on the device: this process's rows
+    against its first, and across processes its first against rank 0's
+    row, broadcast over the mesh's group as bytes; the verdict is then
+    the group's (a MIN over its processes), so that every process of the
+    mesh gives the same one."""
+    same = all(torch.equal(o, o[:1].expand_as(o)) for o in out)
+    if not mesh.spans_processes:
+        return same
+    import torch.distributed as dist
+
+    from tpu_reductions_torch.collectives.rings import _bytes
+    for o in out:
+        head = o[0].contiguous()
+        ref = head.clone()
+        dist.broadcast(_bytes(ref), src=mesh.owners[0], group=mesh.group)
+        same = same and torch.equal(head, ref)
+    # redlint: disable=RED020 -- one int32, the replicas' verdict across the group
+    flag = torch.tensor([int(same)], dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.group)
+    return bool(flag.item())
 
 
 def mesh_spans_processes(mesh) -> bool:

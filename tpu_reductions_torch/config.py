@@ -402,9 +402,9 @@ class CollectiveConfig:
       n            total elements over all ranks (NUM_INTS/NUM_DOUBLES,
                    constants.h:1-2, as a flag)
       retries      timed repetitions (RETRY_COUNT=5, constants.h:5)
-      num_devices  rank count (the sbatch --nodes sweep); each process
-                   provisions num_devices / num_processes virtual ranks,
-                   twice that under mode='co' (provisioned_ranks)
+      num_devices  rank count (the sbatch --nodes sweep); the processes
+                   hold them in contiguous blocks, twice that many
+                   virtual ranks under mode='co' (provisioned_ranks)
       mesh_shape   optional multi-axis mesh whose first axis is the ranks
       mapping      rank placement over processes (BGLMPI_MAPPING)
       mode         'vn' every virtual rank, 'co' every other one
@@ -472,13 +472,22 @@ class CollectiveConfig:
 
     @property
     def provisioned_ranks(self) -> Optional[int]:
-        """The virtual ranks each process provides: --devices over the
-        processes, twice that under mode='co' (the JAX CLI's virtual CPU
-        devices); None without --devices (the platform's device count)."""
+        """The virtual ranks this process provides: --devices, twice that
+        under mode='co' (the JAX CLI's virtual CPU devices), in one
+        process; across processes its block of them
+        (parallel/mesh.placement: contiguous blocks in process order,
+        none where the ranks are fewer than the processes); None without
+        --devices (the platform's device count)."""
         if self.num_devices is None:
             return None
         want = self.num_devices * (2 if self.mode == "co" else 1)
-        return want // (self.num_processes or 1)
+        nproc = self.num_processes or 1
+        if nproc == 1:
+            return want
+        from tpu_reductions_torch.device import rank_blocks
+        blocks = rank_blocks(want, nproc)
+        me = self.process_id or 0
+        return len(blocks[me]) if me < len(blocks) else 0
 
 
 def build_collective_parser() -> argparse.ArgumentParser:
@@ -510,7 +519,7 @@ def build_collective_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--devices", dest="num_devices", type=int, default=None,
                    help="Device count (rank-count analog): virtual ranks, "
-                        "split evenly among --num-processes")
+                        "in contiguous blocks over --num-processes")
     p.add_argument("--mapping", type=str, default="default",
                    help="Mesh axis ordering (BGLMPI_MAPPING analog)")
     p.add_argument("--mode", type=str, default="vn", choices=("vn", "co"),
@@ -562,24 +571,14 @@ def build_collective_parser() -> argparse.ArgumentParser:
 
 def parse_collective(argv=None) -> CollectiveConfig:
     """Parse the collective CLI. A missing --method is a usage error
-    (exit 2); --devices that does not divide among --num-processes exits
-    with the JAX package's reason (a SystemExit carrying the message); a
-    value CollectiveConfig refuses raises ValueError."""
+    (exit 2); a value CollectiveConfig refuses raises ValueError.
+    --devices need not divide among --num-processes: the processes hold
+    the ranks in contiguous blocks (parallel/mesh.placement), where the
+    JAX CLI refuses a count that leaves the processes unequal shares."""
     p = build_collective_parser()
     ns = p.parse_args(argv)
     if ns.method is None:
         p.error("--method={SUM|MIN|MAX} is required")
-    nproc = ns.num_processes or 1
-    if ns.num_devices is not None and nproc > 1:
-        want = ns.num_devices * (2 if ns.mode == "co" else 1)
-        if want % nproc != 0:
-            co = (" (mode=co provisions 2x that in virtual "
-                  "devices)" if want != ns.num_devices else "")
-            raise SystemExit(
-                f"--devices={ns.num_devices}{co} must divide "
-                f"evenly among --num-processes={nproc}: every "
-                "process provisions an equal local share "
-                "(docs/MULTIHOST.md)")
     return CollectiveConfig(
         method=ns.method, dtype=ns.dtype, n=ns.n, retries=ns.retries,
         warmup=ns.warmup, num_devices=ns.num_devices, mapping=ns.mapping,

@@ -9,12 +9,17 @@ between two of them is a copy inside that device (collectives/rings.py).
 The same code runs on the CPU and on the card.
 
 Across processes (`initialize_distributed`) the rank axis is split, the
-MPI model of reduce.c: each process owns the ranks whose virtual device
-it provides, and a hop between ranks of two processes is a send and a
-receive between them. On the card every process drives a card of its
-own (device.own_card: `cuda:<local rank>`) and the processes join over
-NCCL, so such a hop crosses NVLink; on the CPU they join over gloo.
-The join sets the process's card as its current device.
+MPI model of reduce.c: a k-rank mesh lies on the processes in contiguous,
+rank-ordered blocks (device.rank_blocks: process p holds block p; with
+k < P the first k processes hold one rank each), and a hop between ranks
+of two processes is a send and a receive between them. On the card every
+process drives a card of its own (device.own_card: `cuda:<local rank>`)
+and the processes join over NCCL, so such a hop crosses NVLink; on the
+CPU they join over gloo. The join sets the process's card as its current
+device. A mesh that leaves processes out runs its collectives in a
+subgroup of the processes that hold its ranks (`RankMesh.group`), made
+once per member set by every process of the group; a process outside it
+holds no rank and enters none of the mesh's collectives.
 
 Reference mapping, as in the JAX package:
 - MPI_Init / Comm_size (reduce.c:32-34): `device_inventory`, `build_mesh`;
@@ -45,6 +50,11 @@ MAPPINGS = ("default", "reversed", "interleaved")
 # how long a process waits on a peer in one collective before it raises:
 # a peer that died leaves the others waiting this long, not forever
 DIST_TIMEOUT_S = 300
+
+# the subgroups of the joined process group, by member tuple: made once
+# each (every process of the group makes them, in the same order) and
+# dropped with the group (leave_distributed)
+_SUBGROUPS: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +137,9 @@ class RankMesh:
     `devices` holds the mesh's virtual devices in mesh order (row-major
     over `mesh_shape`); rank r is the index along the first axis. `owned`
     are the ranks this process holds, ascending: the rows of its
-    `(k_local, L)` tensors, in that order."""
+    `(k_local, L)` tensors, in that order. `members` are the processes
+    that hold ranks, ascending (the ranks of `group`, the subgroup the
+    mesh's collectives run in); `num_processes` is the whole group's."""
 
     k: int
     axis_names: tuple
@@ -145,6 +157,7 @@ class RankMesh:
                             for r in range(self.k))
         self.owned = tuple(r for r in range(self.k)
                            if self.owners[r] == self.process)
+        self.members = tuple(sorted(set(self.owners)))
         self._row = {r: i for i, r in enumerate(self.owned)}
         # this process's ranks, on its device: axis_index's counterpart
         # redlint: disable=RED015 -- this process's rank indices, k int64 entries
@@ -159,6 +172,12 @@ class RankMesh:
     @property
     def k_local(self) -> int:
         return len(self.owned)
+
+    @property
+    def member(self) -> bool:
+        """Whether this process holds a rank of the mesh (and so enters
+        its collectives)."""
+        return bool(self.owned)
 
     @property
     def spans_processes(self) -> bool:
@@ -191,17 +210,21 @@ def build_mesh(num_devices: Optional[int] = None,
                device: Optional[torch.device] = None) -> RankMesh:
     """Build the reduction mesh.
 
-    Each process provides `local_ranks` virtual devices (default 1: the
-    one device it drives, the CPU or its own card; the collective CLI
-    provisions --devices / processes of them, twice that under mode=co,
-    as the JAX CLI provisions virtual CPU devices), all on its device.
-    `num_devices` is the rank count (defaults to all after `mode`
-    filtering); `mesh_shape`/`axis_names` allow a multi-axis mesh whose
-    first axis is the rank axis. The refusals keep the JAX package's
-    words."""
+    In one process, the process provides `local_ranks` virtual devices
+    (default 1: the one device it drives, the CPU or its own card; the
+    collective CLI provisions --devices of them, twice that under
+    mode=co, as the JAX CLI provisions virtual CPU devices), all on its
+    device. Across processes a `num_devices`-rank mesh (twice that under
+    mode=co) is placed in contiguous blocks (`placement`); without
+    `num_devices` each process provides `local_ranks`. `num_devices` is
+    the rank count (defaults to all after `mode` filtering);
+    `mesh_shape`/`axis_names` allow a multi-axis mesh whose first axis is
+    the rank axis. A mesh that leaves processes out gets the subgroup of
+    the processes that hold its ranks (`subgroup`): every process of the
+    group must build it, members or not. The refusals keep the JAX
+    package's words."""
     me, world = _world()
-    local = 1 if local_ranks is None else local_ranks
-    devs = [Place(p, i) for p in range(world) for i in range(local)]
+    devs = placement(num_devices, world, mode, local_ranks)
     if mode == "co":
         devs = coarsen_to_chips(devs)
     elif mode != "vn":
@@ -229,13 +252,53 @@ def build_mesh(num_devices: Optional[int] = None,
                              f"{len(mesh_shape)}-d mesh")
     if device is None:
         device = _device(platform)
-    group = None
-    if world > 1:
-        import torch.distributed as dist
-        group = dist.group.WORLD
-    return RankMesh(k=mesh_shape[0], axis_names=axis_names,
+    mesh = RankMesh(k=mesh_shape[0], axis_names=axis_names,
                     mesh_shape=mesh_shape, devices=tuple(devs), process=me,
-                    num_processes=world, device=device, group=group)
+                    num_processes=world, device=device)
+    if world > 1:
+        mesh.group = subgroup(mesh.members, device)
+    return mesh
+
+
+def placement(num_devices: Optional[int], world: int, mode: str = "vn",
+              local_ranks: Optional[int] = None) -> list:
+    """The virtual devices a mesh draws from, before `mode` and `mapping`:
+    in one process (or without `num_devices`) `local_ranks` (default 1)
+    per process; across processes `num_devices` ranks, twice that under
+    mode='co', in device.rank_blocks' contiguous blocks over the
+    processes (process p holds block p; with fewer ranks than processes
+    the first ones hold one each)."""
+    if world > 1 and num_devices is not None:
+        want = num_devices * (2 if mode == "co" else 1)
+        if want < 1:
+            raise ValueError(f"requested {num_devices} devices")
+        return [Place(p, i) for p, block in
+                enumerate(device_mod.rank_blocks(want, world))
+                for i in range(len(block))]
+    local = 1 if local_ranks is None else local_ranks
+    return [Place(p, i) for p in range(world) for i in range(local)]
+
+
+def subgroup(members: tuple, device: torch.device):
+    """The process group of a mesh whose ranks lie on the processes
+    `members`: the whole group when it holds them all, else its subgroup
+    of those processes, made once per member tuple. Every process of the
+    group calls this in the same order (torch.distributed.new_group is a
+    collective of the whole group; NCCL splits its communicator there,
+    the processes outside taking no part of the new one); the members
+    then warm the subgroup with one all-reduce, so that its first hop
+    finds its communicator made. Returns torch's non-member placeholder
+    to a process outside."""
+    import torch.distributed as dist
+    if len(members) == dist.get_world_size():
+        return dist.group.WORLD
+    if members not in _SUBGROUPS:
+        group = dist.new_group(ranks=list(members))
+        if dist.get_rank() in members:
+            # redlint: disable=RED016 -- the subgroup's warm-up, one element that makes its communicator, not a hop of the rank axis
+            dist.all_reduce(torch.zeros(1, device=device), group=group)
+        _SUBGROUPS[members] = group
+    return _SUBGROUPS[members]
 
 
 def _claim_card(store, card: torch.device, process_id: int,
@@ -311,6 +374,7 @@ def leave_distributed() -> None:
     after its rows are done (seen on the CPU after the pair rows)."""
     import torch.distributed as dist
     gc.collect()
+    _SUBGROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
     gc.collect()

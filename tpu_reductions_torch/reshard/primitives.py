@@ -142,8 +142,11 @@ def declared_mem_factor(primitive: str, k: int, in_f: float,
 
 
 def make_mesh(k: int, platform: str = "gpu"):
-    """A k-rank mesh in this process: k rows of one tensor on the card,
-    or on the CPU with platform="cpu" (parallel/mesh.build_mesh)."""
+    """A k-rank mesh: k rows of one tensor on the card in one process,
+    or on the CPU with platform="cpu"; in a joined group the ranks lie
+    on its processes in contiguous blocks, one card each
+    (parallel/mesh.build_mesh), and every process of the group must make
+    it."""
     from tpu_reductions_torch.parallel.mesh import build_mesh
     return build_mesh(num_devices=k, platform=platform, local_ranks=k)
 
@@ -189,13 +192,16 @@ def place_spec(carried: np.ndarray, spec: ShardingSpec, mesh
 
 def collect_shards(y: torch.Tensor, mesh) -> list:
     """Per-rank numpy blocks of a placed value, in rank order: what
-    oracle.verify_placement consumes (a mesh in this process). A row
-    bit-identical to rank 0's (compared on the device) is handed back as
-    rank 0's block itself, so that k replicas cross to the host once."""
-    first = y[mesh.row(0)]
+    oracle.verify_placement consumes. Across processes every rank's block
+    is first gathered onto each process of the mesh (`_gather_blocks`),
+    so that each verifies the whole placement. A block bit-identical to
+    rank 0's (compared on the device) is handed back as rank 0's block
+    itself, so that k replicas cross to the host once."""
+    y = _gather_blocks(y, mesh)
+    first = y[0]
     head = first.cpu().numpy()
-    return [head if r == 0 or torch.equal(y[mesh.row(r)], first)
-            else y[mesh.row(r)].cpu().numpy() for r in range(mesh.k)]
+    return [head if r == 0 or torch.equal(y[r], first)
+            else y[r].cpu().numpy() for r in range(mesh.k)]
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +350,10 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
     a step's wall_s is their median, and the plan's the sum of its
     steps'. A call's output is released before the next call and a
     step's input before the next step, so one step's buffers are live at
-    a time.
+    a time. Across processes the mesh's processes enter each timed call
+    together (a barrier of its group, untimed), each times its own, and
+    every process of the mesh returns the whole placement
+    (collect_shards).
 
     Two memory factors, per rank over the global bytes, the largest over
     the steps (and the placed source):
@@ -357,7 +366,8 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
                            timed calls above what was live before them,
                            over the k_local ranks, plus one input row:
                            what the card held, the ops' temporaries
-                           included. None on the CPU.
+                           included; across cards the largest of the
+                           mesh's cards. None on the CPU.
 
     The whole program is one LaunchPlan of the execution core
     (exec/core.py) whose steps each run under their own heartbeat guard,
@@ -375,6 +385,7 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
     dev = mesh.device
     on_card = dev.type == "cuda"
     step_rows = []
+    together = _barrier(mesh)
 
     def program(ctx):
         x = place_spec(x_np, plan.source, mesh)
@@ -400,6 +411,7 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
             if i < STEP_WARMUP:
                 y = fn(x)
                 continue
+            together()
             watch.start()
             y = fn(x)
             device_mod.synchronize(dev)
@@ -413,8 +425,8 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
                "wall_s": round(wall_s, 6), "buffer_bytes": int(step_bytes),
                "mem_factor": round(step_frac, 6), "device_mem_factor": None}
         if on_card:
-            held = (torch.cuda.max_memory_allocated(dev) - base) \
-                / mesh.k_local + _row_bytes(x)
+            held = _largest(mesh, (torch.cuda.max_memory_allocated(dev)
+                                   - base) / mesh.k_local + _row_bytes(x))
             row["device_mem_factor"] = round(held / g_bytes, 6)
             device_peak = max(device_peak, held / g_bytes)
         step_rows.append(row)
@@ -441,6 +453,27 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
     return {"shards": collect_shards(x, mesh), "wall_s": total,
             "steps": step_rows, "measured_mem_factor": measured,
             "device_mem_factor": device_peak}
+
+
+def _barrier(mesh):
+    """A call that waits for the mesh's other processes (a barrier of its
+    group), or does nothing in one process."""
+    if not mesh.spans_processes:
+        return lambda: None
+    import torch.distributed as dist
+    return lambda: dist.barrier(group=mesh.group)
+
+
+def _largest(mesh, value: float) -> float:
+    """The largest of `value` over the mesh's processes (a MAX all-reduce
+    of its group), or `value` in one process."""
+    if not mesh.spans_processes:
+        return value
+    import torch.distributed as dist
+    # redlint: disable=RED020 -- one float64, a step's card peak across the group
+    t = torch.tensor([value], dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return float(t.item())
 
 
 def reshard_error_bound(n_quant_steps: int, bits: Optional[int],
