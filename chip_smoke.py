@@ -220,7 +220,22 @@ or, on a machine with several, the rank axis across cards alone
    reshard row's accounted memory factor within its declared one, the
    k = 2 rung on two cards, no worker alive; each rung printed with its
    ms, GB/s, busbw a card against NVLink, the twin's ms and the ratio.
-   It launches no kernel of the repository either.
+   It launches no kernel of the repository either. Then the drain part
+   (serve/executor.run_reshard over the host's cards, one host thread a
+   card, the hops copies between the cards; bench/drain_cards.py): each
+   of the reshard curve's 7 (pair, wire) programs at k = 2, 4 and 8 at
+   its 2^24 float32, 4096 rows, through BatchExecutor(ranks=k) on every
+   card and on cards=[cuda:0], after the same at 2^16 to warm the cards:
+   every row PASSED, a program that only moves data with the twin's
+   bits, partial_to_row within the curve's bound of the twin and of the
+   oracle, the twin's step rows and accounted memory factor, within the
+   declared one, on min(k, C) cards; each printed with both seconds and
+   their ratio, the largest card's allocator peak against the twin's and
+   the copy route between each pair of cards; then one drain_replica of
+   a two-replica router with BatchExecutor(ranks=8) over the cards beside
+   its twin: reshard ok on 8 ranks and min(8, C) cards, the twin's
+   program, the victim shedding nothing. It launches no kernel of the
+   repository either.
    Last, `[lint]`: the port lint (`python -m tpu_reductions_torch.lint
    tpu_reductions_torch chip_smoke.py --format=json`, a process of its own
    on a machine without jax) with its fact cache cold and then warm; both
@@ -2808,6 +2823,7 @@ def multicard_path(driver, counted, kr, registry, config, staging) -> None:
           flush=True)
     bad += sharded_serving(p)
     bad += ladder_across_cards(p)
+    bad += drain_across_cards()
     if bad:
         print("  worker logs' tails:\n" + "\n".join(tails), flush=True)
         raise AssertionError(f"[multicard] rows {bad}")
@@ -2815,7 +2831,65 @@ def multicard_path(driver, counted, kr, registry, config, staging) -> None:
                      sharded_rows=2 * len(SHARD_ROWS),
                      ladder_rungs=list(MC_LADDER_KS),
                      ladder_curve_cells=MC_LADDER_QUANT_CELLS
-                     + MC_LADDER_RESHARD_CELLS)
+                     + MC_LADDER_RESHARD_CELLS, drain_rows=DRAIN_CELLS)
+
+
+# the drain part of [multicard]: the reshard curve's programs through the
+# executor's run_reshard over the host's cards at the curve's size, then a
+# drain_replica, each beside its one-card twin (cards=[cuda:0])
+DRAIN_KS = (2, 4, 8)
+DRAIN_N = 1 << 24
+DRAIN_ROWS = 4096
+DRAIN_CELLS = 21
+
+
+def drain_across_cards() -> list:
+    """[multicard]'s drain part (bench/drain_cards.py) on every card of
+    the host: drain_rows at DRAIN_N after a warm-up at 2^16, then
+    drain_fleet across the cards and on cuda:0; prints every row and the
+    part's seconds. Returns what failed. The drain launches no kernel of
+    the repository: its programs are torch ops and copies between the
+    cards, as the JAX drain's are XLA collectives and jnp."""
+    from tpu_reductions_torch.bench import drain_cards
+    from tpu_reductions_torch.serve.executor import BatchExecutor
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+    lead = cards[:1]
+    t0 = time.perf_counter()
+    # the cards' allocators and each op's first load out of the timed rows
+    warm = list(drain_cards.drain_rows(DRAIN_KS, 1 << 16, 64, 0, cards))
+    print(f"  drain: warm-up of every program at 2^16 over {len(cards)} "
+          f"cards {time.perf_counter() - t0:.2f} s", flush=True)
+    rows = []
+    for row in drain_cards.drain_rows(DRAIN_KS, DRAIN_N, DRAIN_ROWS, 0,
+                                      cards):
+        rows.append(row)
+        print(f"  drain {drain_cards.summary(row)}", flush=True)
+    bad = [("drain", *f) for f in drain_cards.failures(warm + rows)]
+    if len(rows) != DRAIN_CELLS:
+        bad.append(("drain", f"{len(rows)} rows, not {DRAIN_CELLS}"))
+    routes = sorted({r for row in rows for r in row["copy_route"].values()})
+    f0 = time.perf_counter()
+    # redlint: disable=RED018 -- the drain's host seconds against the phase's time limit; its reshard carries the device times
+    got = drain_cards.drain_fleet(BatchExecutor("gpu", ranks=8))
+    twin = drain_cards.drain_fleet(BatchExecutor("gpu", ranks=8,
+                                                 cards=lead))
+    rs, trs = got["reshard"] or {}, twin["reshard"] or {}
+    print(f"  drain_replica over {rs.get('cards')} cards: reshard ok="
+          f"{rs.get('ok')} ranks={rs.get('ranks')} program "
+          f"{rs.get('program')} {rs.get('wall_s')} s (one card "
+          f"{trs.get('wall_s')} s, ok={trs.get('ok')}), accounted "
+          f"{rs.get('measured_mem_factor')} <= {rs.get('mem_factor')}, "
+          f"max_err {rs.get('max_err')} <= {rs.get('bound')}; victim shed "
+          f"{got['shed']} expired {got['expired']}; requests "
+          f"{got['statuses']}; {time.perf_counter() - f0:.1f} s",
+          flush=True)
+    bad += [("drain_replica", b) for b in
+            drain_cards.check_drain(got, min(8, len(cards)), twin)
+            + drain_cards.check_drain(twin, 1)]
+    print(f"  drain part: {time.perf_counter() - t0:.1f} s; copies "
+          f"between the cards: {','.join(routes)}", flush=True)
+    return bad
 
 
 # the RED006 count the port's tree gives, pinned at 0 (RED006_PINNED in
@@ -2990,7 +3064,10 @@ def main() -> int:
                           "serving part folds each card's shards and "
                           "combines the gathered partials with torch ops, "
                           "as the JAX shard route folds with jnp under "
-                          "jax.jit and never reaches pl.pallas_call"),
+                          "jax.jit and never reaches pl.pallas_call; the "
+                          "drain part's reshard is torch ops and copies "
+                          "between the cards, as the JAX drain's is XLA "
+                          "collectives and jnp"),
         "resilience": "its CLIs run in processes of their own, whose "
                       "launches this process does not count (its hang "
                       "and scheduler rows go through k6, its smoke task "

@@ -61,6 +61,14 @@ NO_ANALOG = [
     "bench/multicard.py::shared_checkpoint",
     "bench/multicard.py::spawns",
     "bench/rank_scaling.py::placement",
+    # the drain across cards, held against one card: the JAX drain's
+    # mesh spans the chips with no one-card twin
+    "bench/drain_cards.py",
+    "bench/drain_cards.py::check_drain",
+    "bench/drain_cards.py::drain_fleet",
+    "bench/drain_cards.py::drain_rows",
+    "bench/drain_cards.py::failures",
+    "bench/drain_cards.py::summary",
     "bench/passes.py",
     "bench/passes.py::bits",
     "bench/passes.py::device_ms",

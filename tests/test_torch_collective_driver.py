@@ -124,9 +124,11 @@ REFUSALS = [
      "at 5 bits"),
 ]
 
-# --devices that the processes do not divide: the JAX CLI refuses it (an
-# equal local share a process), the port places the ranks in contiguous
-# blocks (parallel/mesh.placement) and gives this process its block
+# --devices that the processes do not divide, on --platform=cpu: both
+# CLIs refuse it with the JAX words (each process provisions an equal
+# local share of virtual CPU devices); the workers of bench/multicard.py
+# parse it with `blocks` and place the ranks in contiguous blocks
+# (parallel/mesh.placement), each process its block
 UNEVEN = [
     (["--platform=cpu", "--devices=3", "--num-processes=2",
       "--coordinator=127.0.0.1:1", "--process-id=0"], 1,
@@ -146,15 +148,14 @@ def test_refusal_matches_the_reference(extra, code, reason):
     port = _refusal(port_config.parse_collective, argv)
     ref = _refusal(jax_config.parse_collective, argv)
     assert ref[0] == code and reason in ref[1], ref
-    uneven = {tuple(r[0]): r[3] for r in UNEVEN}
-    if tuple(extra) in uneven:
-        # the port's repair: its block, where the JAX CLI refuses
-        assert port == (0, "")
-        assert port_config.parse_collective(argv).provisioned_ranks \
-            == uneven[tuple(extra)]
-        return
     assert port[0] == code, (port, ref)
     assert reason in port[1], (port, ref)
+    uneven = {tuple(r[0]): r[3] for r in UNEVEN}
+    if tuple(extra) in uneven:
+        # the JAX words whole, and the workers' parse keeps the block
+        assert port == ref
+        assert port_config.parse_collective(
+            argv, blocks=True).provisioned_ranks == uneven[tuple(extra)]
 
 
 def test_valid_flags_parse_to_the_reference_values():

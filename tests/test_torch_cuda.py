@@ -1431,3 +1431,100 @@ def test_ladder_cards_sweep_cli(ladder_cards, tmp_path):
     rows = json.loads((tmp_path / "collective_sweep.json").read_text())
     assert [r["cards"] for r in rows["rows"]] == \
         [min(r["ranks"], torch.cuda.device_count()) for r in rows["rows"]]
+
+
+# ---------------------------------------------------------------------------
+# the drain's reshard across the host's cards (serve/executor.run_reshard on
+# parallel/mesh.peer_meshes): one host thread a card, the hops copies
+# between the cards, against the same program on cuda:0 alone
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def drain_host_cards():
+    """Every card of the host; skips with fewer than two."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more NVIDIA GPUs: run `python -m pytest "
+                    "-q -m gpu --noconftest tests/test_torch_cuda.py -k "
+                    "drain_cards` on a machine with several cards")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", (2, 4, 8))
+def test_drain_cards_hold_the_one_card_bits(drain_host_cards, k):
+    """The reshard curve's 7 (pair, wire) programs at 2^20 through
+    run_reshard over every card and on cuda:0 alone: the twin's bits for
+    a program that only moves data, partial_to_row within the curve's
+    bound, the twin's step rows and accounted factor, min(k, C) cards,
+    each card's allocator peak read, and every pair of cards' copy route
+    named."""
+    from tpu_reductions_torch.bench import drain_cards
+    c = len(drain_host_cards)
+    rows = list(drain_cards.drain_rows((k,), 1 << 20, 256, 0,
+                                       drain_host_cards))
+    assert len(rows) == 7
+    assert drain_cards.failures(rows) == []
+    used = min(k, c)
+    for r in rows:
+        assert r["cards"] == used
+        assert sorted(r["copy_route"]) == sorted(
+            f"{a}-{b}" for a in range(used) for b in range(a + 1, used))
+        assert set(r["copy_route"].values()) <= {"peer", "host"}
+        assert r["device_mem_factor"] is not None
+        assert r["twin_device_mem_factor"] is not None
+
+
+@pytest.mark.gpu
+def test_drain_cards_drain_replica_sheds_nothing(drain_host_cards):
+    """drain_replica with BatchExecutor(ranks=8) over every card beside
+    its twin on cuda:0: reshard ok on 8 ranks and min(8, C) cards, the
+    twin's program, nothing shed."""
+    from tpu_reductions_torch.bench import drain_cards
+    from tpu_reductions_torch.serve.executor import BatchExecutor
+    got = drain_cards.drain_fleet(BatchExecutor("gpu", ranks=8))
+    twin = drain_cards.drain_fleet(
+        BatchExecutor("gpu", ranks=8, cards=drain_host_cards[:1]))
+    assert drain_cards.check_drain(
+        got, min(8, len(drain_host_cards)), twin) == []
+    assert drain_cards.check_drain(twin, 1) == []
+
+
+@pytest.mark.gpu
+def test_drain_cards_fault_on_one_card_raises(drain_host_cards,
+                                              monkeypatch):
+    """A step that raises on card 1's thread fails run_reshard with that
+    error within seconds and leaves no thread; the cards then run the
+    program again."""
+    import threading
+    import time
+    from tpu_reductions_torch.reshard import (ShardingSpec, plan_reshard,
+                                              primitives)
+    from tpu_reductions_torch.serve.executor import BatchExecutor
+    real = primitives.build_step
+
+    def faulty(step, mesh, global_shape, dtype):
+        fn, aux = real(step, mesh, global_shape, dtype)
+        if mesh.process != 1:
+            return fn, aux
+
+        def boom(x):
+            raise RuntimeError("card 1 lost its step")
+        return boom, aux
+
+    k, shape = 8, (256, 4096)
+    src = ShardingSpec.replicated(k, 2, partial=True)
+    plan = plan_reshard(src, ShardingSpec.sharded(k, 2, 0), shape, 4)
+    carried = np.random.default_rng(0).standard_normal(
+        (k,) + shape).astype(np.float32)
+    ex = BatchExecutor("gpu", ranks=k, cards=drain_host_cards)
+    before = set(threading.enumerate())
+    monkeypatch.setattr(primitives, "build_step", faulty)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="card 1 lost its step"):
+        ex.run_reshard(plan, carried)
+    assert time.monotonic() - t0 < 30
+    assert [t for t in threading.enumerate()
+            if t not in before and t.is_alive()] == []
+    monkeypatch.setattr(primitives, "build_step", real)
+    res = ex.run_reshard(plan, carried)
+    assert res["cards"] == min(k, len(drain_host_cards))

@@ -181,14 +181,20 @@ def test_a_process_outside_the_mesh_enters_none_of_its_collectives(
                                            (6, [1, 2, 1, 2]),
                                            (8, [2, 2, 2, 2])])
 def test_provisioned_ranks_are_the_blocks(devices, want):
-    """The repair: --devices that 4 processes do not divide parses, and
-    each process provisions its block (the parent floored 2 // 4 to 0,
-    and refused 6 at the parse)."""
-    got = [parse_collective([
-        "--method=SUM", f"--devices={devices}", "--num-processes=4",
-        f"--process-id={i}", "--coordinator=127.0.0.1:1",
-        "--platform=cpu"]).provisioned_ranks for i in range(4)]
+    """The repair: --devices that 4 processes do not divide parses on the
+    card and in the workers of bench/multicard.py (`blocks`), and each
+    process provisions its block (the parent floored 2 // 4 to 0, and
+    refused 6 at the parse); the CLI on --platform=cpu refuses it as the
+    JAX CLI does (tests/test_torch_collective_driver.py UNEVEN)."""
+    argv = ["--method=SUM", f"--devices={devices}", "--num-processes=4",
+            "--coordinator=127.0.0.1:1"]
+    got = [parse_collective(argv + [f"--process-id={i}"]
+                            ).provisioned_ranks for i in range(4)]
     assert got == want
+    workers = [parse_collective(argv + [f"--process-id={i}",
+                                        "--platform=cpu"], blocks=True
+                                ).provisioned_ranks for i in range(4)]
+    assert workers == want
 
 
 @pytest.mark.parametrize("rank", [0, 1])
@@ -332,9 +338,10 @@ def test_the_cli_at_devices_2_and_6_gives_the_jax_verdicts(
 @pytest.mark.parametrize("devices", [2, 6])
 def test_the_collective_cli_itself_in_four_processes(devices):
     """`python -m tpu_reductions_torch.bench.collective_driver` in four
-    processes at --devices=2 and 6: every process exits 0, rank 0 alone
-    prints its rows and PASSED (the parent refused 6 at the parse, and at
-    2 found 0 ranks a process)."""
+    processes at --devices=2 and 6 on --platform=cpu: every process exits
+    1 at the parse with the JAX CLI's words, before it joins, and none is
+    left (the JAX CLI provisions an equal share of virtual CPU devices a
+    process; the workers of bench/multicard.py, above, place the blocks)."""
     port = multicard.free_port()
     group = multicard.run_group(
         [[sys.executable, "-m",
@@ -343,12 +350,14 @@ def test_the_collective_cli_itself_in_four_processes(devices):
           "--retries=2", "--platform=cpu", "--num-processes=4",
           f"--coordinator=127.0.0.1:{port}", f"--process-id={i}"]
          for i in range(4)], TIMEOUT_S)
-    assert group["rcs"] == [0] * 4, group["outs"]
+    assert group["rcs"] == [1] * 4, group["outs"]
     assert group["survivors"] == []
+    words = (f"--devices={devices} must divide evenly among "
+             f"--num-processes=4")
+    assert all(words in err for _, err in group["outs"]), group["outs"]
     out0 = group["outs"][0][0]
-    assert out0.count(f"DOUBLE MIN {devices} ") == 2
-    assert "&&&& tpu_reductions_torch.collective PASSED" in out0
-    assert all(o.strip() == "" for o, _ in group["outs"][1:])
+    assert f"DOUBLE MIN {devices} " not in out0
+    assert "&&&& tpu_reductions_torch.collective FAILED" in out0
 
 
 # ---------------------------------------------------------------------------

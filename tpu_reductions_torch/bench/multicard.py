@@ -659,7 +659,8 @@ def _worker(ns) -> int:
     flags = [f"--coordinator={ns.coordinator}",
              f"--num-processes={ns.num_processes}",
              f"--process-id={ns.process_id}", f"--platform={ns.platform}"]
-    cfgs = [parse_collective(list(argv) + flags) for argv in rows]
+    cfgs = [parse_collective(list(argv) + flags, blocks=True)
+            for argv in rows]
     maybe_arm(ns.platform)
     joined, reporting = cd.bring_up(cfgs[0])
     path = Path(ns.out) / f"process{ns.process_id}.jsonl"

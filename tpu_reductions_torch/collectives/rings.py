@@ -99,14 +99,10 @@ class _Hop:
         if self.dst.numel():
             out.index_copy_(0, self.dst, x.index_select(0, self.src))
         if self.wire:
-            import torch.distributed as dist
-            group = self.mesh.group
-            ops = [dist.P2POp(dist.isend if send else dist.irecv,
-                              _bytes(x[row] if send else out[row]), peer,
-                              group=group, tag=tag)
-                   for send, row, peer, tag in self.wire]
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+            from tpu_reductions_torch.parallel.mesh import comm
+            comm(self.mesh).exchange(
+                [(send, _bytes(x[row] if send else out[row]), peer, tag)
+                 for send, row, peer, tag in self.wire])
         return out
 
 

@@ -569,16 +569,34 @@ def build_collective_parser() -> argparse.ArgumentParser:
     return p
 
 
-def parse_collective(argv=None) -> CollectiveConfig:
+def parse_collective(argv=None, *, blocks: bool = False
+                     ) -> CollectiveConfig:
     """Parse the collective CLI. A missing --method is a usage error
     (exit 2); a value CollectiveConfig refuses raises ValueError.
-    --devices need not divide among --num-processes: the processes hold
-    the ranks in contiguous blocks (parallel/mesh.placement), where the
-    JAX CLI refuses a count that leaves the processes unequal shares."""
+
+    On the card --devices need not divide among --num-processes: the
+    processes hold the ranks in contiguous blocks
+    (parallel/mesh.placement), as JAX's device path takes the first k
+    devices of the group. On --platform=cpu the CLI refuses such a count
+    with the JAX CLI's words and exit 1 (tpu_reductions/config.py:556-568,
+    where each process provisions an equal share of virtual CPU devices);
+    `blocks` keeps the block placement there too, for the workers of
+    bench/multicard.py, which place a ladder's rungs on the processes."""
     p = build_collective_parser()
     ns = p.parse_args(argv)
     if ns.method is None:
         p.error("--method={SUM|MIN|MAX} is required")
+    nproc = ns.num_processes or 1
+    if ns.platform == "cpu" and ns.num_devices and nproc > 1 \
+            and not blocks:
+        want = ns.num_devices * (2 if ns.mode == "co" else 1)
+        if want % nproc != 0:
+            co = (" (mode=co provisions 2x that in virtual devices)"
+                  if want != ns.num_devices else "")
+            raise SystemExit(
+                f"--devices={ns.num_devices}{co} must divide evenly among "
+                f"--num-processes={nproc}: every process provisions an "
+                "equal local share (docs/MULTIHOST.md)")
     return CollectiveConfig(
         method=ns.method, dtype=ns.dtype, n=ns.n, retries=ns.retries,
         warmup=ns.warmup, num_devices=ns.num_devices, mapping=ns.mapping,

@@ -21,6 +21,13 @@ subgroup of the processes that hold its ranks (`RankMesh.group`), made
 once per member set by every process of the group; a process outside it
 holds no rank and enters none of the mesh's collectives.
 
+In one process the same blocks can lie on several cards
+(`peer_meshes`, the drain's reshard across the host's cards): one host
+thread a card, each with a RankMesh of its own whose "process" is its
+card, joined by a parallel/peer.PeerGroup in place of a process group.
+`comm(mesh)` is the one place the rank axis's calls across processes or
+cards choose between the two.
+
 Reference mapping, as in the JAX package:
 - MPI_Init / Comm_size (reduce.c:32-34): `device_inventory`, `build_mesh`;
 - the Blue Gene VN/CO modes (ccni_vn.sh:6): `mode`; without chip
@@ -299,6 +306,82 @@ def subgroup(members: tuple, device: torch.device):
             dist.all_reduce(torch.zeros(1, device=device), group=group)
         _SUBGROUPS[members] = group
     return _SUBGROUPS[members]
+
+
+def peer_meshes(k: int, cards) -> list:
+    """A k-rank mesh on C' = min(k, C) of `cards` in one process: the
+    ranks in device.rank_blocks' contiguous blocks, card c's block the
+    rows of its own tensors, one RankMesh a card, as its host thread sees
+    the mesh (`process` the card's index, `num_processes` C', `device`
+    the card), all sharing one parallel/peer.PeerGroup as their `group`.
+    C' = 1 is the one-tensor mesh on that card. No reference analog: the
+    JAX drain's mesh spans the host's chips in one process
+    (tpu_reductions/reshard/primitives.py:144-150)."""
+    from tpu_reductions_torch.parallel.peer import PeerGroup
+    blocks = device_mod.rank_blocks(k, len(cards))
+    devs = tuple(Place(c, i) for c, block in enumerate(blocks)
+                 for i in range(len(block)))
+    group = PeerGroup(len(blocks)) if len(blocks) > 1 else None
+    return [RankMesh(k=k, axis_names=(DEFAULT_AXIS,), mesh_shape=(k,),
+                     devices=devs, process=c, num_processes=len(blocks),
+                     device=torch.device(cards[c]), group=group)
+            for c in range(len(blocks))]
+
+
+class _ProcessComm:
+    """The collectives of a process group, as torch.distributed runs
+    them (NCCL between cards, gloo on the CPU); `comm`'s other kind is
+    parallel/peer.PeerMember, with the same calls."""
+
+    def __init__(self, group) -> None:
+        self.group = group
+
+    def all_reduce(self, t: torch.Tensor, method: str) -> None:
+        import torch.distributed as dist
+        op = {"SUM": dist.ReduceOp.SUM, "MIN": dist.ReduceOp.MIN,
+              "MAX": dist.ReduceOp.MAX}[method]
+        # redlint: disable=RED016 -- the process group's side of comm(), the one dispatch point of the collectives' and the reshard primitives' calls
+        dist.all_reduce(t, op=op, group=self.group)
+
+    def all_gather(self, got, mine: torch.Tensor) -> None:
+        import torch.distributed as dist
+        # redlint: disable=RED016 -- the process group's side of comm(), the one dispatch point of the collectives' and the reshard primitives' calls
+        dist.all_gather(got, mine, group=self.group)
+
+    def exchange(self, wire) -> None:
+        """(is_send, tensor, peer process, tag) in the order both ends
+        list them: one batch_isend_irecv, waited."""
+        import torch.distributed as dist
+        ops = [dist.P2POp(dist.isend if send else dist.irecv, t, peer,
+                          group=self.group, tag=tag)
+               for send, t, peer, tag in wire]
+        # redlint: disable=RED016 -- the process group's side of comm(), the one dispatch point of the collectives' and the reshard primitives' calls
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+    def broadcast(self, t: torch.Tensor, src: int) -> None:
+        import torch.distributed as dist
+        # redlint: disable=RED016 -- the process group's side of comm(), the one dispatch point of the collectives' and the reshard primitives' calls
+        dist.broadcast(t, src=src, group=self.group)
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+        dist.barrier(group=self.group)
+
+
+def comm(mesh):
+    """The collectives of the mesh's group, for a mesh that spans
+    processes (or cards): its peer group's, seen from this thread's card
+    (parallel/peer.py), or torch.distributed's over its process group.
+    Every call site of the rank axis that crosses processes or cards goes
+    through here: collectives/core.reduce_ranks, `_all_gather_rows` and
+    `replicas_agree`, collectives/rings._Hop, and reshard/primitives'
+    `_barrier` and `_largest`. No reference analog: JAX's collectives
+    are XLA's over the mesh's devices."""
+    from tpu_reductions_torch.parallel.peer import PeerGroup
+    if isinstance(mesh.group, PeerGroup):
+        return mesh.group.member(mesh.process)
+    return _ProcessComm(mesh.group)
 
 
 def _claim_card(store, card: torch.device, process_id: int,

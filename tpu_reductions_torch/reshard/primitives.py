@@ -456,23 +456,23 @@ def execute_plan(plan, carried: np.ndarray, mesh, *,
 
 
 def _barrier(mesh):
-    """A call that waits for the mesh's other processes (a barrier of its
-    group), or does nothing in one process."""
+    """A call that waits for the mesh's other processes or cards (a
+    barrier of its group), or does nothing on one."""
     if not mesh.spans_processes:
         return lambda: None
-    import torch.distributed as dist
-    return lambda: dist.barrier(group=mesh.group)
+    from tpu_reductions_torch.parallel.mesh import comm
+    return comm(mesh).barrier
 
 
 def _largest(mesh, value: float) -> float:
-    """The largest of `value` over the mesh's processes (a MAX all-reduce
-    of its group), or `value` in one process."""
+    """The largest of `value` over the mesh's processes or cards (a MAX
+    all-reduce of its group), or `value` on one."""
     if not mesh.spans_processes:
         return value
-    import torch.distributed as dist
     # redlint: disable=RED020 -- one float64, a step's card peak across the group
     t = torch.tensor([value], dtype=torch.float64, device=mesh.device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    from tpu_reductions_torch.parallel.mesh import comm
+    comm(mesh).all_reduce(t, "MAX")
     return float(t.item())
 
 

@@ -139,7 +139,8 @@ def _reshard_partials(vid: str, *, executor, mem_bound: float,
     -> row-sharded (the drain's state handoff is exactly the
     reshard_curve `partial_to_row` pair), planned under the declared
     peak-memory bound, executed through the executor's device seam
-    (executor.run_reshard), verified element-wise against the
+    (executor.run_reshard: the ranks on min(k, C) of the executor's C
+    cards, `cards` in the result), verified element-wise against the
     pure-numpy oracle. Returns None when the executor has one rank
     (nothing is sharded, nothing moves)."""
     from tpu_reductions_torch.reshard import (ShardingSpec, plan_reshard,
@@ -167,11 +168,12 @@ def _reshard_partials(vid: str, *, executor, mem_bound: float,
     ok = bool(verdict["ok"]) and mem_ok
     ledger.emit("drain.reshard", replica=vid,
                 program=",".join(s.primitive for s in plan.steps),
-                ranks=k, wall_s=round(res["wall_s"], 6),
+                ranks=k, cards=res["cards"],
+                wall_s=round(res["wall_s"], 6),
                 mem_factor=round(plan.mem_factor, 6),
                 measured_mem_factor=round(res["measured_mem_factor"], 6),
                 max_err=verdict["max_err"], bound=bound, ok=ok)
-    return {"ok": ok, "ranks": k,
+    return {"ok": ok, "ranks": k, "cards": res["cards"],
             "program": [s.primitive for s in plan.steps],
             "mem_factor": round(plan.mem_factor, 6),
             "measured_mem_factor": round(res["measured_mem_factor"], 6),

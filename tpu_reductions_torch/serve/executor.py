@@ -47,8 +47,11 @@ are. The fold is one torch reduction over a chunk's blocks, as JAX's
 `_jit_shard_fold` is jnp under jit; no kernel of the repository runs
 here. `last_shard` keeps the seconds of the last sharded request's
 fill, fold (and each card's), gather, combine and verify. `run_reshard`
-runs a planner program (reshard/primitives.execute_plan) on a rank mesh
-of the executor's card, the drain's device seam.
+runs a planner program (reshard/primitives.execute_plan), the drain's
+device seam, on the same placement: k ranks on min(k, C) of the cards in
+blocks, one host thread a card joined by a peer group (parallel/peer.py;
+docs/PORT.md "The drain across cards"), or the rows of one tensor on one
+card.
 """
 
 from __future__ import annotations
@@ -739,24 +742,74 @@ class BatchExecutor:
 
     def run_reshard(self, plan, carried: np.ndarray) -> Dict:
         """Run one planner program (reshard/planner.plan_reshard) on a
-        rank mesh of this executor's device: the drain's device seam
-        (serve/autoscale.drain_replica). Returns execute_plan's dict
-        ({'shards', 'wall_s', 'steps', 'measured_mem_factor',
-        'device_mem_factor'})."""
+        rank mesh of this executor's cards: the drain's device seam
+        (serve/autoscale.drain_replica; JAX's run_reshard over make_mesh,
+        tpu_reductions/serve/executor.py:666-687). With more than one
+        card and at least 2 ranks, the k ranks lie on C' = min(k, C) of
+        `cards` in rank-ordered blocks (device.rank_blocks), each card's
+        rows on that card, and the program runs in one host thread a card
+        on parallel/mesh.peer_meshes (parallel/peer.py: the hops are
+        copies between the cards); else the ranks are rows of one tensor
+        on this executor's device. A failure on any card aborts the
+        others' rendezvous, and the run raises that failure. Returns
+        execute_plan's dict ({'shards', 'wall_s', 'steps',
+        'measured_mem_factor', 'device_mem_factor'}; card 0's timings, the
+        largest card's peak) plus `cards`, C', and `copy_route`: for each
+        pair of cards "a-b", `peer` where each has peer access to the
+        other, else `host` (`local` on the CPU)."""
+        from tpu_reductions_torch import device as device_mod
         from tpu_reductions_torch.exec import core as exec_core
         from tpu_reductions_torch.exec.plan import launch_plan
+        from tpu_reductions_torch.parallel.mesh import peer_meshes
+        from tpu_reductions_torch.parallel.peer import first_failure
         from tpu_reductions_torch.reshard.primitives import (execute_plan,
                                                              make_mesh)
 
         fault_point("serve.batch")
+        k = plan.source.num_ranks
+        cards = self.cards[:len(device_mod.rank_blocks(k, len(self.cards)))]
 
-        def launch(ctx):
+        def twin(ctx):
             with self._on_card():
-                mesh = make_mesh(plan.source.num_ranks, self.platform)
+                mesh = make_mesh(k, self.platform)
                 return execute_plan(plan, carried, mesh)
 
-        return exec_core.run(launch_plan(
-            "serve-reshard", "reshard", launch,
+        def across(ctx):
+            meshes = peer_meshes(k, cards)
+            results: List[Optional[Dict]] = [None] * len(cards)
+
+            def on_card(c: int) -> None:
+                try:
+                    with self._on_card(cards[c]):
+                        results[c] = execute_plan(plan, carried, meshes[c])
+                except BaseException:
+                    meshes[c].group.abort()
+                    raise
+
+            # one host thread a card: a card's rendezvous waits hold back
+            # no other card's work
+            with ThreadPoolExecutor(len(cards)) as pool:
+                futures = [pool.submit(contextvars.copy_context().run,
+                                       on_card, c)
+                           for c in range(len(cards))]
+            error = first_failure([f.exception() for f in futures])
+            if error is not None:
+                raise error
+            return results[0]
+
+        res = exec_core.run(launch_plan(
+            "serve-reshard", "reshard", across if len(cards) > 1 else twin,
             timing="steps", heartbeat_phase="serve", retry=True,
-            drain=True, ranks=plan.source.num_ranks,
-            steps=len(plan.steps)))
+            drain=True, ranks=k, steps=len(plan.steps)))
+        return {**res, "cards": len(cards),
+                "copy_route": {f"{a}-{b}": _copy_route(cards[a], cards[b])
+                               for a in range(len(cards))
+                               for b in range(a + 1, len(cards))}}
+
+
+def _copy_route(a: torch.device, b: torch.device) -> str:
+    """How the drain's hops between two cards travel (run_reshard):
+    `peer` where each card has peer access to the other, `host` where CUDA
+    stages a copy through host memory, `local` on one device."""
+    there, back = _gather_route(a, b), _gather_route(b, a)
+    return "host" if "host" in (there, back) else there

@@ -100,6 +100,11 @@ def guard(phase: str):
         prev = _phases[-1] if _phases else None
         _depth += 1
         _phases.append(phase)
+        # the region opens on a fresh mark: the `hb.phase` event below is
+        # an fsync'd append, host work inside the region that a loaded
+        # disk can hold for longer than a short deadline, and the last
+        # mark before it is the previous region's exit
+        _mark = time.monotonic()
     if phase != prev:
         _emit_phase(prev, phase)
     _touch()
