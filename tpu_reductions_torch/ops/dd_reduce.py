@@ -37,6 +37,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from tpu_reductions_torch.obs import spans
 from tpu_reductions_torch.ops import _cuda
 from tpu_reductions_torch.ops.kernel_reduce import (LANES, _pow2_ceil,
                                                     _sm_count, _tickets,
@@ -475,9 +476,16 @@ def make_dd_staged_reduce(method: str, n: int, *, threads: int = 256,
     stage_fn = _make_stage_fn(method, threads, max_blocks, device)
 
     def reduce_fn(hi2d, lo2d, scale_exp=0):
-        acc_hi, acc_lo = dd_call(hi2d, lo2d, method, tm)
-        return host_finish_pairs(acc_hi, acc_lo, method,
-                                 scale_exp=scale_exp)
+        rec = spans.hot_begin()
+        if rec is None:
+            acc_hi, acc_lo = dd_call(hi2d, lo2d, method, tm)
+            return host_finish_pairs(acc_hi, acc_lo, method,
+                                     scale_exp=scale_exp)
+        # recorded (obs/spans.py): `reduce` and its finish
+        return spans.hot_call(
+            rec, lambda: dd_call(hi2d, lo2d, method, tm),
+            lambda acc: host_finish_pairs(*acc, method,
+                                          scale_exp=scale_exp))
 
     return stage_fn, reduce_fn
 

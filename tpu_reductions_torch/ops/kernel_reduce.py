@@ -43,6 +43,7 @@ from tpu_reductions_torch import device as device_mod
 from tpu_reductions_torch.config import (KERNEL_ELEMENTWISE, KERNEL_MXU,
                                          KERNEL_SINGLE_PASS, KERNEL_STREAM,
                                          KERNEL_TWO_PASS, STREAM_BUFFERS)
+from tpu_reductions_torch.obs import spans
 from tpu_reductions_torch.ops import _cuda
 from tpu_reductions_torch.ops.oracle import host_value
 from tpu_reductions_torch.ops.registry import (ReduceOpSpec, accum_dtype,
@@ -297,7 +298,8 @@ def _check_staged(x2d: torch.Tensor, sub: int) -> None:
                          f"{tuple(x2d.shape)}")
 
 
-def single_pass_call(x2d: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
+def single_pass_call(x2d: torch.Tensor, op: ReduceOpSpec,
+                     rec: Optional[spans.HotRecord] = None) -> torch.Tensor:
     """k6: the (sub, 128) accumulator of a staged tensor; replaces the
     JAX package's single_pass_call. Bound by the bytes it reads. Pass 1
     folds the rows with deep 16-byte loads over about one CTA per two
@@ -305,7 +307,8 @@ def single_pass_call(x2d: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
     distributed shared memory into one partial each (plan_k6); pass 2
     folds those few partials over sub CTAs, one per slot row. No float
     atomics, so a tensor gives the same bits on every call. Both passes
-    count as one launch.
+    count as one launch. `rec`, the reduce call's open span record,
+    takes the ends of its plan, allocations and launch.
     The counterpart of tpu_reductions/ops/pallas_reduce.py:390."""
     if x2d.device.type == "cpu":
         return single_pass_plain(x2d, op)
@@ -315,10 +318,16 @@ def single_pass_call(x2d: torch.Tensor, op: ReduceOpSpec) -> torch.Tensor:
     plan = plan_k6(x2d.shape[0], sub, _sm_count(x2d.device),
                    _active_clusters(x2d.device, op.name, x2d.dtype))
     acc = _acc_dtype(x2d.dtype, op)
+    if rec is not None:
+        rec.mark(spans.PLAN_END)
     out = torch.empty((sub, LANES), dtype=acc, device=x2d.device)
     partials = (torch.empty((plan.blocks * sub, LANES), dtype=acc,
                             device=x2d.device) if plan.blocks > 1 else out)
+    if rec is not None:
+        rec.mark(spans.ALLOC_END)
     _cuda.k6_reduce(x2d, partials, out, plan, op.name)
+    if rec is not None:
+        rec.mark(spans.LAUNCH_END)
     single_pass_call.launches += 1
     return out
 
@@ -649,28 +658,32 @@ def host_finish(partials: torch.Tensor, op: ReduceOpSpec):
 
 
 # One kernel call per reduce, by kernel id, each called as
-# (x2d, op, tm, stream_buffers); k7 (the multi-pass partials chain) is the
-# only structure outside this map. k10's entry is the one place where the
-# depth meets the dispatch, for every entry point.
+# (x2d, op, tm, stream_buffers, rec), rec the reduce call's open span
+# record (obs/spans.py; None while the recorder is off), which k6 alone
+# stamps; k7 (the multi-pass partials chain) is the only structure
+# outside this map. k10's entry is the one place where the depth meets
+# the dispatch, for every entry point.
 SINGLE_INVOCATION_CALLS = {
-    KERNEL_SINGLE_PASS: lambda x2d, op, tm, depth: single_pass_call(x2d, op),
-    KERNEL_ELEMENTWISE: lambda x2d, op, tm, depth: elementwise_call(
+    KERNEL_SINGLE_PASS: lambda x2d, op, tm, depth, rec: single_pass_call(
+        x2d, op, rec),
+    KERNEL_ELEMENTWISE: lambda x2d, op, tm, depth, rec: elementwise_call(
         x2d, op, tm),
-    KERNEL_MXU: lambda x2d, op, tm, depth: mxu_call(x2d, op),
-    KERNEL_STREAM: lambda x2d, op, tm, depth: stream_call(x2d, op, tm,
-                                                          depth),
+    KERNEL_MXU: lambda x2d, op, tm, depth, rec: mxu_call(x2d, op),
+    KERNEL_STREAM: lambda x2d, op, tm, depth, rec: stream_call(x2d, op, tm,
+                                                               depth),
 }
 
 
 def _device_fn(kernel: int, op: ReduceOpSpec, tm: int, p: int, t: int,
                threads: int, max_blocks: int, cpu_thresh: int,
                stream_buffers: int):
-    """The device-only accumulator function of a kernel id."""
+    """The device-only accumulator function of a kernel id, called as
+    (x2d) or (x2d, rec)."""
     if kernel in SINGLE_INVOCATION_CALLS:
         call = SINGLE_INVOCATION_CALLS[kernel]
-        return lambda x2d: call(x2d, op, tm, stream_buffers)
+        return lambda x2d, rec=None: call(x2d, op, tm, stream_buffers, rec)
     if kernel == KERNEL_TWO_PASS:
-        return lambda x2d: _multipass_finish(
+        return lambda x2d, rec=None: _multipass_finish(
             two_pass_call(x2d, op, tm, p, t), op, threads, max_blocks,
             cpu_thresh)
     raise ValueError(f"kernel {kernel} is not live; only 6-10 run "
@@ -706,9 +719,21 @@ def make_staged_reduce(method: str, n: int, dtype: DtypeLike, *,
         method, n, dtype, threads=threads, max_blocks=max_blocks,
         kernel=kernel, cpu_thresh=cpu_thresh, stream_buffers=stream_buffers,
         device=device)
-    if cpu_final:
-        return stage_fn, lambda x2d: host_finish(device_fn(x2d), op)
-    return stage_fn, lambda x2d: finish(device_fn(x2d), op)
+    fin = host_finish if cpu_final else finish
+    k6 = kernel == KERNEL_SINGLE_PASS
+
+    def reduce_fn(x2d):
+        rec = spans.hot_begin()
+        if rec is None:
+            return fin(device_fn(x2d), op)
+        # recorded (obs/spans.py): k6 on the card stamps its plan,
+        # allocations and launch, every kernel its finish
+        if k6 and x2d.device.type == "cuda":
+            rec.plan()
+        return spans.hot_call(rec, lambda: device_fn(x2d, rec),
+                              lambda acc: fin(acc, op))
+
+    return stage_fn, reduce_fn
 
 
 def make_staged_core(method: str, n: int, dtype: DtypeLike, *,
