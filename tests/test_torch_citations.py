@@ -92,6 +92,8 @@ NO_ANALOG = [
     "bench/passes.py::main",
     "ops/_cuda.py",
     "ops/_cuda.py::build",
+    "ops/_cuda.py::Card",
+    "ops/_cuda.py::card",
     "ops/_cuda.py::library",
     "ops/_cuda.py::span_active_clusters",
     "ops/_cuda.py::spin_ns",

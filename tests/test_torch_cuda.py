@@ -152,6 +152,125 @@ def test_k6_matches_plain_at_plan_edges(cuda_device, dtype, groups):
                          kr.single_pass_plain(x2d, op), method, dtype)
 
 
+# The six rows of the benchmark's sdk_reduction configuration.
+SDK_ROWS = (("MAX", "int32"), ("MIN", "int32"), ("SUM", "int32"),
+            ("MAX", "float64"), ("MIN", "float64"), ("SUM", "float64"))
+
+
+def _sdk_staged(method, dtype, n, device, payloads=4):
+    """(reduce_fn, op, staged payloads) of one sdk_reduction row."""
+    stage_fn, reduce_fn = kr.make_staged_reduce(method, n, dtype,
+                                                device=device)
+    staged = [stage_fn(payload(n, dtype, method, seed=s))
+              for s in range(payloads)]
+    return reduce_fn, get_op(method), staged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1 << 24, (1 << 20) + 7])
+@pytest.mark.parametrize("method, dtype", SDK_ROWS)
+def test_bound_reduce_fn_gives_single_pass_calls_bits(cuda_device, method,
+                                                      dtype, n):
+    """reduce_fn binds k6 at its first call; every call, over four
+    rotating payloads, gives finish(single_pass_call(x2d, op), op)'s
+    bits in a fresh 0-d tensor."""
+    reduce_fn, op, staged = _sdk_staged(method, dtype, n, cuda_device)
+    want = [bits(kr.finish(kr.single_pass_call(x, op), op)) for x in staged]
+    before = kr.single_pass_call.launches
+    got = [reduce_fn(staged[i % 4]) for i in range(12)]
+    torch.cuda.synchronize()
+    assert kr.single_pass_call.launches - before == 12
+    assert len({g.data_ptr() for g in got}) == 12
+    for i, g in enumerate(got):
+        assert g.dim() == 0 and torch.equal(bits(g), want[i % 4])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method, dtype", SDK_ROWS)
+def test_held_answers_survive_later_bound_calls(cuda_device, method, dtype):
+    """The benchmark holds each answer on the card until it fetches them:
+    an answer stays right after 64 further calls reuse the scratch."""
+    reduce_fn, op, staged = _sdk_staged(method, dtype, 1 << 24, cuda_device)
+    want = [bits(kr.finish(kr.single_pass_call(x, op), op)) for x in staged]
+    held = [reduce_fn(staged[i % 4]) for i in range(8)]
+    for i in range(64):
+        reduce_fn(staged[(i * 3 + 1) % 4])
+    torch.cuda.synchronize()
+    for i, h in enumerate(held):
+        assert torch.equal(bits(h), want[i % 4])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method, dtype", [("SUM", "float64"),
+                                           ("MAX", "int32")])
+def test_bound_reduce_fn_on_two_threads_and_streams(cuda_device, method,
+                                                    dtype):
+    """Two host threads, each on a stream of its own, call one reduce_fn
+    at once: each keeps its own scratch, and every answer has the bits
+    of the one-thread calls."""
+    import threading
+    reduce_fn, op, staged = _sdk_staged(method, dtype, 1 << 24, cuda_device)
+    one = [bits(reduce_fn(x)) for x in staged]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    got, errors = {}, []
+    both = threading.Barrier(2)
+
+    def run(t):
+        try:
+            with torch.cuda.stream(streams[t]):
+                both.wait(30)
+                outs = [reduce_fn(staged[(i + t) % 4]) for i in range(64)]
+                streams[t].synchronize()
+            got[t] = outs
+        except Exception as e:      # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    assert not errors and not any(th.is_alive() for th in threads)
+    for t in range(2):
+        for i, g in enumerate(got[t]):
+            assert torch.equal(bits(g), one[(i + t) % 4])
+
+
+@pytest.mark.gpu
+def test_k6_chain_and_a_captured_reduce_fn_keep_their_bits(cuda_device):
+    """Under a CUDA graph capture reduce_fn allocates fresh, in the
+    graph's pool: the replayed answer, the k6 chain's and the bound
+    calls' before and after it all have the same bits."""
+    from tpu_reductions_torch.ops.chain import make_chained_reduce
+    n = (1 << 20) + 37
+    x = payload(n, "int32", "SUM")
+    stage_fn, reduce_fn = kr.make_staged_reduce("SUM", n, "int32",
+                                                device=cuda_device)
+    x2d = stage_fn(x)
+    want = bits(reduce_fn(x2d))
+    op, core_stage, core = kr.make_staged_core("SUM", n, "int32",
+                                               device=cuda_device)
+    chained = make_chained_reduce(core, op)
+    try:
+        chain_got = [chained(core_stage(x), 1) for _ in range(2)]
+    finally:
+        chained.close()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        reduce_fn(x2d)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = reduce_fn(x2d)
+    graph.replay()
+    after = reduce_fn(x2d)
+    torch.cuda.synchronize()
+    for g in chain_got + [captured, after]:
+        assert torch.equal(bits(g), want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("p, groups", [(1, 512), (2, 512), (3, 512),
                                        (16, 64), (64, 3), (132, 3),

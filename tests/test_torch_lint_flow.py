@@ -407,6 +407,56 @@ def test_deleting_the_gate_from_spot_fires_red017(tmp_path):
     assert "spot.run_spots -> " in msg and "driver.run_benchmark" in msg
 
 
+def _reaches_k6(project, fqn):
+    """Whether `fqn` calls the k6 launch wrapper (_cuda.k6_reduce, a
+    DISPATCH site) itself or over resolved edges."""
+    seen, todo = set(), [fqn]
+    while todo:
+        at = todo.pop()
+        if at in seen:
+            continue
+        seen.add(at)
+        for cs in project.nodes[at][1].calls:
+            if cs.raw.endswith("_cuda.k6_reduce") and \
+                    F.DISPATCH in F.classify_call(cs):
+                return True
+            callee = project.resolve_target(cs.target) if cs.target \
+                else None
+            if callee:
+                todo.append(callee)
+    return False
+
+
+@pytest.mark.parametrize("where", ["single_pass_call", "K6Binding.call",
+                                   "StagedK6.call", "_device_fn",
+                                   "make_staged_reduce", "kernel_reduce"])
+def test_the_bound_k6_launch_stays_dispatch_on_the_main_path(tmp_path,
+                                                             where):
+    """k6's launch, bound or not, goes through the kernel wrapper the flow
+    rules know, so single_pass_call, the bound launch and
+    make_staged_reduce (its reduce_fn folds into it) reach k6's DISPATCH
+    over edges the call graph resolves; a launch spelled any other way
+    reaches nothing."""
+    rels = ("ops/kernel_reduce.py", "ops/_cuda.py")
+    mod = "tpu_reductions_torch.ops.kernel_reduce::"
+
+    def project_of(root):
+        files = sorted(root.rglob("*.py"))
+        return build_cached_project(files, [root],
+                                    rels={f: str(f) for f in files})
+
+    project = project_of(_copy(tmp_path / "a", rels))
+    assert _reaches_k6(project, mod + where)
+    summary = dataflow.compute_summaries(project)[mod + where]
+    assert summary.unguarded_dispatch is not None
+
+    def hide(rel, src):
+        return src.replace("_cuda.k6_reduce(", "_cuda.k6_launch_probe(") \
+            if rel == "ops/kernel_reduce.py" else src
+    hidden = project_of(_copy(tmp_path / "b", rels, hide))
+    assert not _reaches_k6(hidden, mod + where)
+
+
 ENGINE_DRIVER = ("from tpu_reductions_torch.serve.engine import ServeEngine\n"
                  "\n"
                  "def main():\n"

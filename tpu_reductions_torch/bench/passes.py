@@ -507,8 +507,11 @@ def sweep_plans(kr, registry, host_data, dev) -> list:
             k6 = plan(groups, sub, ctas // cluster, cluster)
             parts = torch.empty((k6.blocks * sub, 128), dtype=acc,
                                 device=dev)
+            args = _cuda.k6_args(x2d.shape[0], k6, op.name, x2d.dtype)
+            stream = torch.cuda.current_stream(dev).cuda_stream
             record("k6", x2d, k6, device_ms(lambda: _cuda.k6_reduce(
-                x2d, parts, out, k6, op.name)))
+                x2d.data_ptr(), parts.data_ptr(), out.data_ptr(), args,
+                stream)))
         if dtype != "int32":
             continue
         for p7, cluster in ((64, 1), (64, 2), (32, 1), (32, 2), (16, 1),

@@ -8,7 +8,8 @@ obs/trace_export.py rebuilds the tree offline. Host-side only: no device
 sync. With the ledger unarmed a span is one attribute test.
 
 The reduce call, too short for ledger events, has its own recorder
-below: spans kept in memory (`hot_begin`, `hot_records`).
+below: spans kept in memory (`hot_begin`, `hot_records`), and the count
+of its calls that take k6's bound launch (`K6_BOUND`).
 """
 
 from __future__ import annotations
@@ -59,10 +60,13 @@ def span(name: str, **fields):
 # record a call, kept in two preallocated rings and read at the end:
 #
 #   reduce          reduce_fn's entry to its return, the parent of:
-#   reduce.plan     entry to just before k6's first torch.empty (the
-#                   checks, plan_k6 with its cached queries, the dtype)
-#   reduce.alloc    k6's two torch.empty
-#   reduce.launch   _cuda.k6_reduce as a whole
+#   reduce.plan     entry to k6's scratch: on the bound path the binding
+#                   check, on a bind or the unbound path the checks,
+#                   plan_k6 with its cached queries and the dtype
+#   reduce.alloc    the stream's scratch: the bound path's lookup, or two
+#                   torch.empty
+#   reduce.launch   k6's ctypes call (with the device guard, where the
+#                   device is not current)
 #   reduce.finish   finish's op.reduce (host_finish with --cpufinal)
 #
 # k7-k10, and dd_reduce.make_dd_staged_reduce's reduce_fn, record
@@ -273,3 +277,30 @@ def hot_sections(record: tuple) -> dict:
     """Each span a record holds, as (start_ns, end_ns)."""
     return {name: (record[a], record[b]) for name, (a, b) in SLOTS.items()
             if record[a] and record[b]}
+
+
+# ---------------------------------------------------------------------------
+# How often the reduce call takes k6's bound launch
+# ---------------------------------------------------------------------------
+
+
+class BoundCount:
+    """k6's reduce calls on the card since the process began (or the last
+    `reset`), by the way each went (ops/kernel_reduce.K6Binding): `hits`
+    took their reduce_fn's bound launch, `binds` made it, `misses` took
+    the unbound path (a tensor the binding does not match, or a stream
+    capturing a CUDA graph). Plain increments, always on: one a call."""
+
+    __slots__ = ("hits", "binds", "misses")
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.hits = self.binds = self.misses = 0
+
+    def calls(self) -> int:
+        return self.hits + self.binds + self.misses
+
+
+K6_BOUND = BoundCount()

@@ -18,12 +18,14 @@ each wrapper below names the TPU kernel it replaces.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -164,19 +166,55 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def k6_reduce(x2d: torch.Tensor, partials: torch.Tensor, out: torch.Tensor,
-              plan, op_name: str) -> None:
-    """Launch k6's two passes, laid out by `plan` (a kernel_reduce.SpanPlan),
-    on x2d's device and current stream.
+def k6_args(rows: int, plan, op_name: str, dtype: torch.dtype) -> tuple:
+    """tr_k6_reduce's arguments that the staged rows, `plan` (a
+    kernel_reduce.SpanPlan), the op and the input's dtype fix, converted
+    to ctypes values once, for k6_reduce.
+    The static arguments of tpu_reductions/ops/pallas_reduce.py:390."""
+    return (_LL(rows), _LL(plan.span), _LL(plan.share), _INT(plan.blocks),
+            _INT(plan.cluster), _INT(OP_CODES[op_name]),
+            _INT(DTYPE_CODES[dtype]))
+
+
+def k6_reduce(x: int, partials: int, out: int, args: tuple,
+              stream: int) -> None:
+    """Launch k6's two passes on the current device and the raw `stream`:
+    `x`, `partials` and `out` are the input's, the partials' and the
+    accumulator's addresses, `args` k6_args' tuple. One ctypes call;
+    raises on a refused launch.
     Replaces tpu_reductions/ops/pallas_reduce.py:390."""
     lib = library("reduce")
-    with torch.cuda.device(x2d.device):
-        err = lib.tr_k6_reduce(x2d.data_ptr(), partials.data_ptr(),
-                               out.data_ptr(), x2d.shape[0], plan.span,
-                               plan.share, plan.blocks, plan.cluster,
-                               OP_CODES[op_name], DTYPE_CODES[x2d.dtype],
-                               _stream(x2d))
-    _check(lib, err, "k6")
+    err = lib.tr_k6_reduce(x, partials, out, *args, stream)
+    if err:
+        _check(lib, err, "k6")
+
+
+@dataclasses.dataclass(frozen=True)
+class Card:
+    """What a bound k6 launch (kernel_reduce.K6Binding) asks of the
+    runtime on a call, each the runtime's own function, so that asking
+    costs no Python frame: `kind`, the device type of the tensors it takes;
+    `stream(index)`, the raw handle of that device's current stream;
+    `capturing()`, whether the current stream is capturing a CUDA graph;
+    `device()`, the current device's index; `guard(index)`, a context that
+    makes a device current. Tests hand in a fake one.
+    No reference analog: a TPU call has no stream or current device."""
+    kind: str
+    stream: Callable
+    capturing: Callable
+    device: Callable
+    guard: Callable
+
+
+@functools.cache
+def card() -> Card:
+    """The CUDA runtime's Card. A CPU build of torch has none of its
+    functions (they read None), and no tensor there reaches them.
+    No reference analog (Card)."""
+    c = torch._C
+    return Card("cuda", getattr(c, "_cuda_getCurrentRawStream", None),
+                getattr(c, "_cuda_isCurrentStreamCapturing", None),
+                getattr(c, "_cuda_getDevice", None), torch.cuda.device)
 
 
 def k7_reduce(x2d: torch.Tensor, out: torch.Tensor, plan,

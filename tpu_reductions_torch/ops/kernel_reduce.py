@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from threading import enumerate as live_threads, get_ident
 from typing import Optional, Union
 
 import torch
@@ -283,9 +284,10 @@ def _active_clusters(device: torch.device, op_name: str,
     return _cuda.span_active_clusters(device, CLUSTER, op_name, dtype)
 
 
-def _check_staged(x2d: torch.Tensor, sub: int) -> None:
-    """Refuse what the CUDA kernels do not take."""
-    if x2d.device.type != "cuda":
+def _check_staged(x2d: torch.Tensor, sub: int, kind: str = "cuda") -> None:
+    """Refuse what the CUDA kernels do not take (`kind`, the card's device
+    type, is another only for a test's fake card)."""
+    if x2d.device.type != kind:
         raise ValueError(f"the reduction kernels run on CUDA tensors (CPU "
                          f"tensors take the plain version), got "
                          f"{x2d.device}")
@@ -298,41 +300,157 @@ def _check_staged(x2d: torch.Tensor, sub: int) -> None:
                          f"{tuple(x2d.shape)}")
 
 
+class K6Binding:
+    """k6 bound to one staged shape, dtype and device, for one op, on
+    `card` (_cuda.Card): the checks, plan_k6 and the accumulator's dtype
+    done once, the launch's arguments converted once (_cuda.k6_args).
+    `call` launches k6 into a fresh `out` and `partials`, or into a pair
+    it keeps per stream and host thread. A kept pair is reused in stream
+    order only: each call's finish reads `out` before the next call's k6
+    on that stream writes it, and two streams or two threads never share
+    a pair. A new pair first drops the pairs of threads that have ended,
+    so the pairs kept are at most one per live thread and stream it
+    reduced on.
+    The counterpart of tpu_reductions/ops/pallas_reduce.py:390."""
+
+    __slots__ = ("key", "sub", "plan", "acc", "index", "card", "args",
+                 "kept")
+
+    def __init__(self, x2d: torch.Tensor, op: ReduceOpSpec, card) -> None:
+        sub = sublanes_for(x2d.dtype)
+        _check_staged(x2d, sub, card.kind)
+        _check_aligned(x2d)
+        self.plan = plan_k6(x2d.shape[0], sub, _sm_count(x2d.device),
+                            _active_clusters(x2d.device, op.name, x2d.dtype))
+        self.key = (x2d.shape, x2d.dtype, x2d.device)
+        self.sub, self.acc = sub, _acc_dtype(x2d.dtype, op)
+        self.index, self.card = x2d.device.index, card
+        self.args = _cuda.k6_args(x2d.shape[0], self.plan, op.name,
+                                  x2d.dtype)
+        self.kept = {}
+
+    def takes(self, x2d: torch.Tensor) -> bool:
+        """Whether x2d has the bound shape, dtype and device, is
+        contiguous and aligned, and its stream is not capturing a graph
+        (whose allocations belong to the graph's pool): the card's form
+        of the shape and dtype that key the jitted program of
+        tpu_reductions/ops/pallas_reduce.py:589."""
+        return ((x2d.shape, x2d.dtype, x2d.device) == self.key
+                and x2d.is_contiguous() and not x2d.data_ptr() % 16
+                and not self.card.capturing())
+
+    def fresh(self) -> tuple:
+        """(out, partials, out's address, partials' address): k6's
+        (sub, 128) accumulator and its pass 1 partials, `out` itself
+        where one partial block is all.
+        The outputs of tpu_reductions/ops/pallas_reduce.py:390."""
+        device = self.key[2]
+        out = torch.empty((self.sub, LANES), dtype=self.acc, device=device)
+        partials = (torch.empty((self.plan.blocks * self.sub, LANES),
+                                dtype=self.acc, device=device)
+                    if self.plan.blocks > 1 else out)
+        return out, partials, out.data_ptr(), partials.data_ptr()
+
+    def renew(self) -> tuple:
+        """A fresh pair to keep, once the pairs of ended threads are
+        dropped (their streams' work on them precedes any later call on
+        those streams, as a dropped fresh pair's does).
+        The outputs of tpu_reductions/ops/pallas_reduce.py:390, kept."""
+        live = {t.ident for t in live_threads()}
+        for at in list(self.kept):
+            if at[1] not in live:
+                self.kept.pop(at, None)
+        return self.fresh()
+
+    def call(self, x2d: torch.Tensor, rec: Optional[spans.HotRecord],
+             keep: bool) -> torch.Tensor:
+        """Launch k6 on x2d, a tensor of the bound kind, on the current
+        stream, into the stream's and thread's kept pair (`keep`) or a
+        fresh one, and return `out`. `rec`, the reduce call's open span
+        record, takes the ends of its plan, scratch and launch.
+        The counterpart of tpu_reductions/ops/pallas_reduce.py:390."""
+        if rec is not None:
+            rec.mark(spans.PLAN_END)
+        card = self.card
+        stream = card.stream(self.index)
+        if keep:
+            at = (stream, get_ident())
+            pair = self.kept.get(at)
+            if pair is None:
+                pair = self.kept[at] = self.renew()
+        else:
+            pair = self.fresh()
+        if rec is not None:
+            rec.mark(spans.ALLOC_END)
+        if card.device() == self.index:
+            _cuda.k6_reduce(x2d.data_ptr(), pair[3], pair[2], self.args,
+                            stream)
+        else:
+            with card.guard(self.index):
+                _cuda.k6_reduce(x2d.data_ptr(), pair[3], pair[2],
+                                self.args, stream)
+        if rec is not None:
+            rec.mark(spans.LAUNCH_END)
+        single_pass_call.launches += 1
+        return pair[0]
+
+
 def single_pass_call(x2d: torch.Tensor, op: ReduceOpSpec,
                      rec: Optional[spans.HotRecord] = None) -> torch.Tensor:
-    """k6: the (sub, 128) accumulator of a staged tensor; replaces the
-    JAX package's single_pass_call. Bound by the bytes it reads. Pass 1
-    folds the rows with deep 16-byte loads over about one CTA per two
-    SMs, in thread-block clusters that fold their CTAs' slots over
-    distributed shared memory into one partial each (plan_k6); pass 2
-    folds those few partials over sub CTAs, one per slot row. No float
-    atomics, so a tensor gives the same bits on every call. Both passes
-    count as one launch. `rec`, the reduce call's open span record,
-    takes the ends of its plan, allocations and launch.
+    """k6: the (sub, 128) accumulator of a staged tensor, a fresh one each
+    call; replaces the JAX package's single_pass_call. Bound by the bytes
+    it reads. Pass 1 folds the rows with deep 16-byte loads over about
+    one CTA per two SMs, in thread-block clusters that fold their CTAs'
+    slots over distributed shared memory into one partial each (plan_k6);
+    pass 2 folds those few partials over sub CTAs, one per slot row. No
+    float atomics, so a tensor gives the same bits on every call. Both
+    passes count as one launch. A one-call K6Binding: make_staged_reduce's
+    reduce_fn keeps its binding instead (StagedK6). `rec`, the reduce
+    call's open span record, takes the ends of its plan, allocations and
+    launch.
     The counterpart of tpu_reductions/ops/pallas_reduce.py:390."""
     if x2d.device.type == "cpu":
         return single_pass_plain(x2d, op)
-    sub = sublanes_for(x2d.dtype)
-    _check_staged(x2d, sub)
-    _check_aligned(x2d)
-    plan = plan_k6(x2d.shape[0], sub, _sm_count(x2d.device),
-                   _active_clusters(x2d.device, op.name, x2d.dtype))
-    acc = _acc_dtype(x2d.dtype, op)
-    if rec is not None:
-        rec.mark(spans.PLAN_END)
-    out = torch.empty((sub, LANES), dtype=acc, device=x2d.device)
-    partials = (torch.empty((plan.blocks * sub, LANES), dtype=acc,
-                            device=x2d.device) if plan.blocks > 1 else out)
-    if rec is not None:
-        rec.mark(spans.ALLOC_END)
-    _cuda.k6_reduce(x2d, partials, out, plan, op.name)
-    if rec is not None:
-        rec.mark(spans.LAUNCH_END)
-    single_pass_call.launches += 1
-    return out
+    b = K6Binding(x2d, op, _cuda.card())
+    return b.call(x2d, rec, False)
 
 
 single_pass_call.launches = 0
+
+
+class StagedK6:
+    """make_staged_reduce's k6: the first tensor off the CPU binds
+    (K6Binding; a tensor the kernels refuse raises as single_pass_call
+    does); a tensor the binding takes then takes the bound launch, into
+    scratch kept per stream and thread; any other goes through
+    single_pass_call. Each call off the CPU counts in spans.K6_BOUND.
+    reduce_fn's answer is finish's fresh 0-d tensor (or a host scalar),
+    never the kept `out`.
+    The k6 device call of tpu_reductions/ops/pallas_reduce.py:589."""
+
+    __slots__ = ("op", "binding")
+
+    def __init__(self, op: ReduceOpSpec) -> None:
+        self.op, self.binding = op, None
+
+    def call(self, x2d: torch.Tensor,
+             rec: Optional[spans.HotRecord] = None) -> torch.Tensor:
+        """k6's accumulator of x2d (a host tensor's by the plain
+        version); `rec` as single_pass_call's.
+        The counterpart of tpu_reductions/ops/pallas_reduce.py:390."""
+        b = self.binding
+        if b is not None and b.takes(x2d):
+            spans.K6_BOUND.hits += 1
+            return b.call(x2d, rec, True)
+        if x2d.device.type == "cpu":
+            return single_pass_plain(x2d, self.op)
+        if b is None:
+            b = K6Binding(x2d, self.op, _cuda.card())
+            self.binding = b
+            spans.K6_BOUND.binds += 1
+            return b.call(x2d, rec, not b.card.capturing())
+        spans.K6_BOUND.misses += 1
+        return single_pass_call(x2d, self.op, rec)
 
 
 def two_pass_call(x2d: torch.Tensor, op: ReduceOpSpec, tm: int, p: int,
@@ -676,9 +794,13 @@ SINGLE_INVOCATION_CALLS = {
 
 def _device_fn(kernel: int, op: ReduceOpSpec, tm: int, p: int, t: int,
                threads: int, max_blocks: int, cpu_thresh: int,
-               stream_buffers: int):
+               stream_buffers: int, bind: bool = False):
     """The device-only accumulator function of a kernel id, called as
-    (x2d) or (x2d, rec)."""
+    (x2d) or (x2d, rec); k6's bound to its first staged tensor on the
+    card with `bind` (StagedK6)."""
+    if kernel == KERNEL_SINGLE_PASS and bind:
+        k6 = StagedK6(op)
+        return lambda x2d, rec=None: k6.call(x2d, rec)
     if kernel in SINGLE_INVOCATION_CALLS:
         call = SINGLE_INVOCATION_CALLS[kernel]
         return lambda x2d, rec=None: call(x2d, op, tm, stream_buffers, rec)
@@ -693,7 +815,7 @@ def _device_fn(kernel: int, op: ReduceOpSpec, tm: int, p: int, t: int,
 def _make_staged_parts(method: str, n: int, dtype: DtypeLike, *,
                        threads: int, max_blocks: int, kernel: int,
                        cpu_thresh: int, stream_buffers: int,
-                       device: Optional[torch.device]):
+                       device: Optional[torch.device], bind: bool = False):
     op = get_op(method)
     tm, p, t = choose_tiling(n, threads, max_blocks, dtype)
 
@@ -701,7 +823,8 @@ def _make_staged_parts(method: str, n: int, dtype: DtypeLike, *,
         return stage_padded(x, tm, p, t, op, device)
 
     return op, stage_fn, _device_fn(kernel, op, tm, p, t, threads,
-                                    max_blocks, cpu_thresh, stream_buffers)
+                                    max_blocks, cpu_thresh, stream_buffers,
+                                    bind)
 
 
 def make_staged_reduce(method: str, n: int, dtype: DtypeLike, *,
@@ -712,13 +835,16 @@ def make_staged_reduce(method: str, n: int, dtype: DtypeLike, *,
                        device: Optional[torch.device] = None):
     """(stage_fn, reduce_fn): `stage_fn` pads and copies the host payload
     to `device` once, outside the timed loop; `reduce_fn` maps the staged
-    tensor to the result (a 0-d device tensor, or a host scalar with
-    cpu_final).
+    tensor to the result (a 0-d device tensor, fresh each call, or a host
+    scalar with cpu_final). With k6, reduce_fn binds its launch to the
+    first staged tensor it is given on the card (StagedK6): later calls
+    with a tensor of that kind skip the checks, the plan and the
+    allocations.
     The counterpart of tpu_reductions/ops/pallas_reduce.py:589."""
     op, stage_fn, device_fn = _make_staged_parts(
         method, n, dtype, threads=threads, max_blocks=max_blocks,
         kernel=kernel, cpu_thresh=cpu_thresh, stream_buffers=stream_buffers,
-        device=device)
+        device=device, bind=True)
     fin = host_finish if cpu_final else finish
     k6 = kernel == KERNEL_SINGLE_PASS
 
